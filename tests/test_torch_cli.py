@@ -67,9 +67,10 @@ def test_count_bytes_match_jax_cli(fastas, envs, tmp_path, flags):
     (["-k", "21", "-D", "8"], "item 5"),
     (["-k", "21", "-W", "5"], "item 6"),
     (["-k", "21", "-S", "9"], "item 6"),
-    (["-k", "21", "-l"], "item 3"),
-    (["-k", "21", "-T", "-r", r"(\d+)"], "item 8"),
+    (["-k", "21", "-T", "-r", r"(\d+)", "-H"], "item 5"),
+    (["-k", "21", "-T", "-r", r"(\d+)", "-W", "5"], "item 6"),
     (["-k", "21", "--mesh", "2"], "item 9"),
+    (["-k", "21", "-T", "-r", r"(\d+)", "--mesh", "2"], "item 9"),
 ])
 def test_unported_flags_exit_naming_roadmap(fastas, envs, tmp_path, caplog,
                                             flags, item):

@@ -97,6 +97,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ukt_radix_hist.argtypes = [p, i64, i32, i32, p, i64, p]
     lib.ukt_radix_scatter.restype = i32
     lib.ukt_radix_scatter.argtypes = [p, p, i64, i32, i32, p, i64, p]
+    lib.ukt_radix_scatter_kv.restype = i32
+    lib.ukt_radix_scatter_kv.argtypes = [p, p, p, p, i64, i32, i32, p, i64, p]
 
 
 def load() -> ctypes.CDLL:

@@ -1,11 +1,13 @@
 """count: generate k-mers from FASTA/Q sequences, on the port's device path.
 
-Port of unikmer_tpu/cli/commands/count.py with the same flags and the
-same ``.unik`` header flags and writer settings.  2-bit configs
-(k <= 32, -K, -s, -u, -d, --circular, -t, several files, -C) always
-run on the device through models/count.py; there is no size-based
-routing to the host engine.  Flags whose pipelines are not ported yet
-exit with an error that names the ROADMAP item bringing them.
+Port of unikmer_tpu/cli/commands/count.py with the same flags, checks
+and messages, and the same ``.unik`` header flags and writer settings.
+2-bit configs (k <= 32, -K, -s, -u, -d, --circular, -t, several files,
+-C), -T/-r (per-record taxids, LCA-merged, read with --data-dir's
+nodes.dmp) and -l (genome order, with or without -T) always run on the
+device through models/count.py; there is no size-based routing to the
+host engine.  Flags whose pipelines are not ported yet exit with an
+error that names the ROADMAP item bringing them.
 """
 
 from __future__ import annotations
@@ -13,11 +15,12 @@ from __future__ import annotations
 import os
 import re
 
+import numpy as np
 import torch
 
 from unikmer_tpu.io import unik
 from unikmer_tpu.io.fastx import (
-    PackedSeqs, _try_native_load, pack_records, read_fastx,
+    PackedSeqs, _try_native_load, pack_files, pack_records, read_fastx,
 )
 from unikmer_tpu.ops.codec import MAX_K_ENCODED
 from unikmer_tpu.utils.log import die, log
@@ -28,8 +31,9 @@ from unikmer_tpu.cli.opts import (
 
 from ..._device import get_device
 from ...models.count import (
-    CountConfig, SpilledCount, _stream_chunk_bases, count_stream,
-    count_stream_packed,
+    CountConfig, SpilledCount, _stream_chunk_bases, count_linear,
+    count_packed_taxids, count_stream, count_stream_packed, linear_codes_all,
+    parse_taxid_records,
 )
 from ...utils.stages import stage
 
@@ -38,8 +42,6 @@ _NOT_PORTED = {
     "hash": "-H/--hash, -D/--scale and k > 32 (ntHash): ROADMAP queue 1 item 5",
     "sketch": "-W/--minimizer-w and -S/--syncmer-s (sketches): ROADMAP queue 1 "
               "item 6",
-    "linear": "-l/--linear (count_linear): ROADMAP queue 1 item 3",
-    "taxid": "-T/--parse-taxid (taxid LCA): ROADMAP queue 1 item 8",
     "mesh": "--mesh (multi-GPU over NCCL): ROADMAP queue 1 item 9",
 }
 
@@ -76,15 +78,13 @@ def register(subparsers):
     p.set_defaults(func=run)
 
 
-def _not_ported(args) -> str | None:
+def _not_ported(args, opt) -> str | None:
     if args.hash or args.kmer_len > MAX_K_ENCODED or args.scale > 1:
         return _NOT_PORTED["hash"]
     if args.minimizer_w > 0 or args.syncmer_s > 0 or args.syncmer_impl != "edgar":
         return _NOT_PORTED["sketch"]
-    if args.linear:
-        return _NOT_PORTED["linear"]
-    if args.parse_taxid:
-        return _NOT_PORTED["taxid"]
+    if opt.mesh >= 1 and not args.linear:  # -l runs on one device anyway
+        return _NOT_PORTED["mesh"]
     return None
 
 
@@ -93,11 +93,24 @@ def run(args) -> int:
     k = args.kmer_len
     if k <= 0:
         die("k-mer length must be positive")
-    todo = _not_ported(args) or (_NOT_PORTED["mesh"] if opt.mesh >= 1 else None)
+    todo = _not_ported(args, opt)
     if todo:
         die(f"not supported by unikmer_tpu_torch yet: {todo}")
     if args.unique and args.repeated:
         die("flag -u/--unique and -d/--repeated are not compatible")
+    if args.linear and args.sort:
+        die("flag -l/--linear and -s/--sort are not compatible")
+    if args.linear and (args.unique or args.repeated):
+        log.warning("flag -d/--repeated and -u/--unique are ignored when -l/--linear given")
+    re_taxid = None
+    if args.parse_taxid:
+        if args.taxid > 0:
+            die("flag -t/--taxid and -T/--parse-taxid can not be given simultaneously")
+        if not args.parse_taxid_regexp:
+            die("flag -r/--parse-taxid-regexp needed when given flag -T/--parse-taxid")
+        if not re.search(r"\(.+\)", args.parse_taxid_regexp):
+            die('value of -r/--parse-taxid-regexp must contain "(" and ")" to capture taxid')
+        re_taxid = re.compile(args.parse_taxid_regexp.encode())
     try:
         device = get_device()
     except RuntimeError as e:
@@ -115,6 +128,8 @@ def run(args) -> int:
     files = get_file_list(args, check_exists=not opt.skip_file_check)
     out_file = ensure_unik_suffix(args.out_prefix)
     mode = "repeated" if args.repeated else "unique" if args.unique else "distinct"
+    if args.linear:
+        mode = "distinct"
 
     def records():
         for f in files:
@@ -128,8 +143,10 @@ def run(args) -> int:
     flag = 0
     if args.canonical:
         flag |= unik.CANONICAL
-    if opt.compact and not args.sort:
+    if opt.compact and not args.sort and not args.linear:
         flag |= unik.COMPACT
+    if args.parse_taxid:
+        flag |= unik.INCLUDE_TAXID
     if args.sort:
         flag |= unik.SORTED
         flag &= ~unik.COMPACT
@@ -139,7 +156,7 @@ def run(args) -> int:
         compress=opt.compress,
         compression_level=opt.compression_level,
         threads=opt.threads,
-        global_taxid=args.taxid if args.taxid > 0 else 0,
+        global_taxid=args.taxid if (args.taxid > 0 and not args.parse_taxid) else 0,
         scale=1,
         max_taxid=opt.max_taxid,
     )
@@ -167,6 +184,22 @@ def run(args) -> int:
 
     cfg = CountConfig(k=k, canonical=args.canonical, circular=args.circular,
                       mode=mode)
+    if args.linear:
+        return _run_linear(args, opt, cfg, records, re_taxid, files, name_res,
+                           out_file, flag, writer_kw, device)
+    if args.parse_taxid:
+        from unikmer_tpu.taxonomy.taxdump import load_taxonomy
+
+        taxdb = load_taxonomy(opt.data_dir, verbose=opt.verbose)
+        codes, taxids = count_packed_taxids(records(), cfg, re_taxid, taxdb,
+                                            device)
+        with stage("write", torch.device("cpu")):
+            out, _ = out_binary_stream(out_file)
+            with unik.UnikWriter(out, flag=flag, number=len(codes),
+                                 **writer_kw) as w:
+                w.write_codes(codes, taxids)
+        log_saved(opt, len(codes), out_file)
+        return 0
     if not name_res and all(_native_ingest_ok(f) for f in files):
         codes = count_stream_packed(packed_stream(), cfg, device=device)
     else:
@@ -183,6 +216,33 @@ def run(args) -> int:
             with unik.UnikWriter(out, flag=flag, number=n, **writer_kw) as w:
                 w.write_codes(codes)
     log_saved(opt, n, out_file)
+    return 0
+
+
+def _run_linear(args, opt, cfg, records, re_taxid, files, name_res, out_file,
+                flag, writer_kw, device) -> int:
+    """-l/--linear: every valid window in genome order, duplicates kept;
+    with -T each window carries its record's taxid."""
+    k = cfg.k
+    if args.parse_taxid:
+        with stage("ingest", torch.device("cpu")):
+            # headers of records too short for one window are not parsed
+            packed, rec_taxids = parse_taxid_records(
+                (rec for rec in records() if len(rec.seq) >= k), cfg, re_taxid)
+        codes, pos = linear_codes_all(packed.bases, cfg, device=device)
+        taxids = rec_taxids[np.searchsorted(packed.starts, pos, side="right") - 1]
+    else:
+        with stage("ingest", torch.device("cpu")):
+            if not name_res and all(_native_ingest_ok(f) for f in files):
+                packed = pack_files(files, k, args.circular)
+            else:
+                packed = pack_records(records(), k, args.circular)
+        codes, taxids = count_linear(packed, cfg, device), None
+    with stage("write", torch.device("cpu")):
+        out, _ = out_binary_stream(out_file)
+        with unik.UnikWriter(out, flag=flag, **writer_kw) as w:
+            w.write_codes(codes, taxids)
+    log_saved(opt, len(codes), out_file)
     return 0
 
 

@@ -9,6 +9,11 @@ pieces at record boundaries (k-1-overlap segments inside long records)
 and merge the per-piece sorted sets on the host, spilling to external
 sort chunks beyond UNIKMER_TPU_COUNT_MEM_MB, as the JAX package does.
 
+``count -T`` (per-record taxids, LCA-merged per code) runs the same
+K1 encode, then one K3 sort of (code, compact taxid id) pairs and the
+merge rounds of taxonomy/lca.py; ``count -l`` is K1 alone, the valid
+windows kept in genome order.
+
 Only 2-bit configs are ported: hashed and scaled configs (ntHash) and
 the minimizer/syncmer sketches raise NotImplementedError.
 """
@@ -27,7 +32,12 @@ from unikmer_tpu.ops.codec import MAX_K_ENCODED, MAX_K_HASHED
 from .._device import get_device
 from ..ops import codec
 from ..ops.encode import encode_2bit
-from ..ops.sort import collapse_dual_keyed, collapse_keyed, collapse_sorted
+from ..ops.sort import (
+    _compact, collapse_dual_keyed, collapse_keyed, collapse_sorted,
+)
+from ..taxonomy.lca import (
+    collapse_keyed_taxids, compact_ids, device_lca_plan, upload_plan,
+)
 from ..utils.stages import stage
 
 _HOST = torch.device("cpu")
@@ -144,11 +154,11 @@ def pack_bases_2bit(bases: np.ndarray):
     return packed2, validmask.reshape(-1)
 
 
-def _encode_piece(packed: PackedSeqs, cfg: CountConfig, device: torch.device):
-    """Pack, copy and K1-encode one piece -> (keyed, valid bool)."""
-    n = len(packed.bases)
+def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device):
+    """Pack, copy and K1-encode one piece of bases -> (keyed, valid bool)."""
+    n = len(bases)
     with stage("pack", device):
-        packed2, validmask = pack_bases_2bit(packed.bases)
+        packed2, validmask = pack_bases_2bit(bases)
     with stage("h2d", device):
         p2 = torch.from_numpy(packed2).to(device)
         vm = torch.from_numpy(validmask).to(device)
@@ -164,7 +174,7 @@ def count_packed_dispatch(packed: PackedSeqs, cfg: CountConfig, device=None):
     _require_2bit(cfg)
     if packed.bases.size == 0:
         return ("empty", device)
-    keyed, valid = _encode_piece(packed, cfg, device)
+    keyed, valid = _encode_piece(packed.bases, cfg, device)
     out, n = collapse_keyed(keyed, valid, cfg.mode, cfg.code_bits)
     return ("one", device, out, n)
 
@@ -177,7 +187,7 @@ def count_packed_dispatch_dual(packed: PackedSeqs, cfg: CountConfig,
     _require_2bit(cfg)
     if packed.bases.size == 0:
         return ("empty", device)
-    keyed, valid = _encode_piece(packed, cfg, device)
+    keyed, valid = _encode_piece(packed.bases, cfg, device)
     return ("dual", device) + collapse_dual_keyed(keyed, valid,
                                                   cfg.code_bits)
 
@@ -349,11 +359,14 @@ def _count_piece(piece: PackedSeqs, cfg: CountConfig, device: torch.device,
             sink.add(u)
 
 
-def split_packed(packed: PackedSeqs, chunk_bases: int, k: int = 0):
+def split_packed(packed: PackedSeqs, chunk_bases: int, k: int = 0,
+                 yield_offsets: bool = False):
     """Split a PackedSeqs at record boundaries into pieces of at most
     ~chunk_bases bases (a piece holds >= 1 record).  With ``k`` > 0 a
     record longer than chunk_bases + k is cut into segments with k-1
-    bases of overlap, so every window lands in exactly one segment."""
+    bases of overlap, so every window lands in exactly one segment.
+    ``yield_offsets`` yields (piece, offset of its first base in
+    packed.bases) pairs, for position-aligned columns such as -T's ids."""
     n_rec = packed.n_records
     if n_rec == 0:
         return
@@ -368,8 +381,9 @@ def split_packed(packed: PackedSeqs, chunk_bases: int, k: int = 0):
                 seg = packed.bases[
                     base0 + off: base0 + min(off + chunk_bases + k - 1, span)
                 ]
-                yield PackedSeqs(seg, np.zeros(1, np.int64),
-                                 np.asarray([len(seg)], np.int64))
+                piece = PackedSeqs(seg, np.zeros(1, np.int64),
+                                   np.asarray([len(seg)], np.int64))
+                yield (piece, base0 + off) if yield_offsets else piece
             lo += 1
             continue
         # whole records while the piece END stays within the chunk
@@ -377,9 +391,10 @@ def split_packed(packed: PackedSeqs, chunk_bases: int, k: int = 0):
         ends = np.concatenate([packed.starts[lo + 1:], [total]])
         hi = max(lo + int(np.searchsorted(ends, limit, side="right")), lo + 1)
         end = packed.starts[hi] if hi < n_rec else total
-        yield PackedSeqs(packed.bases[packed.starts[lo]:end],
-                         packed.starts[lo:hi] - packed.starts[lo],
-                         packed.lengths[lo:hi])
+        piece = PackedSeqs(packed.bases[packed.starts[lo]:end],
+                           packed.starts[lo:hi] - packed.starts[lo],
+                           packed.lengths[lo:hi])
+        yield (piece, int(packed.starts[lo])) if yield_offsets else piece
         lo = hi
 
 
@@ -431,3 +446,247 @@ def count_stream(records, cfg: CountConfig, chunk_bases: int | None = None,
             yield pack_records(buf, cfg.k, cfg.circular, gap=cfg.record_gap)
 
     return count_stream_packed(packed_chunks(), cfg, chunk_bases, device)
+
+
+# ---------------------------------------------------------------------
+# count -l: windows in genome order
+
+
+def linear_codes_all(bases: np.ndarray, cfg: CountConfig,
+                     chunk_bases: int | None = None, device=None):
+    """All valid window codes of a packed base buffer, in genome order:
+    (codes uint64[n_valid], positions int64[n_valid]).  Buffers past
+    the piece size are cut into k-1-overlap segments, each window
+    landing in exactly one."""
+    device = get_device(device)
+    _require_2bit(cfg)
+    n = len(bases)
+    if n == 0:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    if chunk_bases is None:
+        chunk_bases = _stream_chunk_bases(device)
+    k = cfg.k
+    if n <= chunk_bases + k:
+        return _linear_piece(bases, cfg, device, n)
+    parts_c, parts_p = [], []
+    for off in range(0, n - (k - 1), chunk_bases):
+        seg = bases[off: min(off + chunk_bases + k - 1, n)]
+        # windows starting in the overlap tail belong to the next segment
+        c, p = _linear_piece(seg, cfg, device, chunk_bases)
+        parts_c.append(c)
+        parts_p.append(p + off)
+    return np.concatenate(parts_c), np.concatenate(parts_p)
+
+
+def _linear_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device,
+                  limit: int):
+    """(codes, positions) of the valid windows starting before ``limit``."""
+    keyed, valid = _encode_piece(bases, cfg, device)
+    with stage("collapse", device):
+        pos = torch.nonzero(valid[:limit]).squeeze(1)
+        codes = keyed[pos]
+    with stage("d2h", device):
+        return codes.cpu().numpy().view(np.uint64), pos.cpu().numpy()
+
+
+def count_linear(packed: PackedSeqs, cfg: CountConfig,
+                 device=None) -> np.ndarray:
+    """count -l/--linear: codes in genome order, duplicates kept."""
+    if packed.bases.size == 0:
+        return np.zeros(0, np.uint64)
+    codes, _ = linear_codes_all(packed.bases, cfg, device=device)
+    return codes
+
+
+# ---------------------------------------------------------------------
+# count -T: per-record taxids, LCA-merged per code
+
+def count_taxids_step(keyed: torch.Tensor, valid: torch.Tensor,
+                      pos_ctax: torch.Tensor, plan, cfg: CountConfig,
+                      modes=("distinct",)):
+    """K1's (keyed, valid) plus per-position compact ids -> for each of
+    ``modes`` a (codes, ids, n) triple: the kept codes ascending with
+    their LCA-merged compact ids as dense prefixes of length n.  A code
+    is kept when its run holds a valid member (distinct), exactly one
+    (unique) or more than one (repeated).  ``plan`` is an uploaded
+    :func:`device_lca_plan`."""
+    kind, _, tab = plan
+    s_codes, tax, first, run_valid, _ = collapse_keyed_taxids(
+        keyed, pos_ctax, valid, tab, kind, cfg.code_bits)
+    out = []
+    dev = keyed.device
+    with stage("collapse", dev):
+        for mode in modes:
+            if mode == "distinct":
+                keep = first & (run_valid > 0)
+            elif mode == "unique":
+                keep = first & (run_valid == 1)
+            elif mode == "repeated":
+                keep = first & (run_valid > 1)
+            else:
+                raise ValueError(f"unknown mode: {mode}")
+            out.append((_compact(s_codes, keep), _compact(tax, keep, 0),
+                        keep.sum(dtype=torch.int64)))
+    return out
+
+
+def parse_taxid_records(records, cfg: CountConfig, re_taxid):
+    """Parse per-record taxids from headers and pack the sequences:
+    (packed, rec_taxids) aligned (records shorter than k dropped from
+    both)."""
+    from unikmer_tpu.io.fastx import pack_records
+    from unikmer_tpu.utils.log import die
+
+    records = list(records)
+    rec_taxids = np.empty(len(records), np.uint32)
+    for i, rec in enumerate(records):
+        m = re_taxid.search(rec.name)
+        if not m:
+            die(f"failed to parse taxid in header: {rec.name.decode()}")
+        try:
+            rec_taxids[i] = int(m.group(1))
+        except (ValueError, OverflowError):
+            die(
+                f"failed to parse taxid {m.group(1)!r} in header: "
+                f"{rec.name.decode()}"
+            )
+    packed = pack_records(records, cfg.k, cfg.circular,
+                          gap=cfg.record_gap)
+    if packed.n_records != len(records):
+        kept = [i for i, rec in enumerate(records) if len(rec.seq) >= cfg.k]
+        rec_taxids = rec_taxids[kept]
+    return packed, rec_taxids
+
+
+def _pos_ctax(packed: PackedSeqs, rec_ctax: np.ndarray, off: int,
+              length: int, device: torch.device) -> torch.Tensor:
+    """Compact ids of positions [off, off+length) of packed.bases: each
+    record's id repeated over its span, expanded on the device so that
+    only one id per record crosses to it."""
+    starts = packed.starts
+    ends = np.append(starts[1:], len(packed.bases))
+    r0 = max(int(np.searchsorted(starts, off, side="right")) - 1, 0)
+    r1 = int(np.searchsorted(starts, off + length, side="left"))
+    spans = (np.minimum(ends[r0:r1], off + length)
+             - np.maximum(starts[r0:r1], off))
+    with stage("h2d", device):
+        ids = torch.from_numpy(rec_ctax[r0:r1]).to(device)
+        reps = torch.from_numpy(spans.astype(np.int64)).to(device)
+    return torch.repeat_interleave(ids, reps, output_size=length)
+
+
+def _fetch_taxids(out_c, out_t, n, closure, device):
+    """Host (codes uint64, taxids uint32) of one mode's dense prefixes."""
+    with stage("d2h", device):
+        n = int(n)
+        codes = out_c[:n].cpu().numpy().view(np.uint64)
+        ids = out_t[:n].cpu().numpy()
+    return codes, closure[ids.astype(np.int64)]
+
+
+def _device_taxid_collapse(packed: PackedSeqs, rec_ctax: np.ndarray,
+                           piece: PackedSeqs, off: int, cfg: CountConfig,
+                           plan, device: torch.device, modes):
+    """One device piece of the -T reduction -> a host (codes, taxids)
+    pair for each of ``modes``."""
+    keyed, valid = _encode_piece(piece.bases, cfg, device)
+    pos_ctax = _pos_ctax(packed, rec_ctax, off, len(piece.bases), device)
+    res = count_taxids_step(keyed, valid, pos_ctax, plan, cfg, modes)
+    return [_fetch_taxids(c, t, n, plan[1], device) for c, t, n in res]
+
+
+def count_taxids_stream_device(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
+                               plan, taxdb, chunk_bases: int | None = None,
+                               device=None):
+    """Streamed device -T: each piece collapses on the device (its
+    distinct set with merged taxids, and for -u/-d its within-piece
+    repeated codes, from one sort); the pieces merge on the host with
+    one lca_reduce and the capped-multiplicity rule."""
+    device = get_device(device)
+    _require_2bit(cfg)
+    if chunk_bases is None:
+        chunk_bases = _stream_chunk_bases(device)
+    dplan = upload_plan(plan, device)
+    rec_ctax = compact_ids(plan[1], rec_taxids)
+    capped = cfg.mode in ("unique", "repeated")
+    modes = ("distinct", "repeated") if capped else ("distinct",)
+    parts_c, parts_t, parts_rep = [], [], []
+    for piece, off in split_packed(packed, chunk_bases, cfg.k,
+                                   yield_offsets=True):
+        res = _device_taxid_collapse(packed, rec_ctax, piece, off, cfg,
+                                     dplan, device, modes)
+        parts_c.append(res[0][0])
+        parts_t.append(res[0][1])
+        if capped:
+            parts_rep.append(res[1][0])
+    with stage("merge", _HOST):
+        dcodes = (np.concatenate(parts_c) if parts_c
+                  else np.zeros(0, np.uint64))
+        dtax = (np.concatenate(parts_t) if parts_t
+                else np.zeros(0, np.uint32))
+        uniq, merged = taxdb.lca_reduce(dcodes, dtax)
+        if not capped:
+            return uniq, merged
+        # piece-presence counts align with lca_reduce's sorted keys
+        _, counts = np.unique(dcodes, return_counts=True)
+        in_rep = (
+            np.isin(uniq, np.unique(np.concatenate(parts_rep)))
+            if parts_rep else np.zeros(len(uniq), bool)
+        )
+        multi = (counts > 1) | in_rep
+        keep = ~multi if cfg.mode == "unique" else multi
+        return uniq[keep], merged[keep]
+
+
+def count_taxids_from_packed(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
+                             taxdb, device=None):
+    """The -T reduction over pre-parsed (packed, rec_taxids): one device
+    piece when the input fits, streamed pieces otherwise.  Only unknown
+    nonzero taxids, whose merge the host's order defines, take
+    :func:`count_taxids_unknown`."""
+    device = get_device(device)
+    _require_2bit(cfg)
+    if packed.bases.size == 0:
+        return np.zeros(0, np.uint64), np.zeros(0, np.uint32)
+    with stage("plan", _HOST):
+        plan = device_lca_plan(taxdb, rec_taxids)
+    if plan is None:
+        return count_taxids_unknown(packed, rec_taxids, cfg, taxdb, device)
+    if len(packed.bases) > _stream_chunk_bases(device):
+        return count_taxids_stream_device(packed, rec_taxids, cfg, plan,
+                                          taxdb, device=device)
+    rec_ctax = compact_ids(plan[1], rec_taxids)
+    [res] = _device_taxid_collapse(
+        packed, rec_ctax, packed, 0, cfg, upload_plan(plan, device),
+        device, (cfg.mode,))
+    return res
+
+
+def count_taxids_unknown(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
+                         taxdb, device=None):
+    """-T for a vocabulary with unknown nonzero taxids: K1's windows in
+    genome order, then taxdb.lca_reduce, whose merge order defines how
+    an unknown taxid combines (the JAX package's rule)."""
+    device = get_device(device)
+    codes, pos = linear_codes_all(packed.bases, cfg, device=device)
+    with stage("merge", _HOST):
+        rec_id = np.searchsorted(packed.starts, pos, side="right") - 1
+        taxids = rec_taxids[rec_id]
+        uniq, merged = taxdb.lca_reduce(codes, taxids)
+        if cfg.mode in ("unique", "repeated"):
+            _, counts = np.unique(codes, return_counts=True)
+            keep = counts == 1 if cfg.mode == "unique" else counts > 1
+            return uniq[keep], merged[keep]
+        return uniq, merged
+
+
+def count_packed_taxids(records, cfg: CountConfig, re_taxid, taxdb,
+                        device=None):
+    """count -T/--parse-taxid: per-record taxids, LCA-merged per code
+    (reference count.go:334-344,377-410).  ``re_taxid`` is a compiled
+    bytes regexp with one capture group.  Returns (codes, taxids) sorted
+    by code, filtered by cfg.mode."""
+    _require_2bit(cfg)
+    with stage("ingest", _HOST):
+        packed, rec_taxids = parse_taxid_records(records, cfg, re_taxid)
+    return count_taxids_from_packed(packed, rec_taxids, cfg, taxdb, device)

@@ -1,16 +1,21 @@
-"""K2: keys-only ascending sort of u64 codes (int64 bit patterns).
+"""K2 and K3: ascending sorts of u64 codes (int64 bit patterns).
 
-The port of unikmer_tpu/ops/pallas_sort.py (``sort_codes_pallas``): an
-LSD radix sort over 8-bit digits (csrc/radix_sort.cu) instead of the
-TPU's bitonic network.  Any length is taken; nothing is padded.
+K2 (:func:`radix_sort_u64`) is the port of unikmer_tpu/ops/pallas_sort.py
+``sort_codes_pallas``, keys only.  K3 (:func:`radix_sort_kv_u64`) is the
+port of ``sort_codes_taxids_pallas``: (u64 key, u32 value) pairs sorted
+by key.  Both are LSD radix sorts over 8-bit digits
+(csrc/radix_sort.cu) instead of the TPU's bitonic network.  Any length
+is taken; nothing is padded.  The passes are stable, so K3 keeps equal
+keys' values in input order (the TPU kernel did not).
 
 ``code_bits`` is the true width of the real codes (2k for 2-bit codes,
 64 for hashed ones; not the TPU's rounded ``sort_code_bits``): with a
 value below 64 every key must be < 2^code_bits or the all-ones
 sentinel, and the sort then runs only ceil((code_bits+1)/8) passes.
 
-On a CUDA tensor :func:`radix_sort_u64` launches the kernels or raises;
-on a CPU tensor it runs the plain version :func:`sort_u64_plain`.
+On a CUDA tensor each wrapper launches its kernels or raises; on a CPU
+tensor it runs its plain version (:func:`sort_u64_plain`,
+:func:`sort_kv_plain`).
 """
 
 from __future__ import annotations
@@ -24,8 +29,15 @@ RADIX_BITS = 8
 
 
 def sort_u64_plain(keys: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: sort in unsigned order via the sign flip."""
+    """Plain PyTorch version of K2: sort in unsigned order via the sign flip."""
     return torch.sort(keys ^ SIGN).values ^ SIGN
+
+
+def sort_kv_plain(keys: torch.Tensor, values: torch.Tensor):
+    """Plain PyTorch version of K3: a stable unsigned sort of the keys,
+    the values gathered in the same order."""
+    s, order = torch.sort(keys ^ SIGN, stable=True)
+    return s ^ SIGN, values[order]
 
 
 def radix_shifts(code_bits: int = 64) -> list[int]:
@@ -37,42 +49,91 @@ def radix_shifts(code_bits: int = 64) -> list[int]:
     return list(range(0, bits, RADIX_BITS))
 
 
-def radix_sort_u64(keys: torch.Tensor, code_bits: int = 64) -> torch.Tensor:
-    """Ascending unsigned sort of a 1-D int64 tensor of u64 bit patterns;
-    returns a new tensor (the input is left as it is)."""
-    if keys.dtype != torch.int64 or keys.dim() != 1:
-        raise ValueError("radix_sort_u64 takes a 1-D int64 tensor")
-    shifts = radix_shifts(code_bits)
-    dev = keys.device
-    if dev.type == "cpu":
-        return sort_u64_plain(keys)
-    if dev.type != "cuda":
-        raise ValueError(f"radix_sort_u64: unsupported device {dev}")
+def _radix_passes(keys: torch.Tensor, values: torch.Tensor | None,
+                  code_bits: int):
+    """The LSD passes on the card: (sorted keys, sorted values or None)."""
     n = keys.shape[0]
-    if n <= 1:
-        return keys.clone()
-    keys = keys.contiguous()
+    dev = keys.device
+    shifts = radix_shifts(code_bits)
     lib = _kernels.load()
     tiles = -(-n // lib.ukt_radix_tile())
-    bufs = (torch.empty_like(keys), torch.empty_like(keys))
+    kbufs = (torch.empty_like(keys), torch.empty_like(keys))
+    vbufs = (None if values is None
+             else (torch.empty_like(values), torch.empty_like(values)))
     hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
-    src = keys
+    src, vsrc = keys, values
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for p, shift in enumerate(shifts):
-            dst = bufs[p % 2]
             err = lib.ukt_radix_hist(src.data_ptr(), n, shift, code_bits,
                                      hist.data_ptr(), tiles, stream)
             _kernels.check(lib, err, "radix_hist")
             offsets = torch.cumsum(hist, 0, dtype=torch.int64)
             offsets -= hist
-            err = lib.ukt_radix_scatter(src.data_ptr(), dst.data_ptr(), n,
-                                        shift, code_bits, offsets.data_ptr(),
-                                        tiles, stream)
-            _kernels.check(lib, err, "radix_scatter")
+            dst = kbufs[p % 2]
+            if vsrc is None:
+                err = lib.ukt_radix_scatter(src.data_ptr(), dst.data_ptr(), n,
+                                            shift, code_bits,
+                                            offsets.data_ptr(), tiles, stream)
+                _kernels.check(lib, err, "radix_scatter")
+            else:
+                vdst = vbufs[p % 2]
+                err = lib.ukt_radix_scatter_kv(
+                    src.data_ptr(), dst.data_ptr(), vsrc.data_ptr(),
+                    vdst.data_ptr(), n, shift, code_bits, offsets.data_ptr(),
+                    tiles, stream)
+                _kernels.check(lib, err, "radix_scatter_kv")
+                vsrc = vdst
             src = dst
+    return src, vsrc
+
+
+def _check_device(name: str, dev: torch.device) -> None:
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def radix_sort_u64(keys: torch.Tensor, code_bits: int = 64) -> torch.Tensor:
+    """K2: ascending unsigned sort of a 1-D int64 tensor of u64 bit
+    patterns; returns a new tensor (the input is left as it is)."""
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise ValueError("radix_sort_u64 takes a 1-D int64 tensor")
+    radix_shifts(code_bits)  # raises on a bad code_bits
+    _check_device("radix_sort_u64", keys.device)
+    if keys.device.type == "cpu":
+        return sort_u64_plain(keys)
+    if keys.shape[0] <= 1:
+        return keys.clone()
+    out, _ = _radix_passes(keys.contiguous(), None, code_bits)
     radix_sort_u64.launches += 1
-    return src
+    return out
 
 
 radix_sort_u64.launches = 0
+
+
+def radix_sort_kv_u64(keys: torch.Tensor, values: torch.Tensor,
+                      code_bits: int = 64):
+    """K3: (keys, values) sorted by ascending unsigned key, stably.
+    ``keys`` is a 1-D int64 tensor of u64 bit patterns, ``values`` an
+    int32 tensor of u32 bit patterns of the same length and device.
+    Returns new tensors (the inputs are left as they are)."""
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise ValueError("radix_sort_kv_u64 takes 1-D int64 keys")
+    if values.dtype != torch.int32 or values.shape != keys.shape:
+        raise ValueError("radix_sort_kv_u64 takes int32 values shaped "
+                         "like the keys")
+    if values.device != keys.device:
+        raise ValueError("keys and values must be on one device")
+    radix_shifts(code_bits)  # raises on a bad code_bits
+    _check_device("radix_sort_kv_u64", keys.device)
+    if keys.device.type == "cpu":
+        return sort_kv_plain(keys, values)
+    if keys.shape[0] <= 1:
+        return keys.clone(), values.clone()
+    out = _radix_passes(keys.contiguous(), values.contiguous(), code_bits)
+    radix_sort_kv_u64.launches += 1
+    return out
+
+
+radix_sort_kv_u64.launches = 0

@@ -6,11 +6,13 @@ sentinel cannot be told from an invalid slot after the sort, so it is
 counted before (``n_sent_real``) and appended to the kept set by count,
 exactly as in the JAX package.
 
-The sort is always K2 (ops/radix_sort.py) on CUDA.  Compaction is a
-scan plus a scatter in plain PyTorch; the TPU's sort-based compaction
-is not ported.  Results keep the JAX contract: a full-length tensor
-whose first ``n`` slots are the kept codes in ascending order, the rest
-CODE_SENTINEL, and ``n`` as a 0-dim int64 tensor (no host sync).
+The sort is always K2 (ops/radix_sort.py) on CUDA; the taxid
+pipeline's (code, payload) sort is K3, in taxonomy/lca.py.  Compaction
+is a scan plus a scatter in plain PyTorch, for codes and for int32 aux
+columns alike; the TPU's sort-based compaction is not ported.  Results
+keep the JAX contract: a full-length tensor whose first ``n`` slots are
+the kept codes in ascending order, the rest CODE_SENTINEL, and ``n`` as
+a 0-dim int64 tensor (no host sync).
 """
 
 from __future__ import annotations
@@ -29,14 +31,15 @@ def _sort_u64(codes: torch.Tensor, code_bits: int = 64) -> torch.Tensor:
     return radix_sort_u64(codes, code_bits)
 
 
-def _compact(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+def _compact(values: torch.Tensor, keep: torch.Tensor,
+             fill: int = SENTINEL) -> torch.Tensor:
     """Stable-compact kept values to a dense prefix (scan + scatter);
     dropped slots go to a spill slot past the end and the tail stays
-    CODE_SENTINEL."""
+    ``fill`` (CODE_SENTINEL for codes)."""
     n = values.shape[0]
     pos = torch.cumsum(keep, 0) - 1
     pos = torch.where(keep, pos, n)
-    out = torch.full((n + 1,), SENTINEL, dtype=values.dtype,
+    out = torch.full((n + 1,), fill, dtype=values.dtype,
                      device=values.device)
     out.scatter_(0, pos, values)
     return out[:n]
