@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels (K1 encode, K2 radix sort, K3 key+value
-radix sort) from unikmer_tpu_torch/csrc, holds each against its plain
-PyTorch version on the card (exact equality), then drives the port's
-paths through its CLI and holds every .unik against a jax-free oracle:
+radix sort, and the four P1/P2 probe kernels) from unikmer_tpu_torch/csrc,
+holds each against its plain PyTorch version on the card (exact
+equality), then drives the port's paths and holds their results against
+oracles:
 
   count     ``count -k 23 -K -s -C`` over a 134 Mbp FASTA of 4 records
             (and -u, -d, k = 32 over one 50 Mbp record);
@@ -14,18 +15,24 @@ paths through its CLI and holds every .unik against a jax-free oracle:
             one piece of ~2^25 windows on the 'paths' LCA tier; T2,
             1,024 records of 98,304 bases with 512 taxids, streamed in
             pieces on the 'table' tier; T3, k = 32 -u over two 1 Mbp
-            records, keeping a real 2^64-1 code with its taxid.
+            records, keeping a real 2^64-1 code with its taxid;
+  probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
+            of scripts/exp_pallas_dma*.py, each kernel held to its plain
+            version inside the entry point.
 
-The launch counters, zeroed before each CLI run and read after it, show
-that the run went through the kernels of its path.
+The launch counters, zeroed before each path's run and read after it,
+show that the run went through the kernels of its path.
 
-The oracle is unikmer_tpu.models.count_host / count_taxids_host (the
-native host engine) when the native library builds; where it cannot
-(no libdeflate), it is a numpy count over the same packed bases with
-unikmer_tpu's numpy canonical twin, and for -T record ids by
-searchsorted over the record starts and taxdump's lca_reduce.  Either
-way its result goes through unikmer_tpu's UnikWriter with the same
-flags.
+The count oracle is this script's own numpy count (every window's 2-bit
+code, the canonical form written out below, np.unique) over the bases
+packed by the port's host layer; for -T the record ids come from a
+searchsorted over the record starts and the taxids merge through the
+port's Taxonomy.lca_reduce.  Its result goes through the port's
+UnikWriter with the same flags.  The oracle runs those host layers on
+their numpy branches (UNIKMER_TPU_NO_NATIVE=1), so the CLI's native
+host library is held to them here; the CPU tests hold the numpy
+branches to the JAX package.  Nothing of the port's device code enters
+the oracle.  The script imports nothing of unikmer_tpu or jax.
 
 Exits non-zero, printing no result, without a CUDA device or outside
 the repository.  The last line of stdout is
@@ -34,6 +41,7 @@ the repository.  The last line of stdout is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -62,18 +70,23 @@ T2_TAXIDS, T2_BASES = 512, 98304  # two records each: the table tier
 T3_BASES = 1 << 20
 RECORD_BASES = 1 << 25
 LINE = 60
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
+FLUSH_BYTES = 256 << 20  # written between P1a's repetitions: > the 50 MB L2
 
 
 def say(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event milliseconds of fn() over reps, after a warm-up."""
+def cuda_ms(fn, reps: int = 5, before=None) -> float:
+    """Median CUDA-event milliseconds of fn() over reps, after a warm-up;
+    ``before()`` runs ahead of each repetition, outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -82,6 +95,31 @@ def cuda_ms(fn, reps: int = 5) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device milliseconds per call of fn() spent in the CUDA kernels
+    whose name holds ``kernel``, from torch.profiler: the kernel's own
+    time, without the host's launch overhead that the CUDA events around
+    a short call also hold.  None when the profiler records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0.0)
+                   for e in prof.key_averages() if kernel in e.key)
+    return total_us / reps / 1e3 if total_us else None
+
+
+def bytes_ms(nbytes: float) -> float:
+    """The least milliseconds to move ``nbytes`` at the HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -139,9 +177,13 @@ def check_k1(dev, rng):
     p2, vm = upload(big[:n])
     ms = cuda_ms(lambda: encode_2bit(p2, vm, n, 23, True))
     plain_ms = cuda_ms(lambda: encode_2bit_plain(p2, vm, n, 23, True))
+    # packed bases and mask read once, the u64 codes and bool flags written
+    bound = bytes_ms(p2.numel() + vm.numel() + 9 * n)
     say(f"K1 encode_2bit: exact on {len(K1_NS) * len(K1_KS) * 2 + 1} cases; "
-        f"n={n} k=23 canonical: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+        f"n={n} k=23 canonical: kernel {ms} ms, plain {plain_ms} ms, "
+        f"bound {bound} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=None)
 
 
 def k2_inputs(rng, n: int):
@@ -162,7 +204,10 @@ def k2_inputs(rng, n: int):
 
 
 def check_k2(dev, rng):
-    from unikmer_tpu_torch.ops.radix_sort import radix_sort_u64, sort_u64_plain
+    from unikmer_tpu_torch.ops.codec import SIGN
+    from unikmer_tpu_torch.ops.radix_sort import (
+        radix_shifts, radix_sort_u64, sort_u64_plain,
+    )
 
     err, cases = 0.0, 0
     for n in K2_NS:
@@ -177,17 +222,28 @@ def check_k2(dev, rng):
             if e:
                 raise SystemExit(f"K2 mismatch: n={n} code_bits={bits} err={e}")
     big = k2_inputs(rng, 1 << 25)
-    keys, bits = big[1]
-    x = torch.from_numpy(keys.view(np.int64)).to(dev)
-    ms = cuda_ms(lambda: radix_sort_u64(x, bits))
-    plain_ms = cuda_ms(lambda: sort_u64_plain(x))
-    keys64 = torch.from_numpy(big[0][0].view(np.int64)).to(dev)
-    ms64 = cuda_ms(lambda: radix_sort_u64(keys64, 64))
-    plain64 = cuda_ms(lambda: sort_u64_plain(keys64))
-    say(f"K2 radix_sort_u64: exact on {cases} cases; n=2^25 code_bits=46: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; code_bits=64: "
-        f"kernel {ms64:.4f} ms, plain {plain64:.4f} ms")
-    return err, ms, plain_ms
+    times, radix_bound = {}, {}
+    for keys, bits in (big[1], big[0]):  # code_bits 46, then 64
+        x = torch.from_numpy(keys.view(np.int64)).to(dev)
+        flipped = x ^ SIGN  # unsigned order as signed: one torch.sort call
+        passes = len(radix_shifts(bits))
+        times[bits] = dict(
+            ms=cuda_ms(lambda: radix_sort_u64(x, bits)),
+            plain_ms=cuda_ms(lambda: sort_u64_plain(x)),
+            library_ms=cuda_ms(lambda: torch.sort(flipped)),
+            # the keys read once and the sorted keys written once
+            bound_ms=bytes_ms(16 * x.numel()))
+        # an 8-bit LSD radix sort's own bound: one histogram read, then
+        # each pass reads and writes the keys
+        radix_bound[bits] = bytes_ms((1 + 2 * passes) * 8 * x.numel())
+    say(f"K2 radix_sort_u64: exact on {cases} cases; n=2^25 " + "; ".join(
+        f"code_bits={b}: kernel {t['ms']} ms, plain {t['plain_ms']} ms, "
+        f"torch.sort {t['library_ms']} ms, bound {t['bound_ms']} ms, "
+        f"{len(radix_shifts(b))}-pass radix bound {radix_bound[b]} ms"
+        for b, t in times.items()))
+    return dict(max_abs_err=err, bound_by="bytes", **times[46],
+                ms_code_bits_64=times[64]["ms"],
+                library_ms_code_bits_64=times[64]["library_ms"])
 
 
 def k3_inputs(rng, n: int, bits: int):
@@ -204,7 +260,10 @@ def k3_inputs(rng, n: int, bits: int):
 
 
 def check_k3(dev, rng):
-    from unikmer_tpu_torch.ops.radix_sort import radix_sort_kv_u64, sort_kv_plain
+    from unikmer_tpu_torch.ops.codec import SIGN
+    from unikmer_tpu_torch.ops.radix_sort import (
+        radix_shifts, radix_sort_kv_u64, sort_kv_plain,
+    )
 
     def upload(keys, vals):
         return (torch.from_numpy(keys.view(np.int64)).to(dev),
@@ -227,16 +286,29 @@ def check_k3(dev, rng):
                 if e:
                     raise SystemExit(f"K3 mismatch: n={n} code_bits={bits} "
                                      f"err={e}")
-    times = {}
+    times, radix_bound = {}, {}
     for bits in (46, 64):
         k, v = upload(*k3_inputs(rng, 1 << 25, bits))
-        times[bits] = (cuda_ms(lambda: radix_sort_kv_u64(k, v, bits)),
-                       cuda_ms(lambda: sort_kv_plain(k, v)))
+        flipped = k ^ SIGN
+        passes = len(radix_shifts(bits))
+        times[bits] = dict(
+            ms=cuda_ms(lambda: radix_sort_kv_u64(k, v, bits)),
+            plain_ms=cuda_ms(lambda: sort_kv_plain(k, v)),
+            # one call: the stable sort, its permutation not yet applied
+            library_ms=cuda_ms(lambda: torch.sort(flipped, stable=True)),
+            # keys and values read once, both written once
+            bound_ms=bytes_ms(24 * k.numel()))
+        # the histogram read of the keys, then 24 B a pair a pass
+        radix_bound[bits] = bytes_ms((8 + 24 * passes) * k.numel())
     say(f"K3 radix_sort_kv_u64: exact on both planes in {cases} cases; "
-        f"n=2^25 code_bits=46: kernel {times[46][0]:.4f} ms, plain "
-        f"{times[46][1]:.4f} ms; code_bits=64: kernel {times[64][0]:.4f} ms, "
-        f"plain {times[64][1]:.4f} ms")
-    return err, times[46][0], times[46][1]
+        f"n=2^25 " + "; ".join(
+            f"code_bits={b}: kernel {t['ms']} ms, plain {t['plain_ms']} ms, "
+            f"stable torch.sort {t['library_ms']} ms, bound {t['bound_ms']} "
+            f"ms, {len(radix_shifts(b))}-pass radix bound "
+            f"{radix_bound[b]} ms" for b, t in times.items()))
+    return dict(max_abs_err=err, bound_by="bytes", **times[46],
+                ms_code_bits_64=times[64]["ms"],
+                library_ms_code_bits_64=times[64]["library_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +340,23 @@ def write_fasta(path: str, rng, n_records: int, record_bases: int) -> None:
             f.write(b"\n")
 
 
+def canonical_np(codes: np.ndarray, k: int) -> np.ndarray:
+    """min(code, reverse complement) of 2-bit codes of k bases: the
+    complement is ~code on each 2-bit group, and the 32 groups of the
+    64-bit word are reversed by five swaps, which moves the k real groups
+    to the top 2k bits."""
+    x = ~codes
+    for shift, mask in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                        (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF),
+                        (32, 0x00000000FFFFFFFF)):
+        s, m = np.uint64(shift), np.uint64(mask)
+        x = ((x >> s) & m) | ((x & m) << s)
+    return np.minimum(codes, x >> np.uint64(64 - 2 * k))
+
+
 def numpy_windows(bases: np.ndarray, k: int, canonical: bool):
     """(codes, positions) of every valid 2-bit window, straight numpy
     (independent of the port)."""
-    from unikmer_tpu.ops.codec import canonical_np
-
     m = len(bases) - k + 1
     if m <= 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
@@ -300,25 +384,45 @@ def numpy_count(bases: np.ndarray, k: int, canonical: bool, mode: str):
     return u
 
 
-def oracle_unik(fa: str, out: str, k: int, canonical: bool, mode: str) -> str:
-    """Write the oracle's .unik for ``count -k k [-K] -s -C [-u|-d]``."""
-    from unikmer_tpu.io import unik
-    from unikmer_tpu.io.fastx import pack_files
-    from unikmer_tpu.models.count_host import count_host
+def write_oracle(out: str, k: int, flag: int, codes, taxids=None) -> None:
+    """The oracle's codes through the port's UnikWriter, with the CLI's
+    writer settings for -C."""
+    from unikmer_tpu_torch.io import unik
 
-    packed = pack_files([fa], k)
-    codes = count_host(packed, k, canonical, mode)
-    which = "count_host"
-    if codes is None:
-        which = "numpy (native lib unavailable)"
-        codes = numpy_count(packed.bases, k, canonical, mode)
-    flag = unik.SORTED | (unik.CANONICAL if canonical else 0)
     with open(out, "wb") as fh, unik.UnikWriter(
             fh, k=k, flag=flag, number=len(codes), compress=False,
             compression_level=5, threads=min(os.cpu_count() or 4, 4),
             global_taxid=0, scale=1, max_taxid=(1 << 32) - 1) as w:
-        w.write_codes(codes)
-    return which
+        w.write_codes(codes, taxids)
+
+
+@contextlib.contextmanager
+def numpy_host():
+    """The port's host layers on their numpy branches: its native library
+    reads UNIKMER_TPU_NO_NATIVE on every call, so the oracle shares no
+    native code with the CLI it checks."""
+    old = os.environ.get("UNIKMER_TPU_NO_NATIVE")
+    os.environ["UNIKMER_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["UNIKMER_TPU_NO_NATIVE"]
+        else:
+            os.environ["UNIKMER_TPU_NO_NATIVE"] = old
+
+
+def oracle_unik(fa: str, out: str, k: int, canonical: bool, mode: str) -> str:
+    """Write the oracle's .unik for ``count -k k [-K] -s -C [-u|-d]``."""
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.io.fastx import pack_files
+
+    with numpy_host():
+        packed = pack_files([fa], k)
+        codes = numpy_count(packed.bases, k, canonical, mode)
+        write_oracle(out, k, unik.SORTED
+                     | (unik.CANONICAL if canonical else 0), codes)
+    return "numpy"
 
 
 def same_bytes(a: str, b: str) -> bool:
@@ -451,18 +555,13 @@ def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
                       data_dir: str):
     """Write the oracle's .unik for ``count -k k [-K] -s -C -T -r ...``;
     returns (which oracle, codes, taxids)."""
-    from unikmer_tpu.io import unik
-    from unikmer_tpu.io.fastx import pack_records, read_fastx
-    from unikmer_tpu.models.count_host import count_taxids_host
-    from unikmer_tpu.taxonomy.taxdump import load_taxonomy
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.io.fastx import pack_records, read_fastx
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
-    taxdb = load_taxonomy(data_dir)
-    re_t = re.compile(RE_TAXID.encode())
-    res = count_taxids_host(read_fastx(fa), k, canonical, False, 1, mode,
-                            False, re_t, taxdb)
-    which = "count_taxids_host"
-    if res is None:
-        which = "numpy + lca_reduce (native lib unavailable)"
+    with numpy_host():
+        taxdb = load_taxonomy(data_dir)
+        re_t = re.compile(RE_TAXID.encode())
         records = list(read_fastx(fa))
         rec_taxids = np.array([int(re_t.search(r.name).group(1))
                                for r in records], np.uint32)
@@ -474,16 +573,9 @@ def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
             _, counts = np.unique(codes, return_counts=True)
             keep = counts == 1 if mode == "unique" else counts > 1
             uniq, merged = uniq[keep], merged[keep]
-        res = uniq, merged
-    codes, taxids = res
-    flag = (unik.SORTED | unik.INCLUDE_TAXID
-            | (unik.CANONICAL if canonical else 0))
-    with open(out, "wb") as fh, unik.UnikWriter(
-            fh, k=k, flag=flag, number=len(codes), compress=False,
-            compression_level=5, threads=min(os.cpu_count() or 4, 4),
-            global_taxid=0, scale=1, max_taxid=(1 << 32) - 1) as w:
-        w.write_codes(codes, taxids)
-    return which, codes, taxids
+        write_oracle(out, k, unik.SORTED | unik.INCLUDE_TAXID
+                     | (unik.CANONICAL if canonical else 0), uniq, merged)
+    return "numpy + lca_reduce", uniq, merged
 
 
 def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows):
@@ -528,8 +620,8 @@ def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows):
 
 def taxid_path(tmp, rng):
     """T1, T2 and T3 (module docstring); returns K3's launches in all."""
-    from unikmer_tpu.taxonomy.taxdump import load_taxonomy
     from unikmer_tpu_torch.taxonomy.lca import device_lca_plan
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
     d = os.path.join(tmp, "taxdump")
     os.mkdir(d)
@@ -569,11 +661,162 @@ def taxid_path(tmp, rng):
     return k3
 
 
+# ---------------------------------------------------------------------------
+# P1/P2: the probe kernels against their plain versions, then their entry
+# point
+
+
+def u32_tensor(rng, shape, dev) -> torch.Tensor:
+    """Random u32 bit patterns as int32, led by 0, 2^31-1, 2^31, 2^32-1."""
+    x = rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+    flat = x.reshape(-1)
+    flat[:4] = np.array([0, 2**31 - 1, 2**31, 2**32 - 1],
+                        np.uint32)[:len(flat[:4])]
+    return torch.from_numpy(x.view(np.int32)).to(dev)
+
+
+def u32_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max |a - b| over u32 bit patterns (0.0 when equal)."""
+    if a.shape != b.shape:
+        return float("inf")
+    if torch.equal(a, b):
+        return 0.0
+    x = a.cpu().numpy().view(np.uint32).astype(np.int64)
+    y = b.cpu().numpy().view(np.uint32).astype(np.int64)
+    return float(np.abs(x - y).max())
+
+
+def hold(name, kernel, plain, cases) -> float:
+    """Every case through the kernel and its plain version, exactly."""
+    err = 0.0
+    for args in cases:
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        e = u32_err(got, want)
+        if e:
+            shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+            raise SystemExit(f"{name} mismatch on {shapes}: err={e}")
+        err = max(err, e)
+    return err
+
+
+def check_probes(dev, rng):
+    """The four probe kernels held to their plain versions at the
+    scripts' sizes and at ragged ones, then timed at the scripts' sizes;
+    returns one result dict per kernel."""
+    from unikmer_tpu_torch import probes as entry
+    from unikmer_tpu_torch.ops import probes
+
+    x1, blk = entry.probe_inputs(dev)
+    rows = entry.ROWS
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    two_mib = 2 * blk.numel() * 4  # each probe reads and writes its block once
+    out = {}
+
+    err = hold("P1a copy_inc_u32", probes.copy_inc_u32,
+               probes.copy_inc_u32_plain,
+               [(x1,), (u32_tensor(rng, (65536, 128), dev),),
+                (u32_tensor(rng, (3, 5), dev),), (u32_tensor(rng, (1,), dev),),
+                (u32_tensor(rng, (7, 128), dev).reshape(-1)[1:],)])
+    cold = dict(reps=10, before=lambda: flush.fill_(1))  # L2 flushed each time
+    out["P1a"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: probes.copy_inc_u32(x1), **cold),
+        plain_ms=cuda_ms(lambda: probes.copy_inc_u32_plain(x1), **cold),
+        library_ms=cuda_ms(lambda: x1 + 1, **cold),
+        device_ms=device_ms(lambda: probes.copy_inc_u32(x1), "copy_inc"),
+        bound_ms=bytes_ms(2 * x1.numel() * 4), bound_by="bytes")
+
+    p1b = probes.p1b_distances(rows)
+    p2a = {s: probes.p2a_distances(s, rows) for s in entry.P2A_STAGES}
+    err = hold("P1b/P2a row_cmpex_u32", probes.row_cmpex_u32,
+               probes.row_cmpex_u32_plain,
+               [(blk, p1b), *((blk, d) for d in p2a.values()),
+                (u32_tensor(rng, (37, 128), dev), [16, 8, 4, 2, 1, 16]),
+                (u32_tensor(rng, (5, 3), dev), [2, 1, 4]),
+                (u32_tensor(rng, (1, 128), dev), [1])])
+    out["P1b"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: probes.row_cmpex_u32(blk, p1b), 20),
+        plain_ms=cuda_ms(lambda: probes.row_cmpex_u32_plain(blk, p1b), 5),
+        library_ms=None, bound_ms=bytes_ms(two_mib), bound_by="bytes",
+        device_ms=device_ms(lambda: probes.row_cmpex_u32(blk, p1b),
+                            "row_cmpex"),
+        **{f"ms_p2a_{s}": cuda_ms(lambda d=d: probes.row_cmpex_u32(blk, d), 20)
+           for s, d in p2a.items()})
+
+    err = hold("P1c transpose128_u32", probes.transpose128_u32,
+               probes.transpose128_u32_plain,
+               [(blk,), (u32_tensor(rng, (128, 128), dev),),
+                (u32_tensor(rng, (3 * 128, 128), dev),)])
+    out["P1c"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: probes.transpose128_u32(blk), 20),
+        plain_ms=cuda_ms(lambda: probes.transpose128_u32_plain(blk), 20),
+        library_ms=cuda_ms(lambda: blk.view(rows // 128, 128, 128)
+                           .transpose(1, 2).contiguous(), 20),
+        device_ms=device_ms(lambda: probes.transpose128_u32(blk),
+                            "transpose128"),
+        bound_ms=bytes_ms(two_mib), bound_by="bytes")
+
+    err = hold("P2b lane_cmpex_u32", probes.lane_cmpex_u32,
+               probes.lane_cmpex_u32_plain,
+               [(blk,), (u32_tensor(rng, (1, 128), dev),),
+                (u32_tensor(rng, (9, 128), dev),)])
+    out["P2b"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: probes.lane_cmpex_u32(blk), 20),
+        plain_ms=cuda_ms(lambda: probes.lane_cmpex_u32_plain(blk), 20),
+        library_ms=None, bound_ms=bytes_ms(two_mib), bound_by="bytes",
+        device_ms=device_ms(lambda: probes.lane_cmpex_u32(blk), "lane_cmpex"))
+    for name, r in out.items():
+        say(f"{name}: exact; kernel {r['ms']} ms (device {r['device_ms']} "
+            f"ms), plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
+            f"bound {r['bound_ms']} ms" + "".join(
+                f", {k} {v} ms" for k, v in r.items() if k.startswith("ms_")))
+    return out
+
+
+def probe_path():
+    """``python -m unikmer_tpu_torch.probes`` in this process, its launch
+    counters zeroed just before and read just after."""
+    from unikmer_tpu_torch import probes as entry
+    from unikmer_tpu_torch.ops import probes
+
+    wrappers = {"P1a": probes.copy_inc_u32, "P1b": probes.row_cmpex_u32,
+                "P1c": probes.transpose128_u32, "P2b": probes.lane_cmpex_u32}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    if entry.main([]) != 0:
+        raise SystemExit("the probe entry point failed")
+    secs = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if min(launches.values()) < 1:
+        raise SystemExit(f"the probe path skipped a kernel: {launches}")
+    say(f"probe path: {secs:.3f} s, launches {launches}")
+    return launches
+
+
+KERNELS = (  # (key, name, source, the TPU kernel it replaces, also)
+    ("k1", "K1 encode_2bit", "unikmer_tpu_torch/csrc/encode.cu",
+     "unikmer_tpu/ops/pallas_encode.py:79", []),
+    ("k2", "K2 radix_sort_u64", "unikmer_tpu_torch/csrc/radix_sort.cu",
+     "unikmer_tpu/ops/pallas_sort.py:235", []),
+    ("k3", "K3 radix_sort_kv_u64", "unikmer_tpu_torch/csrc/radix_sort.cu",
+     "unikmer_tpu/ops/pallas_sort.py:399", []),
+    ("P1a", "P1a copy_inc_u32", "unikmer_tpu_torch/csrc/probes.cu",
+     "scripts/exp_pallas_dma.py:54", ["scripts/exp_pallas_dma2.py:49"]),
+    ("P1b", "P1b+P2a row_cmpex_u32", "unikmer_tpu_torch/csrc/probes.cu",
+     "scripts/exp_pallas_dma.py:101", ["scripts/exp_pallas_dma2.py:96"]),
+    ("P1c", "P1c transpose128_u32", "unikmer_tpu_torch/csrc/probes.cu",
+     "scripts/exp_pallas_dma.py:130", []),
+    ("P2b", "P2b lane_cmpex_u32", "unikmer_tpu_torch/csrc/probes.cu",
+     "scripts/exp_pallas_dma2.py:137", []),
+)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    from unikmer_tpu_torch import _kernels
+    from unikmer_tpu_torch import _kernels, native
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -585,29 +828,20 @@ def main() -> int:
     t0 = time.perf_counter()
     _kernels.load()
     say(f"kernel build+load seconds: {time.perf_counter() - t0:.3f}")
-    k1_err, k1_ms, k1_plain = check_k1(dev, rng)
-    k2_err, k2_ms, k2_plain = check_k2(dev, rng)
-    k3_err, k3_ms, k3_plain = check_k3(dev, rng)
+    t0 = time.perf_counter()
+    say(f"host engine: {native.engine()} "
+        f"(build+load {time.perf_counter() - t0:.3f} s); the oracles: numpy")
+    results = {"k1": check_k1(dev, rng), "k2": check_k2(dev, rng),
+               "k3": check_k3(dev, rng), **check_probes(dev, rng)}
     with tempfile.TemporaryDirectory(prefix="unikmer-torch-smoke-") as tmp:
         launches = main_path(tmp, rng)
         launches["k3"] = taxid_path(tmp, rng)
+    launches.update(probe_path())
     say(json.dumps({"kernels": [
-        {"name": "K1 encode_2bit", "route": "cuda",
-         "source": "unikmer_tpu_torch/csrc/encode.cu",
-         "replaces": "unikmer_tpu/ops/pallas_encode.py:79",
-         "launches": launches["k1"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain},
-        {"name": "K2 radix_sort_u64", "route": "cuda",
-         "source": "unikmer_tpu_torch/csrc/radix_sort.cu",
-         "replaces": "unikmer_tpu/ops/pallas_sort.py:235",
-         "launches": launches["k2"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain},
-        {"name": "K3 radix_sort_kv_u64", "route": "cuda",
-         "source": "unikmer_tpu_torch/csrc/radix_sort.cu",
-         "replaces": "unikmer_tpu/ops/pallas_sort.py:397",
-         "launches": launches["k3"], "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain},
-    ]}))
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         **({"also_replaces": also} if also else {}),
+         "launches": launches[key], **results[key]}
+        for key, name, source, replaces, also in KERNELS]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

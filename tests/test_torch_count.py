@@ -15,6 +15,7 @@ from unikmer_tpu.io.fastx import Record, pack_records
 from unikmer_tpu.models import count as jax_count
 from unikmer_tpu.ops.codec import BASE_LUT, canonical_np
 from unikmer_tpu_torch import _device, _kernels
+from unikmer_tpu_torch.io.fastx import PackedSeqs
 from unikmer_tpu_torch.models import count as port_count
 
 CPU = torch.device("cpu")
@@ -26,6 +27,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def port_packed(p) -> PackedSeqs:
+    """The port's PackedSeqs from a JAX one's fields."""
+    return PackedSeqs.from_numpy(p.bases, p.starts, p.lengths)
 
 
 def random_records(rng, n_rec, lo, hi, p_invalid=0.01):
@@ -70,7 +76,8 @@ def test_count_packed_matches_oracle(k, mode):
     recs = random_records(rng, 4, 1, 3000)
     for canonical in (False, True):
         cfg = port_count.CountConfig(k=k, canonical=canonical, mode=mode)
-        got = port_count.count_packed(pack_records(recs, k), cfg, CPU)
+        got = port_count.count_packed(port_packed(pack_records(recs, k)),
+                                      cfg, CPU)
         np.testing.assert_array_equal(got, oracle(recs, k, canonical, mode))
 
 
@@ -86,8 +93,8 @@ def test_count_packed_matches_jax(k, canonical, mode, circular):
                                  circular=circular)
     want = jax_count.count_packed(packed, jcfg)
     cfg = port_count.CountConfig.from_reference(jcfg)
-    np.testing.assert_array_equal(port_count.count_packed(packed, cfg, CPU),
-                                  want)
+    np.testing.assert_array_equal(
+        port_count.count_packed(port_packed(packed), cfg, CPU), want)
 
 
 @pytest.mark.parametrize("mode", ["distinct", "unique", "repeated"])
@@ -99,7 +106,8 @@ def test_count_stream_packed_matches_jax(mode):
     packs = [pack_records(recs[:2], k), pack_records(recs[2:], k)]
     want = jax_count.count_stream_packed(iter(packs), jcfg, chunk_bases=chunk)
     got = port_count.count_stream_packed(
-        iter(packs), port_count.CountConfig.from_reference(jcfg),
+        iter([port_packed(p) for p in packs]),
+        port_count.CountConfig.from_reference(jcfg),
         chunk_bases=chunk, device=CPU)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, oracle(recs, k, True, mode))
@@ -123,7 +131,7 @@ def test_split_packed_matches_jax():
     packed = pack_records(recs, 7)
     for chunk, k in ((1000, 7), (5000, 0), (9000, 7)):
         want = list(jax_count.split_packed(packed, chunk, k))
-        got = list(port_count.split_packed(packed, chunk, k))
+        got = list(port_count.split_packed(port_packed(packed), chunk, k))
         assert len(got) == len(want) > 1
         for gp, wp in zip(got, want):
             np.testing.assert_array_equal(gp.bases, wp.bases)
@@ -147,7 +155,7 @@ def test_spill_matches_in_ram(monkeypatch):
 
 def test_count_step_matches_count_packed():
     recs = random_records(np.random.default_rng(12), 3, 100, 2000)
-    packed = pack_records(recs, 11)
+    packed = port_packed(pack_records(recs, 11))
     for mode in ("distinct", "unique", "repeated"):
         cfg = port_count.CountConfig(k=11, canonical=True, mode=mode)
         out, n = port_count.count_step(torch.from_numpy(packed.bases), cfg)
@@ -197,23 +205,26 @@ def test_config_rejects_like_jax():
 ])
 def test_unported_configs_raise(kw, item):
     cfg = port_count.CountConfig(**kw)
-    packed = pack_records(random_records(np.random.default_rng(1), 1, 99, 100),
-                          cfg.k)
+    packed = port_packed(pack_records(
+        random_records(np.random.default_rng(1), 1, 99, 100), cfg.k))
     with pytest.raises(NotImplementedError, match=item):
         port_count.count_packed(packed, cfg, CPU)
 
 
 def test_port_imports_no_jax():
-    # conftest imports jax here, so the check runs in a fresh interpreter
+    # conftest imports jax here, so the check runs in a fresh interpreter:
+    # every port module and chip_smoke, and then no jax and no module of
+    # unikmer_tpu (unikmer_tpu_torch is the port itself)
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
-        for p in (REPO / "unikmer_tpu_torch").rglob("*.py"))
+        for p in (REPO / "unikmer_tpu_torch").rglob("*.py")) + ["chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
+            "or m.startswith('jax.') or m.startswith('jaxlib') "
+            "or m == 'unikmer_tpu' or m.startswith('unikmer_tpu.'))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

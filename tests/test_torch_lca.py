@@ -21,6 +21,7 @@ from unikmer_tpu_torch.ops.radix_sort import (
     radix_shifts, radix_sort_kv_u64, sort_kv_plain,
 )
 from unikmer_tpu_torch.taxonomy import lca as port_lca
+from unikmer_tpu_torch.taxonomy.taxdump import Taxonomy as PortTaxonomy
 
 TAXDUMP = "tests/data/taxdump"
 VOCAB = np.array([0, 511145, 585057, 349741, 562, 561, 2, 1224, 83333],
@@ -40,6 +41,12 @@ def cuda_device():
 @pytest.fixture(scope="module")
 def taxdb():
     return load_taxonomy(TAXDUMP)
+
+
+def port_tax(t: Taxonomy) -> PortTaxonomy:
+    """The port's Taxonomy from a JAX one's fields."""
+    return PortTaxonomy.from_numpy(t.parent, t.depth, t.rank_ids, t.ranks,
+                                   t.merged, t.root)
 
 
 def synth_taxonomy(rng, n_nodes: int, chain: int = 0) -> Taxonomy:
@@ -184,19 +191,20 @@ def assert_plans_equal(got, want):
 def test_planners_match_jax_on_taxdump(taxdb, monkeypatch, cap):
     if cap is not None:
         monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", cap)
+    ptx = port_tax(taxdb)
     for vocab in (VOCAB, VOCAB[:1], VOCAB[[0, 1, 2]], VOCAB[[3, 3, 4]]):
         for name in ("lca_closure", "path_tables"):
-            for g, w in zip(getattr(port_lca, name)(taxdb, vocab),
+            for g, w in zip(getattr(port_lca, name)(ptx, vocab),
                             getattr(jax_lca, name)(taxdb, vocab)):
                 np.testing.assert_array_equal(g, w)
-        assert_plans_equal(port_lca.device_lca_plan(taxdb, vocab),
+        assert_plans_equal(port_lca.device_lca_plan(ptx, vocab),
                            jax_lca.device_lca_plan(taxdb, vocab))
-        g = port_lca.closure_for_vocab(taxdb, vocab)
+        g = port_lca.closure_for_vocab(ptx, vocab)
         w = jax_lca.closure_for_vocab(taxdb, vocab)
         assert (g is None) == (w is None)
         if w is not None:
             np.testing.assert_array_equal(g[1], w[1])
-    plan = port_lca.device_lca_plan(taxdb, VOCAB)
+    plan = port_lca.device_lca_plan(ptx, VOCAB)
     assert plan[0] == ("table" if cap is None else "paths")
 
 
@@ -210,7 +218,7 @@ def test_planners_match_jax_on_synthetic_tree(monkeypatch, cap):
                        replace=False)
     vocab[:5] = [2000, 1990, 1985, 0, 1]
     for name in ("path_tables", "device_lca_plan"):
-        got = getattr(port_lca, name)(tx, vocab)
+        got = getattr(port_lca, name)(port_tax(tx), vocab)
         want = getattr(jax_lca, name)(tx, vocab)
         if name == "device_lca_plan":
             assert_plans_equal(got, want)
@@ -221,18 +229,18 @@ def test_planners_match_jax_on_synthetic_tree(monkeypatch, cap):
 
 def test_plan_declines_like_jax(taxdb, monkeypatch):
     unknown = np.array([562, 999999], np.uint32)
-    assert port_lca.device_lca_plan(taxdb, unknown) is None
+    assert port_lca.device_lca_plan(port_tax(taxdb), unknown) is None
     assert jax_lca.device_lca_plan(taxdb, unknown) is None
     tx = synth_taxonomy(np.random.default_rng(3), 200, chain=60)
     deep = np.array([150, 200, 199, 180], np.uint32)
     monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", "0")
     want = jax_lca.device_lca_plan(tx, deep)
     assert want[0] == "paths"
-    assert_plans_equal(port_lca.device_lca_plan(tx, deep), want)
+    assert_plans_equal(port_lca.device_lca_plan(port_tax(tx), deep), want)
     # JAX declines a path past its TPU block depth; the port plans it
     monkeypatch.setenv("UNIKMER_TPU_TAXID_PATH_DEPTH_MAX", "2")
     assert jax_lca.device_lca_plan(tx, deep) is None
-    assert_plans_equal(port_lca.device_lca_plan(tx, deep), want)
+    assert_plans_equal(port_lca.device_lca_plan(port_tax(tx), deep), want)
     assert want[2].shape[1] > 2
 
 
@@ -333,6 +341,7 @@ def test_deep_paths_count_matches_jax_host_route(monkeypatch, mode):
     # port keeps the paths tier on the device and must agree with it
     from unikmer_tpu.io.fastx import Record, pack_records
     from unikmer_tpu.models import count as jax_count
+    from unikmer_tpu_torch.io.fastx import PackedSeqs
     from unikmer_tpu_torch.models import count as port_count
 
     tx = synth_taxonomy(np.random.default_rng(3), 200, chain=60)
@@ -347,11 +356,13 @@ def test_deep_paths_count_matches_jax_host_route(monkeypatch, mode):
     monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", "0")
     monkeypatch.setenv("UNIKMER_TPU_TAXID_PATH_DEPTH_MAX", "2")
     assert jax_lca.device_lca_plan(tx, rec_taxids) is None
-    assert port_lca.device_lca_plan(tx, rec_taxids)[2].shape[1] > 2
+    ptx = port_tax(tx)
+    assert port_lca.device_lca_plan(ptx, rec_taxids)[2].shape[1] > 2
     jcfg = jax_count.CountConfig(k=15, canonical=True, mode=mode)
     want = jax_count.count_taxids_from_packed(packed, rec_taxids, jcfg, tx)
     got = port_count.count_taxids_from_packed(
-        packed, rec_taxids, port_count.CountConfig.from_reference(jcfg), tx,
+        PackedSeqs.from_numpy(packed.bases, packed.starts, packed.lengths),
+        rec_taxids, port_count.CountConfig.from_reference(jcfg), ptx,
         torch.device("cpu"))
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
@@ -408,7 +419,7 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, code_bits):
 def test_collapse_on_card_matches_cpu(cuda_device, taxdb, monkeypatch):
     for cap in ("4096", "0"):
         monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", cap)
-        plan = port_lca.device_lca_plan(taxdb, VOCAB)
+        plan = port_lca.device_lca_plan(port_tax(taxdb), VOCAB)
         rng = np.random.default_rng(5)
         codes, ids, valid = collapse_case(rng, 100000, plan[1])
         want = port_collapse(plan[0], t64(codes), torch.from_numpy(ids),

@@ -16,7 +16,9 @@ from unikmer_tpu.models import count as jax_count
 from unikmer_tpu.taxonomy.lca import device_lca_plan as jax_plan
 from unikmer_tpu.taxonomy.taxdump import load_taxonomy
 from unikmer_tpu_torch.cli.main import main as port_main
+from unikmer_tpu_torch.io.fastx import PackedSeqs
 from unikmer_tpu_torch.models import count as port_count
+from unikmer_tpu_torch.taxonomy.taxdump import Taxonomy as PortTaxonomy
 
 CPU = torch.device("cpu")
 TAXDUMP = "tests/data/taxdump"
@@ -34,6 +36,18 @@ def cuda_device():
 @pytest.fixture(scope="module")
 def taxdb():
     return load_taxonomy(TAXDUMP)
+
+
+@pytest.fixture(scope="module")
+def port_taxdb(taxdb):
+    """The port's Taxonomy from the JAX one's fields."""
+    return PortTaxonomy.from_numpy(taxdb.parent, taxdb.depth, taxdb.rank_ids,
+                                   taxdb.ranks, taxdb.merged, taxdb.root)
+
+
+def port_packed(p) -> PackedSeqs:
+    """The port's PackedSeqs from a JAX one's fields."""
+    return PackedSeqs.from_numpy(p.bases, p.starts, p.lengths)
 
 
 def random_dna(rng, n, p_invalid=0.0):
@@ -60,12 +74,12 @@ def taxid_records(seed, taxids=TAXIDS, lo=250, hi=1500):
     return recs
 
 
-def both(recs, k, canonical, mode, taxdb):
+def both(recs, k, canonical, mode, taxdb, port_taxdb):
     jcfg = jax_count.CountConfig(k=k, canonical=canonical, mode=mode)
     want = jax_count.count_packed_taxids(iter(recs), jcfg, RE_TAXID, taxdb)
     got = port_count.count_packed_taxids(
         iter(recs), port_count.CountConfig.from_reference(jcfg), RE_TAXID,
-        taxdb, CPU)
+        port_taxdb, CPU)
     return got, want
 
 
@@ -89,11 +103,11 @@ COUNT_CASES = [
 
 
 @pytest.mark.parametrize("k,canonical,mode,cap", COUNT_CASES)
-def test_count_packed_taxids_matches_jax(taxdb, monkeypatch, k, canonical,
-                                         mode, cap):
+def test_count_packed_taxids_matches_jax(taxdb, port_taxdb, monkeypatch, k,
+                                         canonical, mode, cap):
     if cap is not None:
         monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", cap)
-    got, want = both(taxid_records(k), k, canonical, mode, taxdb)
+    got, want = both(taxid_records(k), k, canonical, mode, taxdb, port_taxdb)
     assert_pair_equal(got, want)
     assert len(got[0]) > 100
     assert len(np.unique(got[1])) > 1
@@ -104,25 +118,25 @@ def test_count_packed_taxids_matches_jax(taxdb, monkeypatch, k, canonical,
 
 
 @pytest.mark.parametrize("mode", ["distinct", "unique", "repeated"])
-def test_host_fallback_matches_jax(taxdb, monkeypatch, mode):
+def test_host_fallback_matches_jax(taxdb, port_taxdb, monkeypatch, mode):
     # an unknown nonzero taxid declines the plan: the host reduction
     # defines the merge, and on a known vocabulary it agrees with the
     # device collapse
     recs = taxid_records(7, taxids=(562, 999999, 511145, 0))
-    got, want = both(recs, 15, True, mode, taxdb)
+    got, want = both(recs, 15, True, mode, taxdb, port_taxdb)
     assert_pair_equal(got, want)
     assert 999999 in set(got[1])
     cfg = port_count.CountConfig(k=15, canonical=True, mode=mode)
     packed, rec_taxids = port_count.parse_taxid_records(
         iter(taxid_records(8)), cfg, RE_TAXID)
-    host = port_count.count_taxids_unknown(packed, rec_taxids, cfg, taxdb,
-                                           CPU)
-    device, _ = both(taxid_records(8), 15, True, mode, taxdb)
+    host = port_count.count_taxids_unknown(packed, rec_taxids, cfg,
+                                           port_taxdb, CPU)
+    device, _ = both(taxid_records(8), 15, True, mode, taxdb, port_taxdb)
     assert_pair_equal(host, device)
 
 
 @pytest.mark.parametrize("mode", ["distinct", "unique", "repeated"])
-def test_streamed_taxids_match_jax(taxdb, monkeypatch, mode):
+def test_streamed_taxids_match_jax(taxdb, port_taxdb, monkeypatch, mode):
     recs = taxid_records(11, lo=250, hi=1700)
     jcfg = jax_count.CountConfig(k=15, canonical=True, mode=mode)
     cfg = port_count.CountConfig.from_reference(jcfg)
@@ -132,15 +146,17 @@ def test_streamed_taxids_match_jax(taxdb, monkeypatch, mode):
     plan = jax_plan(taxdb, rec_taxids)
     want = jax_count.count_taxids_stream_device(
         packed, rec_taxids, jcfg, plan, taxdb, chunk_bases=500)
+    ppacked = port_packed(packed)
     got = port_count.count_taxids_stream_device(
-        packed, rec_taxids, cfg, plan, taxdb, chunk_bases=500, device=CPU)
+        ppacked, rec_taxids, cfg, plan, port_taxdb, chunk_bases=500,
+        device=CPU)
     assert_pair_equal(got, want)
     # the router streams past the piece size and agrees with one piece
-    one = port_count.count_taxids_from_packed(packed, rec_taxids, cfg, taxdb,
-                                              CPU)
+    one = port_count.count_taxids_from_packed(ppacked, rec_taxids, cfg,
+                                              port_taxdb, CPU)
     monkeypatch.setattr(port_count, "_stream_chunk_bases", lambda _dev: 500)
-    routed = port_count.count_taxids_from_packed(packed, rec_taxids, cfg,
-                                                 taxdb, CPU)
+    routed = port_count.count_taxids_from_packed(ppacked, rec_taxids, cfg,
+                                                 port_taxdb, CPU)
     assert_pair_equal(routed, one)
     assert_pair_equal(one, want)
 
@@ -149,7 +165,8 @@ def test_split_packed_offsets_match_jax():
     recs = taxid_records(3, lo=100, hi=2000)
     packed = pack_records(recs, 15)
     want = list(jax_count.split_packed(packed, 600, 15, yield_offsets=True))
-    got = list(port_count.split_packed(packed, 600, 15, yield_offsets=True))
+    got = list(port_count.split_packed(port_packed(packed), 600, 15,
+                                       yield_offsets=True))
     assert len(got) == len(want) > 3
     for (gp, go), (wp, wo) in zip(got, want):
         assert go == wo
@@ -171,18 +188,19 @@ def test_linear_codes_match_jax(k, canonical, chunk):
     np.testing.assert_array_equal(gc, wc)
     np.testing.assert_array_equal(gp, wp)
     assert gc.dtype == np.uint64 and gp.dtype == np.int64 and len(gc) > 1000
-    np.testing.assert_array_equal(port_count.count_linear(packed, cfg, CPU),
-                                  jax_count.count_linear(packed, jcfg))
+    np.testing.assert_array_equal(
+        port_count.count_linear(port_packed(packed), cfg, CPU),
+        jax_count.count_linear(packed, jcfg))
 
 
-def test_taxid_paths_reject_unported_configs(taxdb):
+def test_taxid_paths_reject_unported_configs(port_taxdb):
     recs = taxid_records(1)
     for kw, item in ((dict(k=21, hashed=True), "item 5"),
                      (dict(k=21, minimizer_w=5), "item 6")):
         cfg = port_count.CountConfig(**kw)
         with pytest.raises(NotImplementedError, match=item):
-            port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID, taxdb,
-                                           CPU)
+            port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID,
+                                           port_taxdb, CPU)
         with pytest.raises(NotImplementedError, match=item):
             port_count.linear_codes_all(np.zeros(50, np.uint8), cfg,
                                         device=CPU)
@@ -265,8 +283,8 @@ def test_count_taxid_header_without_taxid_exits(tmp_path, envs, caplog):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap", [None, "0"])
-def test_count_taxids_on_card_matches_cpu(cuda_device, taxdb, monkeypatch,
-                                          cap):
+def test_count_taxids_on_card_matches_cpu(cuda_device, port_taxdb,
+                                          monkeypatch, cap):
     if cap is not None:
         monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", cap)
     recs = taxid_records(21, lo=2000, hi=90000)
@@ -274,7 +292,7 @@ def test_count_taxids_on_card_matches_cpu(cuda_device, taxdb, monkeypatch,
                                (15, True, "repeated")):
         cfg = port_count.CountConfig(k=k, canonical=canonical, mode=mode)
         want = port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID,
-                                              taxdb, CPU)
+                                              port_taxdb, CPU)
         got = port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID,
-                                             taxdb, cuda_device)
+                                             port_taxdb, cuda_device)
         assert_pair_equal(got, want)

@@ -4,19 +4,63 @@ The second package beside ``unikmer_tpu``: the same ``count`` outputs
 and the same ``.unik`` bytes, with the device layer written in PyTorch
 and the hot kernels written by hand in CUDA C++ for ``sm_90a``.
 
-It imports ``torch`` and never ``jax``.  The jax-free host layers of
-``unikmer_tpu`` (FASTA ingest, the native loader and 2-bit pack, the
-``.unik`` writer, host set merges, external-sort spill) are shared, not
-copied.
+It imports ``torch`` and never ``jax``, and nothing of ``unikmer_tpu``:
+the host layers it needs (FASTA ingest, the native host library, the
+``.unik`` writer, host set merges, the external-sort spill, the
+taxdump, the CLI options) are its own copies.
 
 Layer map (bottom-up, mirroring ``unikmer_tpu``):
   _device.py   device choice (UNIKMER_TPU_TORCH_DEVICE)
-  csrc/        hand-written CUDA kernels (K1 encode, K2 radix sort)
-  ops/         codec (plain torch), encode (K1), radix_sort (K2), sort
-               and collapse
+  csrc/        hand-written CUDA kernels (K1 encode, K2/K3 radix sorts,
+               the P1/P2 probe kernels)
+  native/      the host C++ library (g++, ctypes; numpy branches)
+  io/          FASTA/Q ingest, .unik writer/reader, varint-GB, gzip
+  ops/         codec, encode (K1), radix_sort (K2, K3), sort and
+               collapse, host set merges, probes (P1/P2)
+  taxonomy/    taxdump (host LCA) and the device LCA planner/collapse
+  pipeline/    external-sort spill
   models/      the count pipeline: pack, H2D, K1, sort, collapse, D2H
   cli/         the ``count`` subcommand
-  utils/       per-stage timing
+  probes.py    the P1/P2 probe sequence (python -m unikmer_tpu_torch.probes)
+  utils/       logging, per-stage timing
 """
 
+import os as _os
+
+# numpy madvises MADV_HUGEPAGE on every buffer >= 4 MB; on virtualized
+# hosts a 2 MB huge fault can cost ~100 ms, a large tax on first touch
+# of every big host temp.  Turn it off (a runtime switch, effective
+# even when numpy is already imported); UNIKMER_TPU_HUGEPAGE=1 keeps
+# numpy's default.
+if _os.environ.get("UNIKMER_TPU_HUGEPAGE") != "1":
+    _os.environ.setdefault("NUMPY_MADVISE_HUGEPAGE", "0")  # subprocesses
+    try:
+        try:
+            from numpy._core import multiarray as _ma
+        except ImportError:  # numpy < 2
+            from numpy.core import multiarray as _ma
+        _ma._set_madvise_hugepage(False)
+    except Exception:  # private API: best-effort
+        pass
+
+# Keep large freed allocations on the heap instead of returning pages to
+# the OS: with glibc's default mmap threshold every multi-hundred-MB
+# numpy temp is a fresh mmap that faults its pages again.  Raising
+# M_MMAP_THRESHOLD / M_TRIM_THRESHOLD makes pages fault once and be
+# reused.  PR_SET_THP_DISABLE (= 41) turns transparent huge pages off
+# for the whole process: the madvise switch above only stops new
+# MADV_HUGEPAGE calls, and areas marked before it ran keep collapsing.
+try:
+    import ctypes as _ctypes
+
+    _libc = _ctypes.CDLL("libc.so.6", use_errno=True)
+    _libc.mallopt(-3, 1 << 31)  # M_MMAP_THRESHOLD
+    _libc.mallopt(-1, 1 << 31)  # M_TRIM_THRESHOLD
+    if _os.environ.get("UNIKMER_TPU_HUGEPAGE") != "1":
+        _libc.prctl(41, 1, 0, 0, 0)  # PR_SET_THP_DISABLE
+except (OSError, AttributeError):  # non-glibc platforms: best-effort
+    pass
+
 __version__ = "0.1.0"
+# Version of the reference toolkit whose behavior is reproduced.
+REFERENCE_VERSION = "0.21.0"

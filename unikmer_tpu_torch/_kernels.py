@@ -1,12 +1,15 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-The kernels have a plain C interface and are bound with ctypes: nvcc
-compiles every ``csrc/*.cu`` into one shared library at first use, under
-``build/unikmer_tpu_torch/`` beside the package.  The library's name
-carries a hash of the sources and the flags, so an edited source is
-rebuilt instead of loading a stale library.  nvcc is found through
-``torch.utils.cpp_extension.CUDA_HOME`` or ``PATH``; without it,
-loading raises.  Nothing here runs at import time.
+The kernels have a plain C interface and are bound with ctypes: at first
+use nvcc compiles every ``csrc/*.cu`` into an object, one nvcc process
+per source, all started together, and links them into one shared
+library under ``build/unikmer_tpu_torch/`` beside the package.  A fresh
+checkout builds before its first launch, so the build takes the time of
+the slowest source rather than the sum as ``csrc/`` grows.  The
+library's name carries a hash of the sources and the flags, so an
+edited source is rebuilt instead of loading a stale library.  nvcc is
+found through ``torch.utils.cpp_extension.CUDA_HOME`` or ``PATH``;
+without it, loading raises.  Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given, allocates
 nothing and returns ``cudaGetLastError()``; :func:`check` turns a
@@ -27,7 +30,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "unikmer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -66,6 +69,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libunikmer_tpu_torch_{_source_hash()}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists."""
     out = library_path()
@@ -73,15 +90,19 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -99,6 +120,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ukt_radix_scatter.argtypes = [p, p, i64, i32, i32, p, i64, p]
     lib.ukt_radix_scatter_kv.restype = i32
     lib.ukt_radix_scatter_kv.argtypes = [p, p, p, p, i64, i32, i32, p, i64, p]
+    lib.ukt_copy_inc_u32.restype = i32
+    lib.ukt_copy_inc_u32.argtypes = [p, p, i64, p]
+    lib.ukt_row_cmpex_u32.restype = i32
+    lib.ukt_row_cmpex_u32.argtypes = [p, p, i64, i64, p, i64, p]
+    lib.ukt_transpose128_u32.restype = i32
+    lib.ukt_transpose128_u32.argtypes = [p, p, i64, p]
+    lib.ukt_lane_cmpex_u32.restype = i32
+    lib.ukt_lane_cmpex_u32.argtypes = [p, p, i64, p]
 
 
 def load() -> ctypes.CDLL:

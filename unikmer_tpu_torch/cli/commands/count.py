@@ -18,24 +18,24 @@ import re
 import numpy as np
 import torch
 
-from unikmer_tpu.io import unik
-from unikmer_tpu.io.fastx import (
+from ..._device import get_device
+from ...io import unik
+from ...io.fastx import (
     PackedSeqs, _try_native_load, pack_files, pack_records, read_fastx,
 )
-from unikmer_tpu.ops.codec import MAX_K_ENCODED
-from unikmer_tpu.utils.log import die, log
-from unikmer_tpu.cli.commands._common import log_saved, new_command
-from unikmer_tpu.cli.opts import (
-    ensure_unik_suffix, get_file_list, get_options, out_binary_stream,
-)
-
-from ..._device import get_device
 from ...models.count import (
     CountConfig, SpilledCount, _stream_chunk_bases, count_linear,
     count_packed_taxids, count_stream, count_stream_packed, linear_codes_all,
     parse_taxid_records,
 )
+from ...ops.codec import MAX_K_ENCODED
+from ...taxonomy.taxdump import load_taxonomy
+from ...utils.log import die, log
 from ...utils.stages import stage
+from ..opts import (
+    ensure_unik_suffix, get_file_list, get_options, out_binary_stream,
+)
+from ._common import log_saved, new_command
 
 # unported flag -> the ROADMAP queue-1 item that brings it
 _NOT_PORTED = {
@@ -188,8 +188,6 @@ def run(args) -> int:
         return _run_linear(args, opt, cfg, records, re_taxid, files, name_res,
                            out_file, flag, writer_kw, device)
     if args.parse_taxid:
-        from unikmer_tpu.taxonomy.taxdump import load_taxonomy
-
         taxdb = load_taxonomy(opt.data_dir, verbose=opt.verbose)
         codes, taxids = count_packed_taxids(records(), cfg, re_taxid, taxdb,
                                             device)

@@ -1,8 +1,8 @@
 """unikmer-tpu-torch CLI: the ``count`` subcommand on the PyTorch/CUDA port.
 
-Same global flags (unikmer_tpu/cli/opts.py) and exit-code conventions
-as ``python -m unikmer_tpu.cli.main``; the other subcommands are not
-ported yet (ROADMAP queue 1).
+Same global flags (cli/opts.py, the port's copy of unikmer_tpu/cli/opts.py)
+and exit-code conventions as ``python -m unikmer_tpu.cli.main``; the
+other subcommands are not ported yet (ROADMAP queue 1).
 
     python -m unikmer_tpu_torch.cli.main count -k 23 -K -s in.fa -o out
 """
@@ -14,9 +14,7 @@ import lzma
 import sys
 import zlib
 
-from unikmer_tpu import REFERENCE_VERSION
-
-from .. import __version__
+from .. import REFERENCE_VERSION, __version__
 from .commands import count
 
 
@@ -60,7 +58,7 @@ def main(argv: list[str] | None = None) -> int:
 
         if os.environ.get("UNIKMER_TPU_DEBUG"):
             raise
-        from unikmer_tpu.utils.log import init_logging, log
+        from ..utils.log import init_logging, log
 
         init_logging(False)
         log.error(str(e))

@@ -26,11 +26,12 @@ from dataclasses import dataclass, fields, replace as dc_replace
 import numpy as np
 import torch
 
-from unikmer_tpu.io.fastx import PackedSeqs
-from unikmer_tpu.ops.codec import MAX_K_ENCODED, MAX_K_HASHED
-
+from .. import native
 from .._device import get_device
+from ..io.fastx import PackedSeqs, pack_records
 from ..ops import codec
+from ..ops import sets as host_sets
+from ..ops.codec import MAX_K_ENCODED, MAX_K_HASHED
 from ..ops.encode import encode_2bit
 from ..ops.sort import (
     _compact, collapse_dual_keyed, collapse_keyed, collapse_sorted,
@@ -134,9 +135,7 @@ def count_step(bases: torch.Tensor, cfg: CountConfig):
 def pack_bases_2bit(bases: np.ndarray):
     """(packed2 u8 [ceil(n/4)], validmask u8 [ceil(n/8)]): the host
     2-bit ingress pack, native when the library is there."""
-    from unikmer_tpu.native import pack_bases_2bit as native_pack
-
-    res = native_pack(bases)
+    res = native.pack_bases_2bit(bases)
     if res is not None:
         return res
     n = len(bases)
@@ -260,7 +259,7 @@ class SpilledCount:
     def write_to(self, write_batch) -> int:
         import shutil
 
-        from unikmer_tpu.pipeline import extsort
+        from ..pipeline import extsort
 
         total = 0
 
@@ -306,7 +305,7 @@ class _PartialSink:
     def _spill(self) -> None:
         import tempfile
 
-        from unikmer_tpu.pipeline import extsort
+        from ..pipeline import extsort
 
         if self.tmp_dir is None:
             self.tmp_dir = tempfile.mkdtemp(prefix="unikmer-tpu-torch-count-")
@@ -332,10 +331,7 @@ def _merge_partials(partial, cfg: CountConfig) -> np.ndarray:
     if not partial:
         return np.zeros(0, np.uint64)
     if cfg.mode not in ("unique", "repeated"):
-        from unikmer_tpu.ops import sets as host_sets
-
-        codes, _ = host_sets.union(partial)
-        return codes
+        return host_sets.union(partial)
     merged = np.concatenate(partial)
     merged.sort()
     first = np.ones(len(merged), bool)
@@ -425,8 +421,6 @@ def count_stream(records, cfg: CountConfig, chunk_bases: int | None = None,
                  device=None):
     """Streaming count over FASTA/Q records: records are buffered up to
     chunk_bases, packed and counted as in :func:`count_stream_packed`."""
-    from unikmer_tpu.io.fastx import pack_records
-
     device = get_device(device)
     _require_2bit(cfg)
     if chunk_bases is None:
@@ -534,8 +528,7 @@ def parse_taxid_records(records, cfg: CountConfig, re_taxid):
     """Parse per-record taxids from headers and pack the sequences:
     (packed, rec_taxids) aligned (records shorter than k dropped from
     both)."""
-    from unikmer_tpu.io.fastx import pack_records
-    from unikmer_tpu.utils.log import die
+    from ..utils.log import die
 
     records = list(records)
     rec_taxids = np.empty(len(records), np.uint32)

@@ -10,16 +10,40 @@ int64, so every one below is masked to make it logical, and unsigned
 order is taken by flipping the sign bit (``SIGN``) before comparing.
 
 These functions are the plain version of the K1 kernel
-(ops/encode.py, csrc/encode.cu).  The host tables and numpy twins
-(``BASE_LUT``, ``INVALID_BASE``, ``CODE_SENTINEL``, ``canonical_np``)
-are shared with ``unikmer_tpu.ops.codec``, not copied.
+(ops/encode.py, csrc/encode.cu).  The host tables below (``BASE_LUT``,
+``INVALID_BASE``, ``RECORD_SEP``, the k limits) are the port's own copy
+of those of ``unikmer_tpu/ops/codec.py``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from unikmer_tpu.ops.codec import MAX_K_ENCODED
+# Invalid-base sentinel in base-code space (valid codes are 0..3).
+INVALID_BASE = np.uint8(255)
+# Distinct invalid value marking record boundaries in packed base
+# buffers (io/fastx.pack_records); every value >= 4 is invalid to the
+# window kernels.
+RECORD_SEP = np.uint8(254)
+
+MAX_K_ENCODED = 32
+MAX_K_HASHED = 64
+
+
+def _build_base_lut() -> np.ndarray:
+    lut = np.full(256, INVALID_BASE, dtype=np.uint8)
+    for chars, code in (("Aa", 0), ("Cc", 1), ("Gg", 2), ("TtUu", 3)):
+        for ch in chars:
+            lut[ord(ch)] = code
+    # '\n' is pack_records' record-separator join byte (it never occurs
+    # inside a sequence line): it maps to RECORD_SEP
+    lut[ord("\n")] = RECORD_SEP
+    return lut
+
+
+# ASCII byte -> 2-bit base code (255 = invalid).
+BASE_LUT = _build_base_lut()
 
 # CODE_SENTINEL (2^64-1) as an int64 bit pattern.
 SENTINEL = -1

@@ -20,10 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from unikmer_tpu.ops.codec import INVALID_BASE
-
 from .. import _kernels
 from . import codec
+from .codec import INVALID_BASE
 
 
 def unpack_bases_2bit(packed2: torch.Tensor, validmask: torch.Tensor,

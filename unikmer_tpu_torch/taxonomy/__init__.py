@@ -1,2 +1,3 @@
-"""Taxonomy LCA on the port's device (port of unikmer_tpu/taxonomy/lca.py);
-the host taxonomy (taxdump.py) is shared with unikmer_tpu."""
+"""Taxonomy of the port: the host taxdump (taxdump.py, the port's copy of
+unikmer_tpu/taxonomy/taxdump.py) and the compact-vocabulary LCA on the
+device (lca.py)."""

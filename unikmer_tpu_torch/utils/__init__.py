@@ -1,1 +1,1 @@
-"""Host utilities of the port."""
+"""Host utilities of the port: logging (log.py) and stage timing (stages.py)."""
