@@ -186,6 +186,17 @@ def check_k1(dev, rng):
                 bound_by="bytes", library_ms=None)
 
 
+def adversarial_keys(rng, n: int, bits: int):
+    """All-equal, sorted, reverse-sorted and one-hot keys below 2^bits (one
+    bit set each: digit 0 dominates every pass, one long look-back
+    chain), with sentinels in the sorted ones."""
+    keys = rng.integers(0, 1 << min(bits, 64), size=n, dtype=np.uint64)
+    keys[rng.random(n) < 0.02] = SENT
+    one_hot = np.uint64(1) << rng.integers(0, bits, size=n).astype(np.uint64)
+    return [np.full(n, keys[0] if n else 0, np.uint64), np.sort(keys),
+            np.sort(keys)[::-1].copy(), one_hot]
+
+
 def k2_inputs(rng, n: int):
     """(keys int64, code_bits) cases for one length."""
     full = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
@@ -210,8 +221,12 @@ def check_k2(dev, rng):
     )
 
     err, cases = 0.0, 0
-    for n in K2_NS:
-        for keys, bits in k2_inputs(rng, n):
+    for n in K2_NS + tile_edges():
+        cases_n = k2_inputs(rng, n)
+        if n in tile_edges() or n == K2_NS[-2]:
+            cases_n += [(a, b) for b in (2, 46, 64)
+                        for a in adversarial_keys(rng, n, b)]
+        for keys, bits in cases_n:
             x = torch.from_numpy(keys.view(np.int64)).to(dev)
             got = radix_sort_u64(x, bits)
             want = sort_u64_plain(x)
@@ -219,7 +234,7 @@ def check_k2(dev, rng):
             e = abs_err(got, want)
             err = max(err, e)
             cases += 1
-            if e:
+            if e or (n > 1 and got.data_ptr() == x.data_ptr()):
                 raise SystemExit(f"K2 mismatch: n={n} code_bits={bits} err={e}")
     big = k2_inputs(rng, 1 << 25)
     times, radix_bound = {}, {}
@@ -232,18 +247,58 @@ def check_k2(dev, rng):
             plain_ms=cuda_ms(lambda: sort_u64_plain(x)),
             library_ms=cuda_ms(lambda: torch.sort(flipped)),
             # the keys read once and the sorted keys written once
-            bound_ms=bytes_ms(16 * x.numel()))
+            bound_ms=bytes_ms(16 * x.numel()),
+            **sort_device_ms(lambda: radix_sort_u64(x, bits), radix_sort_u64))
         # an 8-bit LSD radix sort's own bound: one histogram read, then
         # each pass reads and writes the keys
         radix_bound[bits] = bytes_ms((1 + 2 * passes) * 8 * x.numel())
     say(f"K2 radix_sort_u64: exact on {cases} cases; n=2^25 " + "; ".join(
         f"code_bits={b}: kernel {t['ms']} ms, plain {t['plain_ms']} ms, "
         f"torch.sort {t['library_ms']} ms, bound {t['bound_ms']} ms, "
-        f"{len(radix_shifts(b))}-pass radix bound {radix_bound[b]} ms"
+        f"{len(radix_shifts(b))}-pass radix bound {radix_bound[b]} ms "
+        f"({radix_bound[b] / t['ms']:.1%} of it); " + sort_detail(t)
         for b, t in times.items()))
+    return sort_result(err, times)
+
+
+def tile_edges() -> tuple:
+    """Lengths at the onesweep tile's edges: tile - 1, tile + 1, 3 tiles."""
+    from unikmer_tpu_torch import _kernels
+
+    tile = _kernels.load().ukt_radix_tile()
+    return (tile - 1, tile + 1, 3 * tile)
+
+
+def sort_device_ms(fn, wrapper) -> dict:
+    """Device ms of one sort call by kernel (torch.profiler): the upfront
+    histogram, the bases/flags kernel, and the onesweep passes in all and
+    per pass run; with the passes run and skipped in one call."""
+    wrapper.passes_run = wrapper.passes_skipped = 0
+    fn()
+    torch.cuda.synchronize()
+    ran, skipped = wrapper.passes_run, wrapper.passes_skipped
+    passes_ms = device_ms(fn, "radix_onesweep_pass")
+    return dict(device_ms_upfront=device_ms(fn, "radix_upfront_hist"),
+                device_ms_bases=device_ms(fn, "radix_bases"),
+                device_ms_passes=passes_ms,
+                device_ms_per_pass=passes_ms / ran if passes_ms and ran
+                else None,
+                passes_run=ran, passes_skipped=skipped)
+
+
+def sort_detail(t: dict) -> str:
+    return (f"device ms: upfront histogram {t['device_ms_upfront']}, bases "
+            f"{t['device_ms_bases']}, onesweep passes {t['device_ms_passes']}"
+            f" ({t['device_ms_per_pass']} a pass); passes run "
+            f"{t['passes_run']}, skipped {t['passes_skipped']}")
+
+
+def sort_result(err: float, times: dict) -> dict:
+    """The kernels-line entry of K2 or K3: code_bits 46, with the 64-bit
+    times beside it."""
     return dict(max_abs_err=err, bound_by="bytes", **times[46],
-                ms_code_bits_64=times[64]["ms"],
-                library_ms_code_bits_64=times[64]["library_ms"])
+                **{f"{k}_code_bits_64": v for k, v in times[64].items()
+                   if k != "bound_ms"})
 
 
 def k3_inputs(rng, n: int, bits: int):
@@ -270,10 +325,12 @@ def check_k3(dev, rng):
                 torch.from_numpy(vals.view(np.int32)).to(dev))
 
     err, cases = 0.0, 0
-    for n in K3_NS:
+    for n in K3_NS + tile_edges():
         for bits in K3_BITS:
             keys, vals = k3_inputs(rng, n, bits)
-            for kk in (keys, np.full(n, SENT)):
+            extra = (adversarial_keys(rng, n, bits)
+                     if n in tile_edges() or n == K3_NS[-2] else [])
+            for kk in (keys, np.full(n, SENT), *extra):
                 k, v = upload(kk, vals)
                 gk, gv = radix_sort_kv_u64(k, v, bits)
                 wk, wv = sort_kv_plain(k, v)
@@ -283,7 +340,7 @@ def check_k3(dev, rng):
                     e = max(e, float((gv.long() - wv.long()).abs().max()))
                 err = max(err, e)
                 cases += 1
-                if e:
+                if e or (n > 1 and gk.data_ptr() == k.data_ptr()):
                     raise SystemExit(f"K3 mismatch: n={n} code_bits={bits} "
                                      f"err={e}")
     times, radix_bound = {}, {}
@@ -297,7 +354,9 @@ def check_k3(dev, rng):
             # one call: the stable sort, its permutation not yet applied
             library_ms=cuda_ms(lambda: torch.sort(flipped, stable=True)),
             # keys and values read once, both written once
-            bound_ms=bytes_ms(24 * k.numel()))
+            bound_ms=bytes_ms(24 * k.numel()),
+            **sort_device_ms(lambda: radix_sort_kv_u64(k, v, bits),
+                             radix_sort_kv_u64))
         # the histogram read of the keys, then 24 B a pair a pass
         radix_bound[bits] = bytes_ms((8 + 24 * passes) * k.numel())
     say(f"K3 radix_sort_kv_u64: exact on both planes in {cases} cases; "
@@ -305,10 +364,9 @@ def check_k3(dev, rng):
             f"code_bits={b}: kernel {t['ms']} ms, plain {t['plain_ms']} ms, "
             f"stable torch.sort {t['library_ms']} ms, bound {t['bound_ms']} "
             f"ms, {len(radix_shifts(b))}-pass radix bound "
-            f"{radix_bound[b]} ms" for b, t in times.items()))
-    return dict(max_abs_err=err, bound_by="bytes", **times[46],
-                ms_code_bits_64=times[64]["ms"],
-                library_ms_code_bits_64=times[64]["library_ms"])
+            f"{radix_bound[b]} ms ({radix_bound[b] / t['ms']:.1%} of it); "
+            + sort_detail(t) for b, t in times.items()))
+    return sort_result(err, times)
 
 
 # ---------------------------------------------------------------------------

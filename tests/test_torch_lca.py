@@ -23,6 +23,10 @@ from unikmer_tpu_torch.ops.radix_sort import (
 from unikmer_tpu_torch.taxonomy import lca as port_lca
 from unikmer_tpu_torch.taxonomy.taxdump import Taxonomy as PortTaxonomy
 
+from test_torch_sort import (
+    ONESWEEP_KINDS, ONESWEEP_NS, card_cases, onesweep_keys, onesweep_numpy,
+)
+
 TAXDUMP = "tests/data/taxdump"
 VOCAB = np.array([0, 511145, 585057, 349741, 562, 561, 2, 1224, 83333],
                  np.uint32)
@@ -161,6 +165,23 @@ def test_k3_pass_plan_sorts_stably(code_bits):
     gk, gv = lsd_kv_passes_numpy(keys, vals, code_bits)
     np.testing.assert_array_equal(gk, keys[order])
     np.testing.assert_array_equal(gv, vals[order])
+
+
+@pytest.mark.parametrize("kind", ONESWEEP_KINDS)
+@pytest.mark.parametrize("code_bits", [2, 46, 47, 48, 63, 64])
+def test_k3_onesweep_model_sorts_stably(code_bits, kind):
+    rng = np.random.default_rng([code_bits, len(kind)])
+    for n in ONESWEEP_NS:
+        keys = onesweep_keys(rng, kind, n, code_bits)
+        vals = np.arange(n, dtype=np.uint32) | np.uint32(VALID_BIT)
+        vals[rng.random(n) < 0.1] = 0
+        order = np.argsort(keys, kind="stable")
+        gk, gv, ran, skipped = onesweep_numpy(keys, code_bits, vals)
+        np.testing.assert_array_equal(gk, keys[order])
+        np.testing.assert_array_equal(gv, vals[order])
+        assert ran + skipped == len(radix_shifts(code_bits))
+        if kind in ("equal", "sentinel") or n <= 1:
+            assert ran == 0 and np.array_equal(gv, vals)
 
 
 def test_k3_rejects_bad_inputs():
@@ -399,7 +420,10 @@ def test_collapse_empty():
 @pytest.mark.cuda
 @pytest.mark.parametrize("code_bits", [2, 46, 64])
 def test_k3_kernel_matches_plain_on_card(cuda_device, code_bits):
+    from unikmer_tpu_torch import _kernels
+
     rng = np.random.default_rng(code_bits)
+    ties = []
     for n in (0, 1, 1000, 4097, (1 << 20) + 3):
         if code_bits == 64:
             keys = random_u64(rng, n)
@@ -407,12 +431,20 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, code_bits):
             keys = rng.integers(0, 1 << code_bits, size=n, dtype=np.uint64)
         keys[rng.random(n) < 0.05] = SENT
         keys[rng.random(n) < 0.2] = keys[0] if n else 0
+        ties.append((n, keys))
+    # all-equal, sorted, reverse-sorted and one-hot keys at the tile's edges
+    cases = ties + list(card_cases(rng, code_bits,
+                                   _kernels.load().ukt_radix_tile()))
+    for n, keys in cases:
         vals = rng.integers(0, 1 << 30, size=n, dtype=np.uint32)
         vals[rng.random(n) < 0.5] |= np.uint32(VALID_BIT)
+        vals[rng.random(n) < 0.05] = 0
         k, v = t64(keys).to(cuda_device), i32(vals).to(cuda_device)
         gk, gv = radix_sort_kv_u64(k, v, code_bits)
         wk, wv = sort_kv_plain(k, v)
-        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+        assert torch.equal(gk, wk) and torch.equal(gv, wv), n
+        assert n <= 1 or (gk.data_ptr() != k.data_ptr()
+                          and gv.data_ptr() != v.data_ptr())
 
 
 @pytest.mark.cuda

@@ -85,6 +85,106 @@ def test_k2_pass_plan_sorts(code_bits):
     np.testing.assert_array_equal(lsd_passes_numpy(a, code_bits), np.sort(a))
 
 
+ONESWEEP_TILE, ONESWEEP_WARP = 64, 16  # small tiles: many, and a ragged last
+ONESWEEP_NS = [0, 1, ONESWEEP_TILE - 1, ONESWEEP_TILE, ONESWEEP_TILE + 1,
+               5 * ONESWEEP_TILE + 3]
+ONESWEEP_KINDS = ["random", "equal", "sentinel", "sorted", "reverse"]
+
+
+def onesweep_numpy(keys, code_bits, vals=None, tile=ONESWEEP_TILE,
+                   warp_keys=ONESWEEP_WARP):
+    """K2's (and, with ``vals``, K3's) onesweep kernels in numpy, step by
+    step: the upfront [P, 256] histogram of all passes from one read, its
+    exclusive digit bases and the trivial-pass flags; then for each pass
+    that runs, the per-tile digit counts, the look-back prefix (the sum
+    over earlier tiles), warp ranks in input order, the digit-major
+    block-local slots, the shared-memory stage and the staged write
+    positions.  Returns (keys, vals or None, passes run, passes skipped)."""
+    n = len(keys)
+    shifts = radix_shifts(code_bits)
+    ranked = keys.copy()
+    if code_bits < 64:
+        ranked[keys == SENT] = np.uint64(1) << np.uint64(code_bits)
+
+    def digits(idx, shift):
+        return ((ranked[idx] >> np.uint64(shift))
+                & np.uint64(255)).astype(np.int64)
+
+    everything = np.arange(n)
+    hist = np.array([np.bincount(digits(everything, s), minlength=256)
+                     for s in shifts]).reshape(len(shifts), 256)
+    bases = np.cumsum(hist, 1) - hist
+    trivial = (hist == n).any(1)
+    order = everything  # the source of the pass: keys[order]
+    ran = 0
+    for p, shift in enumerate(shifts):
+        if trivial[p]:
+            continue
+        ran += 1
+        d = digits(order, shift)
+        tiles = -(-n // tile)
+        counts = np.array([np.bincount(d[j * tile:(j + 1) * tile],
+                                       minlength=256) for j in range(tiles)])
+        lookback = np.cumsum(counts, 0) - counts  # earlier tiles, per digit
+        out = np.full(n, -1)
+        for j in range(tiles):
+            part = slice(j * tile, (j + 1) * tile)
+            dj, src = d[part], order[part]
+            c = len(dj)
+            w = np.arange(c) // warp_keys
+            group = w * 256 + dj
+            o = np.argsort(group, kind="stable")
+            rank = np.empty(c, np.int64)
+            rank[o] = np.arange(c) - np.searchsorted(group[o], group[o])
+            wc = np.zeros((w[-1] + 1, 256), np.int64)
+            np.add.at(wc, (w, dj), 1)
+            warp_prefix = np.cumsum(wc, 0) - wc
+            block_start = np.cumsum(counts[j]) - counts[j]
+            slot = block_start[dj] + warp_prefix[w, dj] + rank
+            assert np.array_equal(np.sort(slot), np.arange(c))
+            stage = np.empty(c, np.int64)
+            stage[slot] = src
+            sd = digits(stage, shift)
+            pos = (bases[p, sd] + lookback[j, sd] + np.arange(c)
+                   - block_start[sd])
+            out[pos] = stage
+        assert (out >= 0).all()
+        order = out
+    return (keys[order], None if vals is None else vals[order], ran,
+            len(shifts) - ran)
+
+
+def onesweep_keys(rng, kind, n, code_bits):
+    """Keys of one kind below 2^code_bits (any u64 at 64), with sentinels."""
+    if code_bits == 64:
+        a = random_u64(rng, n)
+    else:
+        a = rng.integers(0, 1 << code_bits, size=n, dtype=np.uint64)
+        a[rng.random(n) < 0.05] = SENT
+    if kind == "equal":
+        a[:] = a[0] if n else 0
+    elif kind == "sentinel":
+        a[:] = SENT
+    elif kind == "sorted":
+        a = np.sort(a)
+    elif kind == "reverse":
+        a = np.sort(a)[::-1].copy()
+    return a
+
+
+@pytest.mark.parametrize("n", ONESWEEP_NS)
+@pytest.mark.parametrize("kind", ONESWEEP_KINDS)
+@pytest.mark.parametrize("code_bits", [2, 46, 47, 48, 63, 64])
+def test_k2_onesweep_model_sorts(code_bits, kind, n):
+    keys = onesweep_keys(np.random.default_rng([code_bits, n]), kind, n,
+                         code_bits)
+    got, _, ran, skipped = onesweep_numpy(keys, code_bits)
+    np.testing.assert_array_equal(got, np.sort(keys))
+    assert ran + skipped == len(radix_shifts(code_bits))
+    if kind in ("equal", "sentinel") or n <= 1:
+        assert ran == 0  # every pass trivial: the order is left as it is
+
+
 def test_radix_shifts():
     assert radix_shifts(46) == [0, 8, 16, 24, 32, 40]
     assert radix_shifts(47) == [0, 8, 16, 24, 32, 40]
@@ -160,18 +260,37 @@ def test_collapse_empty_and_all_invalid():
                                   torch.ones(5, dtype=torch.bool), mode="x")
 
 
+def one_hot_keys(rng, n, code_bits):
+    """Keys with one bit set below code_bits: most digits of every pass
+    are 0, one long look-back chain."""
+    bit = rng.integers(0, min(code_bits, 64), size=n).astype(np.uint64)
+    return np.uint64(1) << bit
+
+
+def card_cases(rng, code_bits, tile):
+    """(n, keys) for the card tests: random keys with sentinels at ragged
+    and tile-edge lengths, then all-equal, sorted, reverse-sorted and
+    one-hot keys at tile - 1, tile + 1 and 3 tiles."""
+    for n in (0, 1, 1000, tile - 1, tile, tile + 1, 4097, (1 << 20) + 3):
+        yield n, onesweep_keys(rng, "random", n, code_bits)
+    for n in (tile - 1, tile + 1, 3 * tile, (1 << 20) + 3):
+        for kind in ("equal", "sorted", "reverse"):
+            yield n, onesweep_keys(rng, kind, n, code_bits)
+        yield n, one_hot_keys(rng, n, code_bits)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("code_bits", [2, 46, 48, 64])
 def test_k2_kernel_matches_plain_on_card(cuda_device, code_bits):
+    from unikmer_tpu_torch import _kernels
+
+    tile = _kernels.load().ukt_radix_tile()
     rng = np.random.default_rng(code_bits)
-    for n in (0, 1, 1000, 4097, (1 << 20) + 3):
-        if code_bits == 64:
-            a = random_u64(rng, n)
-        else:
-            a = rng.integers(0, 1 << code_bits, size=n, dtype=np.uint64)
-            a[rng.random(n) < 0.05] = SENT
+    for n, a in card_cases(rng, code_bits, tile):
         x = t64(a).to(cuda_device)
-        assert torch.equal(radix_sort_u64(x, code_bits), sort_u64_plain(x))
+        got = radix_sort_u64(x, code_bits)
+        assert torch.equal(got, sort_u64_plain(x)), n
+        assert n <= 1 or got.data_ptr() != x.data_ptr()
 
 
 @pytest.mark.cuda
