@@ -21,7 +21,14 @@ oracles:
             version inside the entry point.
 
 The launch counters, zeroed before each path's run and read after it,
-show that the run went through the kernels of its path.
+show that the run went through the kernels of its path.  P1a and P1c
+are timed in turns with their library calls (library, kernel, kernel,
+library; TURNS rounds), beside variants of their kernels that each undo
+one design choice (PROBE_VARIANTS).  The host cost of the launch path is read
+as host microseconds per wrapper call over HOST_CALLS un-synchronised
+calls: for P1c's call step by step as the path stood before the launch
+helper of _kernels.py (``launch_breakdown``), and for every wrapper
+(``host_us`` in the kernels line).
 
 The count oracle is this script's own numpy count (every window's 2-bit
 code, the canonical form written out below, np.unique) over the bases
@@ -72,6 +79,9 @@ RECORD_BASES = 1 << 25
 LINE = 60
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 FLUSH_BYTES = 256 << 20  # written between P1a's repetitions: > the 50 MB L2
+HOST_CALLS = 1000  # un-synchronised wrapper calls in one host-cost reading
+TURNS = 20  # rounds of kernel-and-library timings in turns
+P1C_BIG_TILES = 65537  # more tiles than a grid's z extent holds
 
 
 def say(*a):
@@ -95,6 +105,13 @@ def cuda_ms(fn, reps: int = 5, before=None) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def ms_spread(fn, rounds: int = 5) -> dict:
+    """CUDA-event ms of fn() as the kernels-line keys ms (the median of
+    2 * rounds timings) and ms_spread (the distance between quartiles)."""
+    t = turns_ms({"kernel": fn}, rounds)["kernel"]
+    return dict(ms=t["median"], ms_spread=t["spread"])
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
@@ -175,14 +192,14 @@ def check_k1(dev, rng):
         raise SystemExit(f"K1 poly-T mismatch (real 2^64-1 codes: {n_real_sent})")
     n = (1 << 25) + 3
     p2, vm = upload(big[:n])
-    ms = cuda_ms(lambda: encode_2bit(p2, vm, n, 23, True))
+    t = ms_spread(lambda: encode_2bit(p2, vm, n, 23, True))
     plain_ms = cuda_ms(lambda: encode_2bit_plain(p2, vm, n, 23, True))
     # packed bases and mask read once, the u64 codes and bool flags written
     bound = bytes_ms(p2.numel() + vm.numel() + 9 * n)
     say(f"K1 encode_2bit: exact on {len(K1_NS) * len(K1_KS) * 2 + 1} cases; "
-        f"n={n} k=23 canonical: kernel {ms} ms, plain {plain_ms} ms, "
-        f"bound {bound} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        f"n={n} k=23 canonical: kernel {t['ms']} ms (spread "
+        f"{t['ms_spread']}), plain {plain_ms} ms, bound {bound} ms")
+    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", library_ms=None)
 
 
@@ -243,7 +260,7 @@ def check_k2(dev, rng):
         flipped = x ^ SIGN  # unsigned order as signed: one torch.sort call
         passes = len(radix_shifts(bits))
         times[bits] = dict(
-            ms=cuda_ms(lambda: radix_sort_u64(x, bits)),
+            **ms_spread(lambda: radix_sort_u64(x, bits)),
             plain_ms=cuda_ms(lambda: sort_u64_plain(x)),
             library_ms=cuda_ms(lambda: torch.sort(flipped)),
             # the keys read once and the sorted keys written once
@@ -253,8 +270,8 @@ def check_k2(dev, rng):
         # each pass reads and writes the keys
         radix_bound[bits] = bytes_ms((1 + 2 * passes) * 8 * x.numel())
     say(f"K2 radix_sort_u64: exact on {cases} cases; n=2^25 " + "; ".join(
-        f"code_bits={b}: kernel {t['ms']} ms, plain {t['plain_ms']} ms, "
-        f"torch.sort {t['library_ms']} ms, bound {t['bound_ms']} ms, "
+        f"code_bits={b}: kernel {t['ms']} ms (spread {t['ms_spread']}), "
+        f"plain {t['plain_ms']} ms, torch.sort {t['library_ms']} ms, bound {t['bound_ms']} ms, "
         f"{len(radix_shifts(b))}-pass radix bound {radix_bound[b]} ms "
         f"({radix_bound[b] / t['ms']:.1%} of it); " + sort_detail(t)
         for b, t in times.items()))
@@ -349,7 +366,7 @@ def check_k3(dev, rng):
         flipped = k ^ SIGN
         passes = len(radix_shifts(bits))
         times[bits] = dict(
-            ms=cuda_ms(lambda: radix_sort_kv_u64(k, v, bits)),
+            **ms_spread(lambda: radix_sort_kv_u64(k, v, bits)),
             plain_ms=cuda_ms(lambda: sort_kv_plain(k, v)),
             # one call: the stable sort, its permutation not yet applied
             library_ms=cuda_ms(lambda: torch.sort(flipped, stable=True)),
@@ -361,8 +378,8 @@ def check_k3(dev, rng):
         radix_bound[bits] = bytes_ms((8 + 24 * passes) * k.numel())
     say(f"K3 radix_sort_kv_u64: exact on both planes in {cases} cases; "
         f"n=2^25 " + "; ".join(
-            f"code_bits={b}: kernel {t['ms']} ms, plain {t['plain_ms']} ms, "
-            f"stable torch.sort {t['library_ms']} ms, bound {t['bound_ms']} "
+            f"code_bits={b}: kernel {t['ms']} ms (spread {t['ms_spread']}), "
+            f"plain {t['plain_ms']} ms, stable torch.sort {t['library_ms']} ms, bound {t['bound_ms']} "
             f"ms, {len(radix_shifts(b))}-pass radix bound "
             f"{radix_bound[b]} ms ({radix_bound[b] / t['ms']:.1%} of it); "
             + sort_detail(t) for b, t in times.items()))
@@ -758,10 +775,136 @@ def hold(name, kernel, plain, cases) -> float:
     return err
 
 
+def turns_ms(fns: dict, rounds: int = TURNS, before=None) -> dict:
+    """{name: quartiles} of the CUDA-event ms of every fn, timed in turns:
+    each round runs them in order and then in reverse (library, kernel,
+    kernel, library); ``before()`` runs ahead of each timing, outside the
+    events."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in [*fns, *reversed(fns)]:
+            if before is not None:
+                before()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fns[name]()
+            t1.record()
+            t1.synchronize()
+            got[name].append(t0.elapsed_time(t1))
+    return {name: quartiles(v) for name, v in got.items()}
+
+
+PROBE_VARIANTS = {  # name: (entry point, its count argument, substitutions)
+    "P1c whole tile a block": (
+        "ukt_transpose128_u32", lambda x: x.shape[0] // 128,
+        [("constexpr int kSub = 64;", "constexpr int kSub = 128;")]),
+    "P1a default-cached loads and stores": (
+        "ukt_copy_inc_u32", lambda x: x.numel(),
+        [("__ldcs(in4 + i)", "in4[i]"),
+         ("__stcs(out4 + i, inc4(v[u]))", "out4[i] = inc4(v[u])")]),
+    "P1a streaming loads, default-cached stores": (
+        "ukt_copy_inc_u32", lambda x: x.numel(),
+        [("__stcs(out4 + i, inc4(v[u]))", "out4[i] = inc4(v[u])")]),
+    "P1a default-cached loads, streaming stores": (
+        "ukt_copy_inc_u32", lambda x: x.numel(),
+        [("__ldcs(in4 + i)", "in4[i]")]),
+    "P1a loads ld.global.nc.L1::no_allocate.L2::256B": (
+        "ukt_copy_inc_u32", lambda x: x.numel(),
+        [("__ldcs(in4 + i)", "ld_nc_256(in4 + i)"),
+         ("__device__ __forceinline__ uint4 inc4(uint4 v) {",
+          "__device__ __forceinline__ uint4 ld_nc_256(const uint4* p) {\n"
+          "  uint4 v;\n"
+          "  asm volatile(\"ld.global.nc.L1::no_allocate.L2::256B.v4.u32 "
+          "{%0, %1, %2, %3}, [%4];\" : \"=r\"(v.x), \"=r\"(v.y), "
+          "\"=r\"(v.z), \"=r\"(v.w) : \"l\"(p));\n"
+          "  return v;\n"
+          "}\n\n"
+          "__device__ __forceinline__ uint4 inc4(uint4 v) {")]),
+    "P1a 1 uint4 a thread": (
+        "ukt_copy_inc_u32", lambda x: x.numel(),
+        [("constexpr int kIncVecs = 4;", "constexpr int kIncVecs = 1;")]),
+    "P1a 8 uint4 a thread": (
+        "ukt_copy_inc_u32", lambda x: x.numel(),
+        [("constexpr int kIncVecs = 4;", "constexpr int kIncVecs = 8;")]),
+}
+
+
+def ptxas_lines(text: str, kernels) -> list:
+    """ptxas's registers line of each kernel whose name holds one of
+    ``kernels``, from nvcc -Xptxas -v output."""
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif "registers" in line and name and any(k in name for k in kernels):
+            out.append(f"{next(k for k in kernels if k in name)}: "
+                       f"{line.split(':', 1)[1].strip()}")
+    return out
+
+
+def probe_variants() -> dict:
+    """Each of PROBE_VARIANTS: csrc/probes.cu with one design choice
+    undone by a text substitution, built alone (one nvcc each, all at
+    once, with the source as built for ptxas's report) under
+    build/unikmer_tpu_torch/variants/; returns name -> a launcher that
+    runs the variant's entry point into a new tensor."""
+    import ctypes
+
+    from unikmer_tpu_torch import _kernels
+
+    out = _kernels.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (_kernels.CSRC / "probes.cu").read_text()
+    nvcc = [_kernels.find_nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v"]
+    cmds = {"as built": [*nvcc, "-c", "-o", str(out / "probes.o"),
+                         str(_kernels.CSRC / "probes.cu")]}
+    for i, (name, (_, _, subs)) in enumerate(PROBE_VARIANTS.items()):
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"variant {name}: {old!r} not in probes.cu")
+            text = text.replace(old, new)
+        (out / f"probes_v{i}.cu").write_text(text)
+        cmds[name] = [*nvcc, "-shared", "-o", str(out / f"probes_v{i}.so"),
+                      str(out / f"probes_v{i}.cu")]
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, cmd in cmds.items()}
+    for name, proc in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"probes.cu, {name}: nvcc failed\n{text}")
+        say(f"ptxas, probes.cu {name}: " + "; ".join(
+            ptxas_lines(text, ("transpose128", "copy_inc"))))
+    launchers = {}
+    for i, (name, (entry, count, _)) in enumerate(PROBE_VARIANTS.items()):
+        fn = getattr(ctypes.CDLL(str(out / f"probes_v{i}.so")), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p]
+
+        def launch(x, fn=fn, count=count, name=name):
+            y = torch.empty_like(x)
+            err = fn(x.data_ptr(), y.data_ptr(), count(x),
+                     torch._C._cuda_getCurrentRawStream(x.device.index))
+            if err:
+                raise SystemExit(f"{name}: CUDA error {err}")
+            return y
+
+        launchers[name] = launch
+    return launchers
+
+
 def check_probes(dev, rng):
     """The four probe kernels held to their plain versions at the
-    scripts' sizes and at ragged ones, then timed at the scripts' sizes;
-    returns one result dict per kernel."""
+    scripts' sizes and at ragged ones, then timed at the scripts' sizes
+    (P1a and P1c in turns with their library calls); returns one result
+    dict per kernel."""
     from unikmer_tpu_torch import probes as entry
     from unikmer_tpu_torch.ops import probes
 
@@ -775,12 +918,35 @@ def check_probes(dev, rng):
                probes.copy_inc_u32_plain,
                [(x1,), (u32_tensor(rng, (65536, 128), dev),),
                 (u32_tensor(rng, (3, 5), dev),), (u32_tensor(rng, (1,), dev),),
-                (u32_tensor(rng, (7, 128), dev).reshape(-1)[1:],)])
-    cold = dict(reps=10, before=lambda: flush.fill_(1))  # L2 flushed each time
+                (u32_tensor(rng, (7, 128), dev).reshape(-1)[1:],),
+                (u32_tensor(rng, ((1 << 21) + 3,), dev),),
+                (u32_tensor(rng, ((1 << 21) + 4,), dev)[1:],)])
+    variants = probe_variants()
+    p1a_variants = {k: v for k, v in variants.items() if k.startswith("P1a")}
+    for name, launch in p1a_variants.items():
+        hold(name, launch, probes.copy_inc_u32_plain,
+             [(x1,), (u32_tensor(rng, ((1 << 21) + 4,), dev)[1:],)])
+    cold = dict(before=lambda: flush.fill_(1))  # L2 flushed each time
+    t = turns_ms({"library": lambda: x1 + 1,
+                  "kernel": lambda: probes.copy_inc_u32(x1),
+                  **{k: (lambda f=f: f(x1)) for k, f in p1a_variants.items()}},
+                 **cold)
+    # the same after a read of the flush buffer: L2 then holds no dirty
+    # lines that the copy's own lines must first write back
+    clean = turns_ms({"library": lambda: x1 + 1,
+                      "kernel": lambda: probes.copy_inc_u32(x1)},
+                     before=lambda: flush.sum())
     out["P1a"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: probes.copy_inc_u32(x1), **cold),
-        plain_ms=cuda_ms(lambda: probes.copy_inc_u32_plain(x1), **cold),
-        library_ms=cuda_ms(lambda: x1 + 1, **cold),
+        max_abs_err=err, ms=t["kernel"]["median"],
+        ms_spread=t["kernel"]["spread"], library_ms=t["library"]["median"],
+        library_ms_spread=t["library"]["spread"],
+        ms_after_a_read_flush=clean["kernel"]["median"],
+        library_ms_after_a_read_flush=clean["library"]["median"],
+        variants={k: dict(ms=t[k]["median"], ms_spread=t[k]["spread"],
+                          device_ms=device_ms(lambda f=f: f(x1), "copy_inc"))
+                  for k, f in p1a_variants.items()},
+        plain_ms=cuda_ms(lambda: probes.copy_inc_u32_plain(x1), reps=10,
+                         **cold),
         device_ms=device_ms(lambda: probes.copy_inc_u32(x1), "copy_inc"),
         bound_ms=bytes_ms(2 * x1.numel() * 4), bound_by="bytes")
 
@@ -801,18 +967,40 @@ def check_probes(dev, rng):
         **{f"ms_p2a_{s}": cuda_ms(lambda d=d: probes.row_cmpex_u32(blk, d), 20)
            for s, d in p2a.items()})
 
+    # 65,537 tiles (4.3 GB each way): past a grid's z extent of 65,535
+    big = torch.arange(P1C_BIG_TILES * 128 * 128, dtype=torch.int32,
+                       device=dev).view(-1, 128)
+    misaligned = torch.empty(3 * 128 * 128 + 1, dtype=torch.int32, device=dev)
+    misaligned = misaligned[1:].view(-1, 128).copy_(
+        u32_tensor(rng, (3 * 128, 128), dev))
     err = hold("P1c transpose128_u32", probes.transpose128_u32,
                probes.transpose128_u32_plain,
                [(blk,), (u32_tensor(rng, (128, 128), dev),),
-                (u32_tensor(rng, (3 * 128, 128), dev),)])
+                (u32_tensor(rng, (3 * 128, 128), dev),), (misaligned,),
+                (big,)])
+    del big, misaligned
+    p1c_variants = {k: v for k, v in variants.items() if k.startswith("P1c")}
+    for name, launch in p1c_variants.items():
+        hold(name, launch, probes.transpose128_u32_plain,
+             [(blk,), (u32_tensor(rng, (3 * 128, 128), dev),)])
+    library = (lambda: blk.view(rows // 128, 128, 128)
+               .transpose(1, 2).contiguous())
+    t = turns_ms({"library": library,
+                  "kernel": lambda: probes.transpose128_u32(blk),
+                  **{k: (lambda f=f: f(blk)) for k, f in p1c_variants.items()}})
     out["P1c"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: probes.transpose128_u32(blk), 20),
+        max_abs_err=err, ms=t["kernel"]["median"],
+        ms_spread=t["kernel"]["spread"], library_ms=t["library"]["median"],
+        library_ms_spread=t["library"]["spread"],
         plain_ms=cuda_ms(lambda: probes.transpose128_u32_plain(blk), 20),
-        library_ms=cuda_ms(lambda: blk.view(rows // 128, 128, 128)
-                           .transpose(1, 2).contiguous(), 20),
         device_ms=device_ms(lambda: probes.transpose128_u32(blk),
                             "transpose128"),
-        bound_ms=bytes_ms(two_mib), bound_by="bytes")
+        bound_ms=bytes_ms(two_mib), bound_by="bytes",
+        variants={k: dict(ms=t[k]["median"], ms_spread=t[k]["spread"],
+                          device_ms=device_ms(lambda f=f: f(blk),
+                                              "transpose128"))
+                  for k, f in p1c_variants.items()},
+        tiles_held=[1, 3, 32, P1C_BIG_TILES])
 
     err = hold("P2b lane_cmpex_u32", probes.lane_cmpex_u32,
                probes.lane_cmpex_u32_plain,
@@ -824,11 +1012,173 @@ def check_probes(dev, rng):
         library_ms=None, bound_ms=bytes_ms(two_mib), bound_by="bytes",
         device_ms=device_ms(lambda: probes.lane_cmpex_u32(blk), "lane_cmpex"))
     for name, r in out.items():
-        say(f"{name}: exact; kernel {r['ms']} ms (device {r['device_ms']} "
-            f"ms), plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
-            f"bound {r['bound_ms']} ms" + "".join(
-                f", {k} {v} ms" for k, v in r.items() if k.startswith("ms_")))
+        say(f"{name}: exact; " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k != "max_abs_err"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the launch path: host cost of a wrapper call
+
+
+def quartiles(v) -> dict:
+    """Median and spread (the distance between the quartiles) of v."""
+    q1, q2, q3 = statistics.quantiles(v, n=4, method="inclusive")
+    return {"median": q2, "spread": q3 - q1}
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of fn() over ``calls`` calls with no
+    synchronize between them; the card is drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
+def host_us_turns(fns: dict, rounds: int = 15) -> dict:
+    """{name: quartiles} of host_us(fn) over ``rounds`` readings of every
+    fn, taken in turns (the order reversed every other round)."""
+    for fn in fns.values():
+        fn()
+    got = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[name].append(host_us(fns[name]))
+    return {name: quartiles(v) for name, v in got.items()}
+
+
+OLD_STEPS = ("checks", "contiguous", "empty_like", "device context", "load",
+             "stream lookup", "getattr", "ctypes call", "check")
+
+
+def old_transpose_launch(x, skip=()):
+    """transpose128_u32(x) as its launch path stood before the launch
+    helper of _kernels.py, step by step (ops/probes.py before it): each
+    step named in ``skip`` is left out, its result taken from one call
+    made ahead."""
+    from unikmer_tpu_torch import _kernels
+    from unikmer_tpu_torch.ops import probes
+
+    name = "ukt_transpose128_u32"
+    tiles = x.shape[0] // 128
+    lib = _kernels.load()
+    fn = getattr(lib, name)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out0 = torch.empty_like(x)
+
+    def body(xc, out):
+        lib_ = lib if "load" in skip else _kernels.load()
+        if "stream lookup" in skip:
+            s = stream
+        else:
+            s = torch.cuda.current_stream(torch.cuda.current_device()).cuda_stream
+        f = fn if "getattr" in skip else getattr(lib_, name)
+        err = 0 if "ctypes call" in skip else f(xc.data_ptr(), out.data_ptr(),
+                                                  tiles, s)
+        if "check" not in skip:
+            _kernels.check(lib_, err, name)
+
+    def call():
+        if "checks" not in skip:
+            t = probes._check_tiles("transpose128_u32", x)
+            if x.device.type == "cpu" or t > 65535 or t == 0:
+                raise ValueError("not a launch")
+        xc = x if "contiguous" in skip else x.contiguous()
+        out = out0 if "empty_like" in skip else torch.empty_like(xc)
+        if "device context" in skip:
+            body(xc, out)
+        else:
+            with torch.cuda.device(xc.device):
+                body(xc, out)
+        return out
+
+    return call
+
+
+def smi_clocks(when: str) -> None:
+    """Print the card's clocks and power draw as nvidia-smi reads them."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    say(f"clocks {when}: {q.stdout.strip()}")
+
+
+def launch_breakdown(blk) -> dict:
+    """The host cost of one transpose128_u32(blk), the P1c probe's call,
+    in HOST_CALLS un-synchronised calls a reading, all readings in turns:
+    the launch path as it stood before the launch helper, that path with
+    each of its steps left out (a step's cost is the difference), the
+    wrapper as it is, the library call, and the torch primitives a
+    launch path may use.  Prints one line a reading; returns them."""
+    from unikmer_tpu_torch.ops import probes
+
+    fns = {"old path": old_transpose_launch(blk)}
+    fns.update({f"old path without {s}": old_transpose_launch(blk, {s})
+                for s in OLD_STEPS})
+    fns["wrapper as built"] = lambda: probes.transpose128_u32(blk)
+    fns["library call"] = (
+        lambda: blk.view(-1, 128, 128).transpose(1, 2).contiguous())
+    fns["torch.cuda.current_device()"] = torch.cuda.current_device
+    fns["torch.cuda.current_stream(0).cuda_stream"] = (
+        lambda: torch.cuda.current_stream(0).cuda_stream)
+    for prim, args in (("_cuda_getDevice", ()),
+                       ("_cuda_getCurrentRawStream", (0,))):
+        f = getattr(torch._C, prim, None)
+        say(f"torch._C.{prim}: {'present' if f else 'absent'}")
+        if f is not None:
+            fns[f"torch._C.{prim}{args}"] = lambda f=f, a=args: f(*a)
+    smi_clocks("before the launch breakdown")
+    got = host_us_turns(fns)
+    smi_clocks("after it")
+    full = got["old path"]["median"]
+    for name, q in got.items():
+        step = (f"; step {full - q['median']:.3f} us"
+                if name.startswith("old path without") else "")
+        say(f"host us/call {name}: {q['median']:.3f} "
+            f"(spread {q['spread']:.3f}){step}")
+    return got
+
+
+def host_costs(dev, rng) -> dict:
+    """host_us of every wrapper: host microseconds per call over
+    HOST_CALLS un-synchronised calls, the median of 15 readings in turns,
+    at inputs where the card keeps up with the host, so the reading is
+    the launch path's: P1c and P2b at the probe's (4096, 128) block, the
+    others at a few thousand elements.  K2 and K3 read their pass flags
+    back in every call, so theirs holds one round trip to the card."""
+    from unikmer_tpu_torch import probes as entry
+    from unikmer_tpu_torch.models.count import pack_bases_2bit
+    from unikmer_tpu_torch.ops import probes
+    from unikmer_tpu_torch.ops.encode import encode_2bit
+    from unikmer_tpu_torch.ops.radix_sort import (
+        radix_sort_kv_u64, radix_sort_u64,
+    )
+
+    n = 4097
+    p2, vm = (torch.from_numpy(a).to(dev)
+              for a in pack_bases_2bit(random_bases(rng, n)))
+    keys = torch.from_numpy(rng.integers(0, 1 << 46, size=n, dtype=np.uint64)
+                            .view(np.int64)).to(dev)
+    vals = u32_tensor(rng, (n,), dev)
+    small = u32_tensor(rng, (32, 128), dev)
+    _, blk = entry.probe_inputs(dev)
+    ds = probes.p2a_distances(4, 32)
+    smi_clocks("before host_us")
+    got = host_us_turns({
+        "k1": lambda: encode_2bit(p2, vm, n, 23, True),
+        "k2": lambda: radix_sort_u64(keys, 46),
+        "k3": lambda: radix_sort_kv_u64(keys, vals, 46),
+        "P1a": lambda: probes.copy_inc_u32(small),
+        "P1b": lambda: probes.row_cmpex_u32(small, ds),
+        "P1c": lambda: probes.transpose128_u32(blk),
+        "P2b": lambda: probes.lane_cmpex_u32(blk)})
+    smi_clocks("after it")
+    say("host us/call by wrapper: " + json.dumps(got))
+    return {k: q["median"] for k, q in got.items()}
 
 
 def probe_path():
@@ -891,6 +1241,11 @@ def main() -> int:
         f"(build+load {time.perf_counter() - t0:.3f} s); the oracles: numpy")
     results = {"k1": check_k1(dev, rng), "k2": check_k2(dev, rng),
                "k3": check_k3(dev, rng), **check_probes(dev, rng)}
+    from unikmer_tpu_torch import probes as entry
+
+    launch_breakdown(entry.probe_inputs(dev)[1])
+    for key, us in host_costs(dev, rng).items():
+        results[key]["host_us"] = us
     with tempfile.TemporaryDirectory(prefix="unikmer-torch-smoke-") as tmp:
         launches = main_path(tmp, rng)
         launches["k3"] = taxid_path(tmp, rng)

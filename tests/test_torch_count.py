@@ -5,6 +5,7 @@ and build rules.  Exact equality throughout."""
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -247,6 +248,20 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
         _kernels.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.load()
+
+
+def test_kernel_follows_a_swapped_library(monkeypatch):
+    """A Kernel binds its C function once and again only when the library
+    in use is replaced, as radix_variants.py replaces it."""
+    first = types.SimpleNamespace(ukt_copy_inc_u32=lambda *a: 0)
+    second = types.SimpleNamespace(ukt_copy_inc_u32=lambda *a: 0)
+    kernel = _kernels.Kernel("ukt_copy_inc_u32")
+    monkeypatch.setattr(_kernels, "_lib", first)
+    assert kernel.bound() is first.ukt_copy_inc_u32
+    first.ukt_copy_inc_u32 = None  # bound once: no lookup per call
+    assert kernel.bound() is not None
+    monkeypatch.setattr(_kernels, "_lib", second)
+    assert kernel.bound() is second.ukt_copy_inc_u32
 
 
 def test_library_name_tracks_sources(monkeypatch, tmp_path):

@@ -13,6 +13,8 @@ card.
 """
 
 import importlib.util
+import re
+import sys
 from pathlib import Path
 
 import jax
@@ -278,11 +280,144 @@ def test_probe_entry_point_on_cpu(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------
+# the kernels' index arithmetic, walked block by block and thread by
+# thread in numpy (csrc/probes.cu; its constants are read from the source)
+
+CSRC = (REPO / "unikmer_tpu_torch" / "csrc" / "probes.cu").read_text()
+
+
+def cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", CSRC).group(1))
+
+
+THREADS, INC_VECS, SUB = (cu_const(n) for n in ("kThreads", "kIncVecs", "kSub"))
+
+
+def copy_inc_partition(n, offset):
+    """copy_inc_kernel's items for n u32 at ``offset`` elements past a
+    16-byte boundary (the output is a fresh, aligned tensor): returns
+    (how many times each element is moved, blocks launched, items)."""
+    vec = offset % 4 == 0
+    items = n >> 2 if vec else n
+    block_items = THREADS * INC_VECS
+    blocks = max(1, -(-items // block_items))  # ukt_copy_inc_u32
+    b, t, u = np.meshgrid(np.arange(blocks), np.arange(THREADS),
+                          np.arange(INC_VECS), indexing="ij")
+    i = (b * block_items + t + u * THREADS).reshape(-1)
+    i = i[i < items]
+    moved = np.zeros(n, np.int64)
+    if vec:
+        np.add.at(moved, (4 * i[:, None] + np.arange(4)).reshape(-1), 1)
+        tail = n - 4 * items  # block 0's threads t < n - head
+        moved[4 * items + np.arange(THREADS)[:tail]] += 1
+    else:
+        np.add.at(moved, i, 1)
+    return moved, blocks, items
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4099, (1 << 21) + 3])
+def test_copy_inc_partition_covers_each_element_once(n, offset):
+    moved, blocks, items = copy_inc_partition(n, offset)
+    np.testing.assert_array_equal(moved, np.ones(n, np.int64))
+    # one round: only the last block holds items past the array's end
+    assert blocks * THREADS * INC_VECS - items < THREADS * INC_VECS or items == 0
+
+
+def test_copy_inc_grid_at_the_probe_size():
+    _, blocks, items = copy_inc_partition(probe_main.N, 0)
+    assert (items, blocks) == (1 << 21, 2048)
+
+
+def stage_slot(r, g, quads):
+    """uint4 slot of row r, column group g of a stage of ``quads`` uint4
+    a row (transpose128_kernel's stage_slot)."""
+    return r * quads + (g ^ ((r >> 2) & 7))
+
+
+def banks_once_a_quarter_warp(slots):
+    """A 16-byte shared access is served eight threads at a time: their
+    32 words must lie in 32 different banks.  ``slots``: uint4 slots of
+    the block's threads in thread order."""
+    words = (slots[:, None] * 4 + np.arange(4)).reshape(-1, 32)
+    return all(len(set(w % 32)) == 32 for w in words)
+
+
+def whole_row_segments(addrs):
+    """Each warp's 16-byte global accesses cover whole 256-byte row
+    segments (16 consecutive uint4 from a multiple of 16)."""
+    for w in addrs.reshape(-1, 32):
+        segs = np.unique(w // 16)
+        if len(np.unique(w)) != 32 or len(segs) * 16 != 32:
+            return False
+    return True
+
+
+def transpose128_walk(x, sub=SUB):
+    """transpose128_kernel over (T*128, 128) u32 ``x``, block by block,
+    with one shared-memory stage per block; returns (output, whether
+    every shared access is free of bank conflicts, whether every global
+    access moves whole row segments)."""
+    quads = sub // 4
+    per_side = 128 // sub
+    tiles = x.shape[0] // 128
+    x4 = x.reshape(tiles, 128, 32, 4)
+    out4 = np.zeros_like(x4)
+    banks_ok = rows_ok = True
+    for b in range(tiles * per_side * per_side):
+        t, s = divmod(b, per_side * per_side)
+        sr, sc = divmod(s, per_side)
+        stage = np.full((sub * quads, 4), -1, np.int64)
+        for q in range(quads * quads // THREADS):
+            s_ = np.arange(THREADS) + q * THREADS
+            g, p = s_ % quads, s_ // quads
+            rows = sr * sub + 4 * p[:, None] + np.arange(4)  # [thread, k]
+            cols = sc * quads + g
+            rows_ok &= all(whole_row_segments(rows[:, k] * 32 + cols)
+                           for k in range(4))
+            a = x4[t, rows, cols[:, None]]  # [thread, k, component]
+            for e in range(4):
+                slot = stage_slot(4 * g + e, p, quads)
+                banks_ok &= banks_once_a_quarter_warp(slot)
+                stage[slot] = a[:, :, e]
+        assert (stage >= 0).all()  # every slot written, none twice below
+        for q in range(sub * quads // THREADS):
+            i = np.arange(THREADS) + q * THREADS
+            r, g = i // quads, i % quads
+            slot = stage_slot(r, g, quads)
+            banks_ok &= banks_once_a_quarter_warp(slot)
+            orow, ocol = sc * sub + r, sr * quads + g
+            rows_ok &= whole_row_segments(orow * 32 + ocol)
+            out4[t, orow, ocol] = stage[slot]
+    return out4.reshape(x.shape), banks_ok, rows_ok
+
+
+@pytest.mark.parametrize("sub", [SUB, 128], ids=["as_built", "whole_tile"])
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_transpose128_walk_matches_swapaxes(tiles, sub):
+    x = u32_block(11 + tiles, (tiles * 128, 128))
+    got, banks_ok, rows_ok = transpose128_walk(x, sub)
+    want = np.swapaxes(x.reshape(tiles, 128, 128), 1, 2).reshape(-1, 128)
+    np.testing.assert_array_equal(got, want)
+    assert banks_ok and rows_ok
+
+
+def test_transpose128_walk_catches_an_unswizzled_stage(monkeypatch):
+    monkeypatch.setattr(sys.modules[__name__], "stage_slot",
+                        lambda r, g, quads: r * quads + g)
+    got, banks_ok, _ = transpose128_walk(u32_block(14, (128, 128)))
+    np.testing.assert_array_equal(
+        got, u32_block(14, (128, 128)).T)  # still a transpose, but
+    assert not banks_ok  # eight-way conflicts on the stage's writes
+
+
+# ---------------------------------------------------------------------
 # on the card
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(65536, 128), (3, 5), (1, 1), (7, 128)])
+@pytest.mark.parametrize("shape", [(65536, 128), (3, 5), (1, 1), (7, 128),
+                                   (4099,), ((1 << 21) + 3,)])
 def test_copy_inc_on_card(cuda_device, shape):
     x = to_port(u32_block(7, shape)).to(cuda_device)
     assert torch.equal(probes.copy_inc_u32(x), probes.copy_inc_u32_plain(x))
@@ -314,6 +449,21 @@ def test_transpose128_on_card(cuda_device, tiles):
     x = to_port(u32_block(9, (tiles * 128, 128))).to(cuda_device)
     assert torch.equal(probes.transpose128_u32(x),
                        probes.transpose128_u32_plain(x))
+    # a view 4 bytes past a 16-byte boundary
+    y = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda_device)
+    y = y[1:].view_as(x).copy_(x)
+    assert torch.equal(probes.transpose128_u32(y),
+                       probes.transpose128_u32_plain(x))
+
+
+@pytest.mark.cuda
+def test_transpose128_past_65535_tiles(cuda_device):
+    """65,537 tiles (4.3 GB each way): more than a grid's z extent."""
+    tiles = 65537
+    x = torch.arange(tiles * 128 * 128, dtype=torch.int32,
+                     device=cuda_device).view(-1, 128)
+    got = probes.transpose128_u32(x)
+    assert torch.equal(got, probes.transpose128_u32_plain(x))
 
 
 @pytest.mark.cuda

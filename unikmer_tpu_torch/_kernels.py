@@ -13,7 +13,9 @@ without it, loading raises.  Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given, allocates
 nothing and returns ``cudaGetLastError()``; :func:`check` turns a
-non-zero code into an exception.
+non-zero code into an exception.  Wrappers launch through a
+:class:`Kernel`, one per entry point, which binds its C function once and
+passes the raw current stream of the tensors' device.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -145,3 +149,39 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.ukt_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+class Kernel:
+    """One C entry point of the library, launched on the current stream of
+    a device.  The C function is resolved at the first call, and again
+    only when ``_lib`` is replaced (radix_variants.py swaps in libraries
+    of its own), so a launch takes no lock and looks up no symbol.  The
+    stream is torch's raw current-stream handle of the device, read
+    without building a ``torch.cuda.Stream``; the current device is
+    switched only when the tensors lie on another one."""
+
+    __slots__ = ("name", "_lib", "_fn")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lib = self._fn = None
+
+    def bound(self):
+        """The C function in the library in use (built on first use)."""
+        if self._lib is None or self._lib is not _lib:
+            lib = load()
+            self._fn = getattr(lib, self.name)
+            self._lib = lib
+        return self._fn
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream: the C function takes
+        ``args`` and the stream; raises if it returns an error."""
+        fn = self.bound()
+        index = device.index
+        if torch._C._cuda_getDevice() == index:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        check(self._lib, err, self.name)

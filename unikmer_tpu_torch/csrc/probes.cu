@@ -10,8 +10,16 @@
 //                   probe1_fixed (exp_pallas_dma2.py:49, call :80):
 //                   out = in + 1, wrapping at 2^32.  The TPU stages 2 MiB
 //                   blocks HBM -> VMEM -> HBM with DMA semaphores to reach
-//                   HBM at all; here a grid-stride loop of 16-byte uint4
-//                   loads and stores streams device memory directly.
+//                   HBM at all; here each thread moves kIncVecs 16-byte
+//                   uint4 straight from device memory, all its loads issued
+//                   before its first store, and the grid covers the array in
+//                   one round (2,048 blocks for the probe's 2^21 uint4), so
+//                   no thread idles in a ragged last round of a grid-stride
+//                   loop.  The data is touched once, so loads and stores are
+//                   streaming (__ldcs / __stcs, evict-first): 3-4% faster than
+//                   default-cached ones with L2 warm and level with them with
+//                   L2 flushed; ld.global.nc.L1::no_allocate.L2::256B loads
+//                   were slower (chip_smoke.py's PROBE_VARIANTS time these).
 // row_cmpex_u32     replaces probe2 (exp_pallas_dma.py:101, call :118) and
 //                   cmpex_rows_kernel (exp_pallas_dma2.py:96, call :123):
 //                   compare-exchange stages at row distances d on an (R, C)
@@ -25,9 +33,18 @@
 //                   SMs, and each thread does a few pairs per stage, with
 //                   shifts in place of divisions when d is a power of two.
 // transpose128_u32  replaces probe3 (exp_pallas_dma.py:130, call :138): each
-//                   (128, 128) tile is transposed, through a 32 x 33
-//                   shared-memory tile (padded against bank conflicts) so
-//                   both the loads and the stores are coalesced.
+//                   (128, 128) tile is transposed.  A block takes one
+//                   kSub x kSub sub-tile (a 1-D grid with an int64 tile
+//                   index, so any number of tiles is taken): each thread
+//                   loads 4 x 4 squares as four 16-byte rows, transposes
+//                   them in registers and stores the four transposed rows
+//                   into shared memory as 16-byte words; after one barrier
+//                   the block copies the staged rows out, 16 bytes a thread.
+//                   Both global phases move whole 256-byte row segments a
+//                   half-warp.  The staged uint4 of row r, column group g,
+//                   sits at slot g ^ ((r >> 2) & 7) of its row, so the eight
+//                   threads that one 16-byte shared access serves at a time
+//                   hit eight different groups of four banks in both phases.
 // lane_cmpex_u32    replaces probe4_roll (exp_pallas_dma2.py:137, call :154):
 //                   seven lane stages d = 64, 32, ..., 1 on 128-lane rows;
 //                   lane j pairs with lane j ^ d, the lower taking the min.
@@ -45,7 +62,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // 16 blocks per SM for grid-stride loops
 
 __device__ __forceinline__ uint32_t umin32(uint32_t a, uint32_t b) {
   return a < b ? a : b;
@@ -55,27 +71,57 @@ __device__ __forceinline__ uint32_t umax32(uint32_t a, uint32_t b) {
   return a < b ? b : a;
 }
 
+constexpr int kIncVecs = 4;  // uint4 (or u32) a thread
+constexpr int64_t kIncBlockItems = static_cast<int64_t>(kThreads) * kIncVecs;
+
+__device__ __forceinline__ uint4 inc4(uint4 v) {
+  v.x += 1u;
+  v.y += 1u;
+  v.z += 1u;
+  v.w += 1u;
+  return v;
+}
+
+// Block b moves items b * kIncBlockItems + threadIdx.x + u * kThreads,
+// u < kIncVecs: uint4 when `vec` (then block 0 also moves the last n % 4
+// values), else single u32.
 __global__ void __launch_bounds__(kThreads)
 copy_inc_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int64_t n, int vec) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  int64_t head = 0;
+  const int64_t first =
+      static_cast<int64_t>(blockIdx.x) * kIncBlockItems + threadIdx.x;
   if (vec) {
     const int64_t n4 = n >> 2;
     const uint4* __restrict__ in4 = reinterpret_cast<const uint4*>(in);
     uint4* __restrict__ out4 = reinterpret_cast<uint4*>(out);
-    for (int64_t i = tid; i < n4; i += stride) {
-      uint4 v = in4[i];
-      v.x += 1u;
-      v.y += 1u;
-      v.z += 1u;
-      v.w += 1u;
-      out4[i] = v;
+    uint4 v[kIncVecs];
+#pragma unroll
+    for (int u = 0; u < kIncVecs; ++u) {
+      const int64_t i = first + u * kThreads;
+      v[u] = i < n4 ? __ldcs(in4 + i) : make_uint4(0u, 0u, 0u, 0u);
     }
-    head = n4 << 2;
+#pragma unroll
+    for (int u = 0; u < kIncVecs; ++u) {
+      const int64_t i = first + u * kThreads;
+      if (i < n4) __stcs(out4 + i, inc4(v[u]));
+    }
+    const int64_t head = n4 << 2;
+    if (blockIdx.x == 0 && threadIdx.x < n - head) {
+      out[head + threadIdx.x] = in[head + threadIdx.x] + 1u;
+    }
+  } else {
+    uint32_t v[kIncVecs];
+#pragma unroll
+    for (int u = 0; u < kIncVecs; ++u) {
+      const int64_t i = first + u * kThreads;
+      v[u] = i < n ? __ldcs(in + i) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kIncVecs; ++u) {
+      const int64_t i = first + u * kThreads;
+      if (i < n) __stcs(out + i, v[u] + 1u);
+    }
   }
-  for (int64_t i = head + tid; i < n; i += stride) out[i] = in[i] + 1u;
 }
 
 // The top rows of a stage at distance d: r = (p / d) * 2d + p % d for
@@ -136,25 +182,51 @@ row_cmpex_slab_kernel(const uint32_t* in, uint32_t* out, int rows, int64_t cols,
   }
 }
 
-constexpr int kTile = 32;
-constexpr int kTileRows = 8;
+constexpr int kSub = 64;  // sub-tile side; 128 makes one whole tile a block
+constexpr int kSubsPerSide = 128 / kSub;
+constexpr int kQuads = kSub / 4;  // 4 x 4 squares along a side; uint4 a row
+constexpr int kTransposeSmem = kSub * kSub * 4;
+static_assert(kQuads * kQuads % kThreads == 0, "whole squares a thread");
 
-// Block (bx, by, t) transposes the 32 x 32 sub-tile (by, bx) of tile t into
-// sub-tile (bx, by) of the output tile.
-__global__ void __launch_bounds__(kTile * kTileRows)
-transpose128_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out) {
-  __shared__ uint32_t tile[kTile][kTile + 1];
-  const int64_t base = static_cast<int64_t>(blockIdx.z) * 128 * 128;
-  const int x = blockIdx.x * kTile + threadIdx.x;
-  const int y0 = blockIdx.y * kTile;
-  for (int j = threadIdx.y; j < kTile; j += kTileRows) {
-    tile[j][threadIdx.x] = in[base + static_cast<int64_t>(y0 + j) * 128 + x];
+// Slot of the staged uint4 at row r, column group g of a sub-tile.
+__device__ __forceinline__ int stage_slot(int r, int g) {
+  return r * kQuads + (g ^ ((r >> 2) & 7));
+}
+
+// Block b transposes sub-tile (sr, sc) of tile b / kSubsPerSide^2 into
+// sub-tile (sc, sr) of the output tile.  Rows are 32 uint4.
+__global__ void __launch_bounds__(kThreads)
+transpose128_kernel(const uint4* __restrict__ in, uint4* __restrict__ out) {
+  extern __shared__ uint4 stage[];  // kSub rows of kQuads uint4, swizzled
+  const int64_t tile = blockIdx.x / (kSubsPerSide * kSubsPerSide);
+  const int sub = static_cast<int>(blockIdx.x % (kSubsPerSide * kSubsPerSide));
+  const int sr = sub / kSubsPerSide;
+  const int sc = sub % kSubsPerSide;
+  const uint4* __restrict__ src = in + tile * 128 * 32 + sr * kSub * 32 +
+                                  sc * kQuads;
+  uint4* __restrict__ dst = out + tile * 128 * 32 + sc * kSub * 32 +
+                            sr * kQuads;
+  // square (p, g): input rows 4p..4p+3, column group g; g varies fastest
+#pragma unroll
+  for (int q = 0; q < kQuads * kQuads / kThreads; ++q) {
+    const int s = threadIdx.x + q * kThreads;
+    const int g = s % kQuads;
+    const int p = s / kQuads;
+    uint4 a[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[k] = src[(4 * p + k) * 32 + g];
+    stage[stage_slot(4 * g + 0, p)] = make_uint4(a[0].x, a[1].x, a[2].x, a[3].x);
+    stage[stage_slot(4 * g + 1, p)] = make_uint4(a[0].y, a[1].y, a[2].y, a[3].y);
+    stage[stage_slot(4 * g + 2, p)] = make_uint4(a[0].z, a[1].z, a[2].z, a[3].z);
+    stage[stage_slot(4 * g + 3, p)] = make_uint4(a[0].w, a[1].w, a[2].w, a[3].w);
   }
   __syncthreads();
-  const int ox = blockIdx.y * kTile + threadIdx.x;
-  const int oy0 = blockIdx.x * kTile;
-  for (int j = threadIdx.y; j < kTile; j += kTileRows) {
-    out[base + static_cast<int64_t>(oy0 + j) * 128 + ox] = tile[threadIdx.x][j];
+#pragma unroll
+  for (int q = 0; q < kSub * kQuads / kThreads; ++q) {
+    const int i = threadIdx.x + q * kThreads;
+    const int r = i / kQuads;
+    const int g = i % kQuads;
+    dst[r * 32 + g] = stage[stage_slot(r, g)];
   }
 }
 
@@ -200,11 +272,6 @@ lane_cmpex_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int q = 0; q < 4; ++q) dst[t + 32 * q] = v[q];
 }
 
-unsigned grid_for(int64_t work, int64_t cap) {
-  const int64_t blocks = (work + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
-}
-
 }  // namespace
 
 extern "C" {
@@ -213,8 +280,11 @@ extern "C" {
 int ukt_copy_inc_u32(const void* in, void* out, int64_t n, void* stream) {
   const int vec = (reinterpret_cast<uintptr_t>(in) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  copy_inc_kernel<<<grid_for(vec ? (n >> 2) + 4 : n, kMaxBlocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  const int64_t items = vec ? n >> 2 : n;
+  const int64_t blocks = (items + kIncBlockItems - 1) / kIncBlockItems;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  copy_inc_kernel<<<static_cast<unsigned>(blocks > 0 ? blocks : 1), kThreads,
+                    0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), n, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -247,13 +317,24 @@ int ukt_row_cmpex_u32(const void* in, void* out, int64_t rows, int64_t cols,
   return static_cast<int>(cudaSuccess);
 }
 
-// Transpose each of `tiles` (128, 128) u32 tiles.  Returns cudaGetLastError().
+// Transpose each of `tiles` (128, 128) u32 tiles; `in` and `out` 16-byte
+// aligned.  Returns cudaGetLastError().
 int ukt_transpose128_u32(const void* in, void* out, int64_t tiles,
                          void* stream) {
-  const dim3 grid(128 / kTile, 128 / kTile, static_cast<unsigned>(tiles));
-  const dim3 block(kTile, kTileRows);
-  transpose128_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out));
+  const int64_t blocks = tiles * kSubsPerSide * kSubsPerSide;
+  if (blocks > 0x7fffffff || reinterpret_cast<uintptr_t>(in) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (kTransposeSmem > 48 * 1024) {  // kSub = 128: one tile a block
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        transpose128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTransposeSmem);
+    if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  }
+  transpose128_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                        kTransposeSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(in), static_cast<uint4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -64,6 +64,9 @@ def _check_inputs(packed2, validmask, n: int, k: int) -> None:
         raise ValueError("packed2 and validmask must be on one device")
 
 
+_ENCODE = _kernels.Kernel("ukt_encode_2bit")
+
+
 def encode_2bit(packed2: torch.Tensor, validmask: torch.Tensor, n: int,
                 k: int, canonical: bool):
     """K1 on CUDA tensors, its plain version on CPU tensors:
@@ -81,14 +84,9 @@ def encode_2bit(packed2: torch.Tensor, validmask: torch.Tensor, n: int,
     valid = torch.empty(n, dtype=torch.uint8, device=dev)
     if n == 0:
         return keyed, valid
-    lib = _kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ukt_encode_2bit(
-            packed2.data_ptr(), packed2.shape[0], validmask.data_ptr(),
+    _ENCODE(dev, packed2.data_ptr(), packed2.shape[0], validmask.data_ptr(),
             validmask.shape[0], n, k, int(bool(canonical)), keyed.data_ptr(),
-            valid.data_ptr(), stream)
-    _kernels.check(lib, err, "encode_2bit")
+            valid.data_ptr())
     encode_2bit.launches += 1
     return keyed, valid
 

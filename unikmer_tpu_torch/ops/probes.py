@@ -49,16 +49,14 @@ def _check(name: str, x: torch.Tensor, dim: int | None = None) -> None:
         raise ValueError(f"{name} takes an int32 tensor of u32 bit patterns")
     if dim is not None and x.dim() != dim:
         raise ValueError(f"{name} takes a {dim}-D tensor, got {x.dim()}-D")
-    if x.device.type not in ("cpu", "cuda"):
+    if not (x.is_cuda or x.is_cpu):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _launch(fn_name: str, *args) -> None:
-    lib = _kernels.load()
-    dev = torch.cuda.current_device()
-    err = getattr(lib, fn_name)(*args,
-                                torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(lib, err, fn_name)
+_COPY_INC = _kernels.Kernel("ukt_copy_inc_u32")
+_ROW_CMPEX = _kernels.Kernel("ukt_row_cmpex_u32")
+_TRANSPOSE128 = _kernels.Kernel("ukt_transpose128_u32")
+_LANE_CMPEX = _kernels.Kernel("ukt_lane_cmpex_u32")
 
 
 # ---------------------------------------------------------------------
@@ -73,14 +71,13 @@ def copy_inc_u32_plain(x: torch.Tensor) -> torch.Tensor:
 def copy_inc_u32(x: torch.Tensor) -> torch.Tensor:
     """P1a: a new tensor holding x + 1 modulo 2^32 (any shape)."""
     _check("copy_inc_u32", x)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return copy_inc_u32_plain(x)
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        _launch("ukt_copy_inc_u32", x.data_ptr(), out.data_ptr(), x.numel())
+    _COPY_INC(x.device, x.data_ptr(), out.data_ptr(), x.numel())
     copy_inc_u32.launches += 1
     return out
 
@@ -138,7 +135,7 @@ def row_cmpex_u32(x: torch.Tensor, distances) -> torch.Tensor:
     (R, C) tensor, R <= ROW_CMPEX_MAX_ROWS on the card; a new tensor."""
     _check("row_cmpex_u32", x, 2)
     ds = _check_distances(distances)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return row_cmpex_u32_plain(x, ds)
     if x.shape[0] > ROW_CMPEX_MAX_ROWS:
         raise ValueError(f"row_cmpex_u32 takes at most {ROW_CMPEX_MAX_ROWS} "
@@ -150,9 +147,8 @@ def row_cmpex_u32(x: torch.Tensor, distances) -> torch.Tensor:
     rows, cols = x.shape
     # a distance >= rows pairs no rows: clamped, it fits the kernel's int32
     host = (ctypes.c_int64 * len(ds))(*(min(d, rows) for d in ds))
-    with torch.cuda.device(x.device):
-        _launch("ukt_row_cmpex_u32", x.data_ptr(), out.data_ptr(), rows, cols,
-                ctypes.addressof(host), len(ds))
+    _ROW_CMPEX(x.device, x.data_ptr(), out.data_ptr(), rows, cols,
+               ctypes.addressof(host), len(ds))
     row_cmpex_u32.launches += 1
     return out
 
@@ -178,19 +174,18 @@ def transpose128_u32_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def transpose128_u32(x: torch.Tensor) -> torch.Tensor:
-    """P1c: each (128, 128) tile of a (T*128, 128) tensor transposed;
-    a new tensor."""
+    """P1c: each (128, 128) tile of a (T*128, 128) tensor transposed, any
+    T; a new tensor."""
     tiles = _check_tiles("transpose128_u32", x)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return transpose128_u32_plain(x).contiguous()
-    if tiles > 65535:
-        raise ValueError(f"transpose128_u32 takes at most 65535 tiles, got {tiles}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel moves 16-byte words
+        x = x.clone()
     out = torch.empty_like(x)
     if tiles == 0:
         return out
-    with torch.cuda.device(x.device):
-        _launch("ukt_transpose128_u32", x.data_ptr(), out.data_ptr(), tiles)
+    _TRANSPOSE128(x.device, x.data_ptr(), out.data_ptr(), tiles)
     transpose128_u32.launches += 1
     return out
 
@@ -222,14 +217,13 @@ def lane_cmpex_u32(x: torch.Tensor) -> torch.Tensor:
     _check("lane_cmpex_u32", x, 2)
     if x.shape[1] != LANES:
         raise ValueError(f"lane_cmpex_u32 takes (R, 128), got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return lane_cmpex_u32_plain(x)
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    with torch.cuda.device(x.device):
-        _launch("ukt_lane_cmpex_u32", x.data_ptr(), out.data_ptr(), x.shape[0])
+    _LANE_CMPEX(x.device, x.data_ptr(), out.data_ptr(), x.shape[0])
     lane_cmpex_u32.launches += 1
     return out
 

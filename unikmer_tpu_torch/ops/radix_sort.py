@@ -65,6 +65,11 @@ def radix_shifts(code_bits: int = 64) -> list[int]:
     return list(range(0, bits, RADIX_BITS))
 
 
+_TILE_KEYS = _kernels.Kernel("ukt_radix_tile")  # a query, not a launch
+_UPFRONT = _kernels.Kernel("ukt_radix_upfront")
+_ONESWEEP = _kernels.Kernel("ukt_radix_onesweep")
+
+
 def _radix_passes(keys: torch.Tensor, values: torch.Tensor | None,
                   code_bits: int):
     """The onesweep passes on the card: (sorted keys, sorted values or
@@ -73,37 +78,30 @@ def _radix_passes(keys: torch.Tensor, values: torch.Tensor | None,
     n = keys.shape[0]
     dev = keys.device
     shifts = radix_shifts(code_bits)
-    lib = _kernels.load()
-    tiles = -(-n // lib.ukt_radix_tile())
+    tiles = -(-n // _TILE_KEYS.bound()())
     hist = torch.empty(len(shifts) * 256, dtype=torch.int64, device=dev)
     bases = torch.empty_like(hist)
     trivial = torch.empty(len(shifts), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ukt_radix_upfront(keys.data_ptr(), n, len(shifts), code_bits,
-                                    hist.data_ptr(), bases.data_ptr(),
-                                    trivial.data_ptr(), stream)
-        _kernels.check(lib, err, "radix_upfront")
-        run = [p for p, t in enumerate(trivial.tolist()) if not t]
-        if not run:  # every pass trivial: the input is already in order
-            return (keys.clone(), None if values is None else values.clone(),
-                    0, len(shifts))
-        # tile counter and look-back status words, zeroed by each pass
-        scratch = torch.empty((tiles + 1) * 256, dtype=torch.int64, device=dev)
-        kbufs = (torch.empty_like(keys), torch.empty_like(keys))
-        vbufs = (None, None) if values is None else (
-            torch.empty_like(values), torch.empty_like(values))
-        src, vsrc = keys, values
-        for i, p in enumerate(run):
-            dst, vdst = kbufs[i % 2], vbufs[i % 2]
-            err = lib.ukt_radix_onesweep(
-                src.data_ptr(), dst.data_ptr(),
-                None if vsrc is None else vsrc.data_ptr(),
-                None if vdst is None else vdst.data_ptr(), n, shifts[p],
-                code_bits, bases.data_ptr() + 8 * 256 * p,
-                scratch.data_ptr(), tiles, stream)
-            _kernels.check(lib, err, "radix_onesweep")
-            src, vsrc = dst, vdst
+    _UPFRONT(dev, keys.data_ptr(), n, len(shifts), code_bits, hist.data_ptr(),
+             bases.data_ptr(), trivial.data_ptr())
+    run = [p for p, t in enumerate(trivial.tolist()) if not t]
+    if not run:  # every pass trivial: the input is already in order
+        return (keys.clone(), None if values is None else values.clone(),
+                0, len(shifts))
+    # tile counter and look-back status words, zeroed by each pass
+    scratch = torch.empty((tiles + 1) * 256, dtype=torch.int64, device=dev)
+    kbufs = (torch.empty_like(keys), torch.empty_like(keys))
+    vbufs = (None, None) if values is None else (
+        torch.empty_like(values), torch.empty_like(values))
+    src, vsrc = keys, values
+    for i, p in enumerate(run):
+        dst, vdst = kbufs[i % 2], vbufs[i % 2]
+        _ONESWEEP(dev, src.data_ptr(), dst.data_ptr(),
+                  None if vsrc is None else vsrc.data_ptr(),
+                  None if vdst is None else vdst.data_ptr(), n, shifts[p],
+                  code_bits, bases.data_ptr() + 8 * 256 * p,
+                  scratch.data_ptr(), tiles)
+        src, vsrc = dst, vdst
     return src, vsrc, len(run), len(shifts) - len(run)
 
 
