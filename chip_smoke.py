@@ -23,8 +23,9 @@ oracles:
 The launch counters, zeroed before each path's run and read after it,
 show that the run went through the kernels of its path.  P1a and P1c
 are timed in turns with their library calls (library, kernel, kernel,
-library; TURNS rounds), beside variants of their kernels that each undo
-one design choice (PROBE_VARIANTS).  The host cost of the launch path is read
+library; TURNS rounds); K1, P1a, P1b/P2a and P1c in turns with variants
+of their kernels that each undo one design choice or are the kernel's
+earlier design (VARIANTS, csrc/earlier/).  The host cost of the launch path is read
 as host microseconds per wrapper call over HOST_CALLS un-synchronised
 calls: for P1c's call step by step as the path stood before the launch
 helper of _kernels.py (``launch_breakdown``), and for every wrapper
@@ -82,6 +83,7 @@ FLUSH_BYTES = 256 << 20  # written between P1a's repetitions: > the 50 MB L2
 HOST_CALLS = 1000  # un-synchronised wrapper calls in one host-cost reading
 TURNS = 20  # rounds of kernel-and-library timings in turns
 P1C_BIG_TILES = 65537  # more tiles than a grid's z extent holds
+P2A_BIG_ROWS = 1 << 16  # P2A's 64 stages over 16 row bits: tile and registers
 
 
 def say(*a):
@@ -120,6 +122,13 @@ def device_ms(fn, kernel: str, reps: int = 20):
     time, without the host's launch overhead that the CUDA events around
     a short call also hold.  None when the profiler records no device
     time."""
+    return device_profile(fn, kernel, reps)[0]
+
+
+def device_profile(fn, kernel: str, reps: int = 20):
+    """(mean device ms a call in the CUDA kernels whose name holds
+    ``kernel``, the number of those kernels a call launches), from
+    torch.profiler; (None, None) when it records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -128,10 +137,12 @@ def device_ms(fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
     total_us = sum(getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0.0)
-                   for e in prof.key_averages() if kernel in e.key)
-    return total_us / reps / 1e3 if total_us else None
+                   or getattr(e, "cuda_time_total", 0.0) for e in events)
+    if not total_us:
+        return None, None
+    return total_us / reps / 1e3, sum(e.count for e in events) / reps
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -159,7 +170,24 @@ def random_bases(rng, n: int, p_invalid: float = 0.02) -> np.ndarray:
 # K1 / K2 against their plain versions
 
 
-def check_k1(dev, rng):
+def cu_const(source: str, name: str) -> int:
+    """An int constant of a csrc/ source, as the kernel is built."""
+    from unikmer_tpu_torch import _kernels
+
+    text = (_kernels.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def k1_lengths() -> tuple:
+    """K1's lengths: K1_NS and, at a thread's windows (kW) and a block's
+    (kThreads * kW), each minus and plus one."""
+    w = cu_const("encode.cu", "kW")
+    block = w * cu_const("encode.cu", "kThreads")
+    return tuple(sorted({*K1_NS, w - 1, w, w + 1, block - 1, block,
+                         block + 1, 2 * block + 1}))
+
+
+def check_k1(dev, rng, variants):
     from unikmer_tpu_torch.models.count import pack_bases_2bit
     from unikmer_tpu_torch.ops.encode import encode_2bit, encode_2bit_plain
 
@@ -167,20 +195,27 @@ def check_k1(dev, rng):
         p2, vm = pack_bases_2bit(bases)
         return (torch.from_numpy(p2).to(dev), torch.from_numpy(vm).to(dev))
 
-    big = random_bases(rng, max(K1_NS))
-    err = 0.0
-    for n in K1_NS:
+    ns = k1_lengths()
+    big = random_bases(rng, max(ns))
+    first = variants["K1 first design, one window a thread"]
+    err, cases = 0.0, 0
+    for n in ns:
         p2, vm = upload(big[:n])
         for k in K1_KS:
             for canonical in (False, True):
-                kk, kv = encode_2bit(p2, vm, n, k, canonical)
                 pk, pv = encode_2bit_plain(p2, vm, n, k, canonical)
-                torch.cuda.synchronize()
-                e = abs_err(kk, pk)
-                err = max(err, e)
-                if e or not torch.equal(kv, pv):
-                    raise SystemExit(f"K1 mismatch: n={n} k={k} "
-                                     f"canonical={canonical} err={e}")
+                kernels = [("kernel", encode_2bit)]
+                if 0 < n <= K1_NS[-2]:
+                    kernels.append(("first design", first))
+                for which, fn in kernels:
+                    kk, kv = fn(p2, vm, n, k, canonical)
+                    torch.cuda.synchronize()
+                    e = abs_err(kk, pk)
+                    err = max(err, e)
+                    cases += 1
+                    if e or not torch.equal(kv, pv):
+                        raise SystemExit(f"K1 ({which}) mismatch: n={n} k={k} "
+                                         f"canonical={canonical} err={e}")
     # poly-T: the k=32 non-canonical code of TTTT... is 2^64-1
     poly = np.full(4099, 3, np.uint8)
     poly[[100, 2000]] = 255
@@ -192,15 +227,29 @@ def check_k1(dev, rng):
         raise SystemExit(f"K1 poly-T mismatch (real 2^64-1 codes: {n_real_sent})")
     n = (1 << 25) + 3
     p2, vm = upload(big[:n])
-    t = ms_spread(lambda: encode_2bit(p2, vm, n, 23, True))
+    fns = {"kernel": lambda: encode_2bit(p2, vm, n, 23, True),
+           "kernel, not canonical": lambda: encode_2bit(p2, vm, n, 23, False),
+           **{name: (lambda f=f: f(p2, vm, n, 23, True))
+              for name, f in variants.items() if name.startswith("K1")}}
+    t = turns_ms(fns)
     plain_ms = cuda_ms(lambda: encode_2bit_plain(p2, vm, n, 23, True))
     # packed bases and mask read once, the u64 codes and bool flags written
     bound = bytes_ms(p2.numel() + vm.numel() + 9 * n)
-    say(f"K1 encode_2bit: exact on {len(K1_NS) * len(K1_KS) * 2 + 1} cases; "
-        f"n={n} k=23 canonical: kernel {t['ms']} ms (spread "
-        f"{t['ms_spread']}), plain {plain_ms} ms, bound {bound} ms")
-    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=None)
+    dms = {name: device_ms(fn, "encode_2bit") for name, fn in fns.items()}
+    say(f"K1 encode_2bit: exact on {cases + 1} cases (n in {ns}, the first "
+        f"design beside it up to n={K1_NS[-2]}); n={n} k=23 canonical, in "
+        f"turns: " + "; ".join(
+            f"{name} {t[name]['median']} ms (spread {t[name]['spread']}, "
+            f"device {dms[name]})" for name in fns)
+        + f"; plain {plain_ms} ms, bound {bound} ms")
+    return dict(max_abs_err=err, ms=t["kernel"]["median"],
+                ms_spread=t["kernel"]["spread"], device_ms=dms["kernel"],
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None, lengths_held=list(ns),
+                variants={name: dict(ms=t[name]["median"],
+                                     ms_spread=t[name]["spread"],
+                                     device_ms=dms[name])
+                          for name in fns if name != "kernel"})
 
 
 def adversarial_keys(rng, n: int, bits: int):
@@ -798,22 +847,70 @@ def turns_ms(fns: dict, rounds: int = TURNS, before=None) -> dict:
     return {name: quartiles(v) for name, v in got.items()}
 
 
-PROBE_VARIANTS = {  # name: (entry point, its count argument, substitutions)
+def _launch_count(count):
+    """A launcher of an entry point (in, out, count, stream) into a new
+    tensor, ``count(x)`` its count argument."""
+    def launch(fn, x):
+        y = torch.empty_like(x)
+        return y, fn(x.data_ptr(), y.data_ptr(), count(x), _stream(x))
+    return launch
+
+
+def _launch_row_cmpex(fn, x, ds):
+    """ukt_row_cmpex_u32's launch as ops/probes.py makes it."""
+    import array
+
+    host = array.array("q", [d for d in ds if d < x.shape[0]])
+    y = torch.empty_like(x)
+    return y, fn(x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+                 host.buffer_info()[0], len(host), _stream(x))
+
+
+def _launch_encode(fn, p2, vm, n, k, canonical):
+    """ukt_encode_2bit's launch as ops/encode.py makes it."""
+    keyed = torch.empty(n, dtype=torch.int64, device=p2.device)
+    valid = torch.empty(n, dtype=torch.uint8, device=p2.device)
+    err = fn(p2.data_ptr(), p2.numel(), vm.data_ptr(), vm.numel(), n, k,
+             int(canonical), keyed.data_ptr(), valid.data_ptr(), _stream(p2))
+    return (keyed, valid), err
+
+
+def _stream(x):
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+_P, _I32, _I64 = "p", "i32", "i64"
+U32_ARGS = (_P, _P, _I64, _P)
+ROW_CMPEX_ARGS = (_P, _P, _I64, _I64, _P, _I64, _P)
+ENCODE_ARGS = (_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P)
+EARLIER_ROW_CMPEX = "earlier/row_cmpex_one_column_a_block.cu"
+EARLIER_ENCODE = "earlier/encode_one_window_a_thread.cu"
+
+# name: (source under csrc/, entry point, its arguments, launcher,
+# substitutions).  Each is the source with one design choice undone, or a
+# kernel's earlier design, built alone; chip_smoke.py times them in turns
+# with the kernels as built.
+VARIANTS = {
     "P1c whole tile a block": (
-        "ukt_transpose128_u32", lambda x: x.shape[0] // 128,
+        "probes.cu", "ukt_transpose128_u32", U32_ARGS,
+        _launch_count(lambda x: x.shape[0] // 128),
         [("constexpr int kSub = 64;", "constexpr int kSub = 128;")]),
     "P1a default-cached loads and stores": (
-        "ukt_copy_inc_u32", lambda x: x.numel(),
+        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
+        _launch_count(lambda x: x.numel()),
         [("__ldcs(in4 + i)", "in4[i]"),
          ("__stcs(out4 + i, inc4(v[u]))", "out4[i] = inc4(v[u])")]),
     "P1a streaming loads, default-cached stores": (
-        "ukt_copy_inc_u32", lambda x: x.numel(),
+        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
+        _launch_count(lambda x: x.numel()),
         [("__stcs(out4 + i, inc4(v[u]))", "out4[i] = inc4(v[u])")]),
     "P1a default-cached loads, streaming stores": (
-        "ukt_copy_inc_u32", lambda x: x.numel(),
+        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
+        _launch_count(lambda x: x.numel()),
         [("__ldcs(in4 + i)", "in4[i]")]),
     "P1a loads ld.global.nc.L1::no_allocate.L2::256B": (
-        "ukt_copy_inc_u32", lambda x: x.numel(),
+        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
+        _launch_count(lambda x: x.numel()),
         [("__ldcs(in4 + i)", "ld_nc_256(in4 + i)"),
          ("__device__ __forceinline__ uint4 inc4(uint4 v) {",
           "__device__ __forceinline__ uint4 ld_nc_256(const uint4* p) {\n"
@@ -825,86 +922,125 @@ PROBE_VARIANTS = {  # name: (entry point, its count argument, substitutions)
           "}\n\n"
           "__device__ __forceinline__ uint4 inc4(uint4 v) {")]),
     "P1a 1 uint4 a thread": (
-        "ukt_copy_inc_u32", lambda x: x.numel(),
+        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
+        _launch_count(lambda x: x.numel()),
         [("constexpr int kIncVecs = 4;", "constexpr int kIncVecs = 1;")]),
     "P1a 8 uint4 a thread": (
-        "ukt_copy_inc_u32", lambda x: x.numel(),
+        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
+        _launch_count(lambda x: x.numel()),
         [("constexpr int kIncVecs = 4;", "constexpr int kIncVecs = 8;")]),
+    "P1b first design, one column a block": (
+        EARLIER_ROW_CMPEX, "ukt_row_cmpex_u32", ROW_CMPEX_ARGS,
+        _launch_row_cmpex, []),
+    "P1b no tile route (register runs only)": (
+        "probes.cu", "ukt_row_cmpex_u32", ROW_CMPEX_ARGS, _launch_row_cmpex,
+        [("constexpr int kTileBits = 14;", "constexpr int kTileBits = 4;")]),
+    "P1b every stage a pass": (
+        "probes.cu", "ukt_row_cmpex_u32", ROW_CMPEX_ARGS, _launch_row_cmpex,
+        [("if (d & (d - 1)) {  // the pass route",
+          "if (true) {  // the pass route")]),
+    "P1b no unrolled sweep (a dispatch a run)": (
+        "probes.cu", "ukt_row_cmpex_u32", ROW_CMPEX_ARGS, _launch_row_cmpex,
+        [("  if (is_sweep) {\n    sweep<PB>(v);", "  if (false) {\n    sweep<PB>(v);")]),
+    "K1 first design, one window a thread": (
+        EARLIER_ENCODE, "ukt_encode_2bit", ENCODE_ARGS, _launch_encode, []),
+    "K1 keys stored from registers": (
+        "encode.cu", "ukt_encode_2bit", ENCODE_ARGS, _launch_encode,
+        [("    s_keys[key_slot(t, s)] = make_uint4(",
+          "    if (i0 + 2 * s + 1 < n) reinterpret_cast<uint4*>(keyed + i0)[s] "
+          "= make_uint4("),
+         ("for (int p = t; p < kKeyVecs; p += kThreads) {",
+          "for (int p = t; p < 0; p += kThreads) {")]),
+    "K1 no global loads": (
+        "encode.cu", "ukt_encode_2bit", ENCODE_ARGS, _launch_encode,
+        [("  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs",
+          "  return make_uint4(t, 0u, 0u, 0u);\n"
+          "  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs")]),
+    "K1 stores only (no loads, no roll)": (
+        "encode.cu", "ukt_encode_2bit", ENCODE_ARGS, _launch_encode,
+        [("  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs",
+          "  return make_uint4(t, 0u, 0u, 0u);\n"
+          "  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs"),
+         ("const uint64_t code = (canonical && rc < fwd) ? rc : fwd;",
+          "const uint64_t code = i0 + j;")]),
 }
 
 
 def ptxas_lines(text: str, kernels) -> list:
     """ptxas's registers line of each kernel whose name holds one of
     ``kernels``, from nvcc -Xptxas -v output."""
-    out, name = [], None
+    out, name, frame = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
+            name, frame = m.group(1), ""
+        elif "stack frame" in line:
+            frame = line.strip()
         elif "registers" in line and name and any(k in name for k in kernels):
-            out.append(f"{next(k for k in kernels if k in name)}: "
-                       f"{line.split(':', 1)[1].strip()}")
+            at = name.index(next(k for k in kernels if k in name))
+            label = re.match(r"\w*?_kernel(I\w*?EE)?", name[at:]).group(0)
+            out.append(f"{label}: {line.split(':', 1)[1].strip()}"
+                       + (f" ({frame})" if frame.split()[0] != "0" else ""))
     return out
 
 
-def probe_variants() -> dict:
-    """Each of PROBE_VARIANTS: csrc/probes.cu with one design choice
-    undone by a text substitution, built alone (one nvcc each, all at
-    once, with the source as built for ptxas's report) under
+def build_variants() -> dict:
+    """Each of VARIANTS built alone (one nvcc each, all at once, with the
+    sources as built for ptxas's report) under
     build/unikmer_tpu_torch/variants/; returns name -> a launcher that
-    runs the variant's entry point into a new tensor."""
+    takes the wrapper's arguments and returns the variant's result."""
     import ctypes
 
     from unikmer_tpu_torch import _kernels
 
     out = _kernels.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    src = (_kernels.CSRC / "probes.cu").read_text()
     nvcc = [_kernels.find_nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v"]
-    cmds = {"as built": [*nvcc, "-c", "-o", str(out / "probes.o"),
-                         str(_kernels.CSRC / "probes.cu")]}
-    for i, (name, (_, _, subs)) in enumerate(PROBE_VARIANTS.items()):
-        text = src
+    cmds = {f"{s} as built": [*nvcc, "-c", "-o", str(out / f"{s}.o"),
+                              str(_kernels.CSRC / s)]
+            for s in ("encode.cu", "probes.cu")}
+    for i, (name, (source, _, _, _, subs)) in enumerate(VARIANTS.items()):
+        text = (_kernels.CSRC / source).read_text()
         for old, new in subs:
             if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in probes.cu")
+                raise SystemExit(f"variant {name}: {old!r} not in {source}")
             text = text.replace(old, new)
-        (out / f"probes_v{i}.cu").write_text(text)
-        cmds[name] = [*nvcc, "-shared", "-o", str(out / f"probes_v{i}.so"),
-                      str(out / f"probes_v{i}.cu")]
+        (out / f"v{i}.cu").write_text(text)
+        cmds[name] = [*nvcc, "-shared", "-o", str(out / f"v{i}.so"),
+                      str(out / f"v{i}.cu")]
+    t0 = time.perf_counter()
     procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
              for name, cmd in cmds.items()}
     for name, proc in procs.items():
         text = proc.communicate()[0]
         if proc.returncode:
-            raise SystemExit(f"probes.cu, {name}: nvcc failed\n{text}")
-        say(f"ptxas, probes.cu {name}: " + "; ".join(
-            ptxas_lines(text, ("transpose128", "copy_inc"))))
+            raise SystemExit(f"{name}: nvcc failed\n{text}")
+        say(f"ptxas, {name}: " + "; ".join(ptxas_lines(
+            text, ("transpose128", "copy_inc", "row_cmpex", "encode_2bit"))))
+    say(f"variants built in {time.perf_counter() - t0:.3f} s")
+    types = {_P: ctypes.c_void_p, _I32: ctypes.c_int, _I64: ctypes.c_int64}
     launchers = {}
-    for i, (name, (entry, count, _)) in enumerate(PROBE_VARIANTS.items()):
-        fn = getattr(ctypes.CDLL(str(out / f"probes_v{i}.so")), entry)
+    for i, (name, (_, entry, args, launch, _)) in enumerate(VARIANTS.items()):
+        fn = getattr(ctypes.CDLL(str(out / f"v{i}.so")), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p]
+        fn.argtypes = [types[a] for a in args]
 
-        def launch(x, fn=fn, count=count, name=name):
-            y = torch.empty_like(x)
-            err = fn(x.data_ptr(), y.data_ptr(), count(x),
-                     torch._C._cuda_getCurrentRawStream(x.device.index))
+        def run(*a, fn=fn, launch=launch, name=name):
+            result, err = launch(fn, *a)
             if err:
                 raise SystemExit(f"{name}: CUDA error {err}")
-            return y
+            return result
 
-        launchers[name] = launch
+        launchers[name] = run
     return launchers
 
 
-def check_probes(dev, rng):
+def check_probes(dev, rng, variants):
     """The four probe kernels held to their plain versions at the
     scripts' sizes and at ragged ones, then timed at the scripts' sizes
-    (P1a and P1c in turns with their library calls); returns one result
-    dict per kernel."""
+    (P1a and P1c in turns with their library calls, each kernel in turns
+    with its variants); returns one result dict per kernel."""
     from unikmer_tpu_torch import probes as entry
     from unikmer_tpu_torch.ops import probes
 
@@ -921,7 +1057,6 @@ def check_probes(dev, rng):
                 (u32_tensor(rng, (7, 128), dev).reshape(-1)[1:],),
                 (u32_tensor(rng, ((1 << 21) + 3,), dev),),
                 (u32_tensor(rng, ((1 << 21) + 4,), dev)[1:],)])
-    variants = probe_variants()
     p1a_variants = {k: v for k, v in variants.items() if k.startswith("P1a")}
     for name, launch in p1a_variants.items():
         hold(name, launch, probes.copy_inc_u32_plain,
@@ -952,20 +1087,49 @@ def check_probes(dev, rng):
 
     p1b = probes.p1b_distances(rows)
     p2a = {s: probes.p2a_distances(s, rows) for s in entry.P2A_STAGES}
+    pow2_down = [1 << b for b in range(16, -1, -1)]
+    row_cases = [(blk, p1b), *((blk, d) for d in p2a.values()),
+                 (u32_tensor(rng, (37, 128), dev), [16, 8, 4, 2, 1, 16]),
+                 (u32_tensor(rng, (5, 3), dev), [2, 1, 4]),
+                 (u32_tensor(rng, (1, 128), dev), [1]),
+                 (u32_tensor(rng, (300, 7), dev), [3] * 300),
+                 (u32_tensor(rng, (1000, 6), dev), pow2_down[-10:]),
+                 # above the first design's 40,960 rows
+                 (u32_tensor(rng, (65537, 2), dev), [32768, 3, 1, 50000]),
+                 (u32_tensor(rng, (1 << 17, 4), dev), pow2_down),
+                 (u32_tensor(rng, (70001, 3), dev), pow2_down + [5, 5, 70000]),
+                 (u32_tensor(rng, (P2A_BIG_ROWS, 128), dev),
+                  probes.p2a_distances(64, P2A_BIG_ROWS))]
     err = hold("P1b/P2a row_cmpex_u32", probes.row_cmpex_u32,
-               probes.row_cmpex_u32_plain,
-               [(blk, p1b), *((blk, d) for d in p2a.values()),
-                (u32_tensor(rng, (37, 128), dev), [16, 8, 4, 2, 1, 16]),
-                (u32_tensor(rng, (5, 3), dev), [2, 1, 4]),
-                (u32_tensor(rng, (1, 128), dev), [1])])
+               probes.row_cmpex_u32_plain, row_cases)
+    row_variants = {k: v for k, v in variants.items() if k.startswith("P1b")}
+    for name, launch in row_variants.items():
+        hold(name, launch, probes.row_cmpex_u32_plain,
+             [(blk, p1b), *((blk, d) for d in p2a.values())])
+    schedules = {"p1b": p1b, **{f"p2a_{s}": d for s, d in p2a.items()}}
+    row = {}
+    for sched, ds in schedules.items():
+        fns = {"kernel": lambda ds=ds: probes.row_cmpex_u32(blk, ds),
+               **{k: (lambda f=f, ds=ds: f(blk, ds))
+                  for k, f in row_variants.items()}}
+        t = turns_ms(fns)
+        prof = {k: device_profile(f, "row_cmpex") for k, f in fns.items()}
+        row[sched] = dict(
+            ms=t["kernel"]["median"], ms_spread=t["kernel"]["spread"],
+            device_ms=prof["kernel"][0], kernels_per_call=prof["kernel"][1],
+            variants={k: dict(ms=t[k]["median"], ms_spread=t[k]["spread"],
+                              device_ms=prof[k][0],
+                              kernels_per_call=prof[k][1])
+                      for k in row_variants})
     out["P1b"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: probes.row_cmpex_u32(blk, p1b), 20),
+        max_abs_err=err, **{k: v for k, v in row["p1b"].items()
+                            if k != "variants"},
         plain_ms=cuda_ms(lambda: probes.row_cmpex_u32_plain(blk, p1b), 5),
         library_ms=None, bound_ms=bytes_ms(two_mib), bound_by="bytes",
-        device_ms=device_ms(lambda: probes.row_cmpex_u32(blk, p1b),
-                            "row_cmpex"),
-        **{f"ms_p2a_{s}": cuda_ms(lambda d=d: probes.row_cmpex_u32(blk, d), 20)
-           for s, d in p2a.items()})
+        rows_held=sorted({int(x.shape[0]) for x, _ in row_cases}),
+        variants=row["p1b"]["variants"],
+        **{f"{k}_{s}": v for s, r in row.items() if s != "p1b"
+           for k, v in r.items()})
 
     # 65,537 tiles (4.3 GB each way): past a grid's z extent of 65,535
     big = torch.arange(P1C_BIG_TILES * 128 * 128, dtype=torch.int32,
@@ -1224,7 +1388,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    from unikmer_tpu_torch import _kernels, native
+    try:
+        from unikmer_tpu_torch import _kernels, native
+    except ImportError as e:
+        say(f"chip_smoke: cannot import the package unikmer_tpu_torch ({e}); "
+            f"run it from the root of the repository")
+        return 1
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1239,8 +1408,9 @@ def main() -> int:
     t0 = time.perf_counter()
     say(f"host engine: {native.engine()} "
         f"(build+load {time.perf_counter() - t0:.3f} s); the oracles: numpy")
-    results = {"k1": check_k1(dev, rng), "k2": check_k2(dev, rng),
-               "k3": check_k3(dev, rng), **check_probes(dev, rng)}
+    variants = build_variants()
+    results = {"k1": check_k1(dev, rng, variants), "k2": check_k2(dev, rng),
+               "k3": check_k3(dev, rng), **check_probes(dev, rng, variants)}
     from unikmer_tpu_torch import probes as entry
 
     launch_breakdown(entry.probe_inputs(dev)[1])

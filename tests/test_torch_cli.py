@@ -93,3 +93,36 @@ def test_cuda_requested_without_card_exits(fastas, monkeypatch, tmp_path,
 def test_unique_and_repeated_conflict(fastas, envs, tmp_path):
     assert port_main(["count", "-k", "21", "-u", "-d", fastas[0],
                       "-o", str(tmp_path / "x")]) != 0
+
+
+def _records(caplog, logger):
+    return [(r.levelname, r.getMessage()) for r in caplog.records
+            if r.name == logger]
+
+
+@pytest.mark.parametrize("flags", [
+    ["-k", "70"],  # hashed by k > 32, then past 64
+    ["-k", "70", "-H"],
+    ["-k", "21", "-D", str(1 << 32)],
+    ["-k", "21", "-W", "5", "-S", "5"],
+    ["-k", "21", "--syncmer-impl", "compat"],
+    ["-k", "21", "-H", "-u", "-d"],
+    ["-k", "21", "-W", "5", "-l", "-s"],
+    ["-k", "21", "--mesh", "2", "-u", "-d"],
+    ["-k", "21", "-H", "-T", "-t", "5", "-r", r"(\d+)"],
+    ["-k", "21", "-H", "-T"],
+    ["-k", "21", "-S", "9", "-T", "-r", "abc"],
+], ids=lambda f: " ".join(f))
+def test_refused_flags_match_jax_cli(fastas, envs, tmp_path, caplog, flags):
+    """Flag combinations that the reference refuses, each with a flag the
+    port does not run yet: the same warnings and error line, the same exit
+    code, no output."""
+    got = {}
+    for name, main, logger in (("jax", jax_main, "unikmer_tpu"),
+                               ("port", port_main, "unikmer_tpu_torch")):
+        caplog.clear()
+        rc = main(["count", *flags, fastas[0], "-o", str(tmp_path / name)])
+        got[name] = (rc, _records(caplog, logger))
+        assert not (tmp_path / f"{name}.unik").exists()
+    assert got["port"] == got["jax"]
+    assert got["jax"][0] == 255 and got["jax"][1][-1][0] == "ERROR"

@@ -379,3 +379,16 @@ def test_chip_smoke_alone_exits_without_result(tmp_path):
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_chip_smoke_names_a_missing_package(monkeypatch, capsys):
+    """With a card but without the package (the script alone in a
+    directory), one line names the package and the exit is non-zero."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setitem(sys.modules, "unikmer_tpu_torch", None)
+    assert chip_smoke.main() == 1
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1 and "unikmer_tpu_torch" in out[0]
+    assert '"ok"' not in out[0]

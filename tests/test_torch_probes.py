@@ -223,13 +223,12 @@ def test_p2b_plain_matches_pallas():
 
 def numpy_row_cmpex(x, distances):
     a = x.copy()
-    rows = len(a)
+    r = np.arange(len(a))
     for d in distances:
-        for r in range(rows):
-            if r % (2 * d) < d and r + d < rows:
-                lo = np.minimum(a[r], a[r + d])
-                a[r + d] = np.maximum(a[r], a[r + d])
-                a[r] = lo
+        top = r[(r % (2 * d) < d) & (r + d < len(a))]
+        lo = np.minimum(a[top], a[top + d])
+        a[top + d] = np.maximum(a[top], a[top + d])
+        a[top] = lo
     return a
 
 
@@ -429,18 +428,19 @@ def test_copy_inc_on_card(cuda_device, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,cols,distances", [
     (4096, 128, probes.p1b_distances(4096)),
+    (4096, 128, probes.p2a_distances(4, 4096)),
     (4096, 128, probes.p2a_distances(16, 4096)),
+    (4096, 128, probes.p2a_distances(64, 4096)),
     (37, 128, [16, 8, 4, 2, 1, 16]), (5, 3, [2, 1, 4]),
-    (300, 7, [3] * 300),  # past one launch's 256 stages
-    (probes.ROW_CMPEX_MAX_ROWS, 2, [16384, 3, 1, 50000])])
+    (300, 7, [3] * 300),  # one pass for 300 stages at one distance
+    (1000, 6, [512, 256, 128, 64, 32, 16, 8, 4, 2, 1]),  # a ragged tile
+    (1 << 17, 4, [1 << b for b in range(16, -1, -1)]),  # tile, then registers
+    (70001, 3, [1 << b for b in range(16, -1, -1)] + [5, 5, 70000]),
+    (65537, 2, [32768, 3, 1, 50000])])  # past the first design's 40,960 rows
 def test_row_cmpex_on_card(cuda_device, rows, cols, distances):
     x = to_port(u32_block(8, (rows, cols))).to(cuda_device)
     assert torch.equal(probes.row_cmpex_u32(x, distances),
                        probes.row_cmpex_u32_plain(x, distances))
-    if rows == probes.ROW_CMPEX_MAX_ROWS:
-        with pytest.raises(ValueError, match="at most"):
-            probes.row_cmpex_u32(torch.zeros(rows + 1, 1, dtype=torch.int32,
-                                             device=cuda_device), [1])
 
 
 @pytest.mark.cuda
@@ -471,3 +471,288 @@ def test_transpose128_past_65535_tiles(cuda_device):
 def test_lane_cmpex_on_card(cuda_device, rows):
     x = to_port(u32_block(10, (rows, 128))).to(cuda_device)
     assert torch.equal(probes.lane_cmpex_u32(x), probes.lane_cmpex_u32_plain(x))
+
+
+# ---------------------------------------------------------------------
+# row_cmpex_u32's host plan and its three routes (registers, tile, pass),
+# walked in numpy with the constants of csrc/probes.cu
+
+REG_BITS, TILE_BITS, MAX_STAGES = (
+    cu_const(n) for n in ("kRegBits", "kTileBits", "kMaxStages"))
+
+
+def popcount(x):
+    return bin(x).count("1")
+
+
+def bits_of(mask):
+    return [b for b in range(mask.bit_length()) if (mask >> b) & 1]
+
+
+def deposit(x, mask):
+    """x's bits placed, lowest first, at the set bits of mask (x an int
+    array)."""
+    r = np.zeros_like(x)
+    for i, b in enumerate(bits_of(mask)):
+        r |= ((x >> i) & 1) << b
+    return r
+
+
+def as_runs(qs):
+    """Stages as runs [(q, repeats)] (the kernels' Runs)."""
+    runs = []
+    for q in qs:
+        if runs and runs[-1][0] == q:
+            runs[-1] = (q, runs[-1][1] + 1)
+        else:
+            runs.append((q, 1))
+    return runs
+
+
+def row_cmpex_plan(rows, distances):
+    """ukt_row_cmpex_u32's launches for the wrapper's distances (those
+    below R): ("pass", d, reps), ("regs", umask, runs) or ("tile", umask,
+    [(pmask, runs)]), a run (q, repeats) of stages on the bit at position
+    q of the thread's register set."""
+    ds = [d for d in distances if d < rows]
+    plan, i = [], 0
+    while i < len(ds):
+        d, j = ds[i], i + 1
+        if d & (d - 1):
+            while j < len(ds) and ds[j] == d:
+                j += 1
+            plan.append(("pass", d, j - i))
+        else:
+            u = d
+            while (j < len(ds) and j - i < MAX_STAGES
+                   and not ds[j] & (ds[j] - 1)
+                   and popcount(u | ds[j]) <= TILE_BITS):
+                u |= ds[j]
+                j += 1
+            tbit = [popcount(u & (ds[s] - 1)) for s in range(i, j)]
+            if popcount(u) <= REG_BITS:
+                plan.append(("regs", u, as_runs(tbit)))
+            else:
+                phases, cur, run = [], 0, []
+                for b in tbit + [None]:
+                    if b is None or popcount(cur | 1 << b) > REG_BITS:
+                        pm = cur
+                        for f in bits_of(((1 << popcount(u)) - 1) & ~pm):
+                            if popcount(pm) == REG_BITS:
+                                break
+                            pm |= 1 << f
+                        phases.append((pm, as_runs(
+                            [popcount(pm & ((1 << s) - 1)) for s in run])))
+                        cur, run = 0, []
+                    if b is not None:
+                        cur |= 1 << b
+                        run.append(b)
+                plan.append(("tile", u, phases))
+        i = j
+    return plan
+
+
+ABSENT = np.uint32(0xFFFFFFFF)  # a row past R in registers and the tile
+
+
+def cmpex_regs(v, runs):
+    """Stage runs on slots v[u] (u < 2^PB, each an array): a stage on bit
+    q pairs u and u | 2^q, with no check: a row past R holds ABSENT."""
+    for q, reps in runs:
+        for _ in range(reps):
+            for u in range(len(v)):
+                w = u | 1 << q
+                if not u >> q & 1:
+                    v[u], v[w] = np.minimum(v[u], v[w]), np.maximum(v[u], v[w])
+
+
+def tile_slot(t):
+    return t ^ (((t >> 5) & 31) ^ ((t >> 4) & 16))
+
+
+class RowWalk:
+    """The routes over an (R, C) u32 array: the first launch reads ``x``
+    and writes ``out``, the others work on ``out``; records whether every
+    row was written, each warp's global accesses and each tile phase's
+    banks."""
+
+    def __init__(self, x, vec):
+        self.x, self.out = x, np.zeros_like(x)
+        self.written = np.zeros(x.shape, bool)
+        self.first = True
+        self.v = 4 if vec else 1
+        self.rows, self.cols = x.shape
+        self.nbits = (self.rows - 1).bit_length()
+        self.sectors = []  # (sectors a warp access touches, the least it could)
+        self.bank_hits = []  # per warp tile access: most threads on a bank
+
+    def src(self):
+        return self.x if self.first else self.out
+
+    def store(self, r, c, val, ok):
+        self.out[r[ok], c[ok]] = val[ok]
+        self.written[r[ok], c[ok]] = True
+
+    def note_warps(self, r, c):
+        flat_r, flat_c = r.reshape(-1), c.reshape(-1)
+        for w in range(0, len(flat_r), 32):
+            a = flat_r[w:w + 32] * self.cols * 4 + flat_c[w:w + 32] * 4
+            least = -(-len(a) * 4 * self.v // 32)
+            self.sectors.append((len(np.unique(a // 32)), least))
+
+    def regs(self, umask, runs):
+        pb, v = popcount(umask), self.v
+        groups = self.cols // v
+        threads = (1 << (self.nbits - pb)) * groups
+        tid = np.arange(threads)
+        cg, base = tid % groups, deposit(tid // groups, ((1 << self.nbits) - 1) & ~umask)
+        rows = [base | deposit(np.full_like(base, u), umask) for u in range(1 << pb)]
+        present = [r < self.rows for r in rows]
+        cols = cg[:, None] * v + np.arange(v)
+        src = self.src()
+        vals = [np.where(p[:, None], src[np.minimum(r, self.rows - 1)[:, None], cols],
+                         ABSENT) for r, p in zip(rows, present)]
+        for r in rows:
+            self.note_warps(r, cg * v)
+        cmpex_regs(vals, runs)
+        for r, p, val in zip(rows, present, vals):
+            self.store(np.broadcast_to(r[:, None], cols.shape), cols, val,
+                       np.broadcast_to(p[:, None], cols.shape))
+        self.first = False
+
+    def tile(self, umask, phases):
+        tbits = popcount(umask)
+        nt = 1 << (tbits - REG_BITS)
+        blocks = (1 << (self.nbits - tbits)) * self.cols
+        b = np.arange(blocks)[:, None]
+        col = np.broadcast_to(b % self.cols, (blocks, nt))
+        base = deposit(b // self.cols, ((1 << self.nbits) - 1) & ~umask)
+        tau = np.arange(nt)[None, :]
+        tall = (1 << tbits) - 1
+        smem = np.zeros((blocks, 1 << tbits), self.x.dtype)
+        src = self.src()
+        for p, (pm, runs) in enumerate(phases):
+            assert popcount(pm) == REG_BITS
+            tb = deposit(tau, tall & ~pm)
+            t = [tb | deposit(np.full_like(tb, u), pm) for u in range(16)]
+            rows = [np.broadcast_to(base | deposit(tt, umask), (blocks, nt)) for tt in t]
+            present = [r < self.rows for r in rows]
+            if p == 0:
+                vals = [np.where(pr, src[np.minimum(r, self.rows - 1), col], ABSENT)
+                        for r, pr in zip(rows, present)]
+            else:
+                vals = [np.take_along_axis(smem, tile_slot(np.broadcast_to(tt, (blocks, nt))), 1)
+                        for tt in t]
+                for tt in t:  # the reads of phase p, then its writes
+                    self.note_banks(tile_slot(tt))
+            cmpex_regs(vals, runs)
+            if p + 1 == len(phases):
+                for r, pr, val in zip(rows, present, vals):
+                    self.store(r, col, val, pr)
+            else:
+                for tt, val in zip(t, vals):
+                    np.put_along_axis(smem, tile_slot(np.broadcast_to(tt, (blocks, nt))), val, 1)
+                    self.note_banks(tile_slot(tt))
+        self.first = False
+
+    def note_banks(self, slots):
+        for w in range(0, slots.shape[1], 32):
+            banks = slots[0, w:w + 32] % 32
+            self.bank_hits.append(np.bincount(banks).max())
+
+    def pass_(self, d, reps):
+        v, groups = self.v, self.cols // self.v
+        full, rem = divmod(self.rows, 2 * d)
+        top = full * d + min(rem, d)
+        tid = np.arange(top * groups)
+        p, cg = tid // groups, tid % groups
+        r = (p // d) * 2 * d + p % d
+        paired = r + d < self.rows
+        cols = cg[:, None] * v + np.arange(v)
+        src = self.src()
+        a = src[r[:, None], cols]
+        b = src[np.minimum(r + d, self.rows - 1)[:, None], cols]
+        for _ in range(reps):
+            a, b = np.minimum(a, b), np.maximum(a, b)
+        keep = src[r[:, None], cols]
+        pr = np.broadcast_to(paired[:, None], cols.shape)
+        self.store(np.broadcast_to(r[:, None], cols.shape), cols,
+                   np.where(pr, a, keep), np.broadcast_to(True, cols.shape))
+        self.store(np.broadcast_to((r + d)[:, None], cols.shape), cols, b, pr)
+        self.first = False
+
+
+def row_cmpex_walk(x, distances):
+    """The kernels' result for the wrapper's call, and the walk."""
+    walk = RowWalk(x, vec=x.shape[1] % 4 == 0)
+    for launch in row_cmpex_plan(x.shape[0], distances):
+        {"pass": walk.pass_, "regs": walk.regs, "tile": walk.tile}[launch[0]](
+            *launch[1:])
+    if walk.first:  # no stage pairs rows: the wrapper's clone
+        return x.copy(), walk
+    assert walk.written.all()  # every row written by the first launch
+    return walk.out, walk
+
+
+P2A_4096 = {s: probes.p2a_distances(s, 4096) for s in (4, 16, 64)}
+
+
+def test_row_cmpex_plan_of_the_probes():
+    assert row_cmpex_plan(4096, probes.p1b_distances(4096)) == [
+        ("regs", 2048, [(0, 64)])]
+    assert row_cmpex_plan(4096, P2A_4096[4]) == [
+        ("regs", 0xF00, [(3, 1), (2, 1), (1, 1), (0, 1)])]
+    for s, nphases in ((16, 4), (64, 16)):
+        (route, umask, phases), = row_cmpex_plan(4096, P2A_4096[s])
+        assert (route, umask, len(phases)) == ("tile", 0xFFF, nphases)
+        assert [pm for pm, _ in phases[:4]] == [0xF00, 0xF0, 0xF, 0xF00]
+        assert phases[0][1] == [(3, 1), (2, 1), (1, 1), (0, 1)]
+        assert sum(n for _, runs in phases for _, n in runs) == s
+    assert row_cmpex_plan(65537, [32768, 3, 1, 50000]) == [
+        ("regs", 32768, [(0, 1)]), ("pass", 3, 1), ("regs", 1, [(0, 1)]),
+        ("pass", 50000, 1)]
+    assert row_cmpex_plan(64, [4, 4, 2, 4]) == [
+        ("regs", 6, [(1, 2), (0, 1), (1, 1)])]
+    assert row_cmpex_plan(300, [3] * 300 + [512]) == [("pass", 3, 300)]
+
+
+@pytest.mark.parametrize("rows,cols,distances", [
+    (4096, 128, probes.p1b_distances(4096)),
+    (4096, 8, P2A_4096[4]), (4096, 8, P2A_4096[16]), (4096, 4, P2A_4096[64]),
+    (37, 5, [16, 8, 4, 2, 1, 16]), (5, 3, [2, 1, 4]), (1, 2, [1]),
+    (300, 7, [3] * 300),
+    (1000, 6, [512, 256, 128, 64, 32, 16, 8, 4, 2, 1]),  # a ragged tile
+    (1 << 15, 1, [1 << b for b in range(14, -1, -1)] * 2),  # tile, registers
+    (65537, 2, [32768, 3, 1, 50000]),  # past the first design's 40,960 rows
+    (70001, 3, [1 << b for b in range(16, -1, -1)] + [5, 5, 70000]),
+], ids=lambda v: str(v) if isinstance(v, int) else f"{len(v)}stages")
+def test_row_cmpex_walk_matches_numpy_and_plain(rows, cols, distances):
+    x = u32_block(rows + cols, (rows, cols))
+    got, walk = row_cmpex_walk(x, distances)
+    want = numpy_row_cmpex(x, [d for d in distances])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        from_port(probes.row_cmpex_u32_plain(to_port(x), distances)), want)
+    if rows == 4096:  # the probes: whole rows a warp, 32 banks a warp
+        assert walk.sectors or walk.bank_hits
+        assert all(n == least for n, least in walk.sectors) or cols < 32
+        assert all(h == 1 for h in walk.bank_hits)
+
+
+def test_row_cmpex_walk_matches_the_pallas_probes():
+    x = u32_block(21, (R, 128))
+    got, _ = row_cmpex_walk(x, probes.p1b_distances(R))
+    np.testing.assert_array_equal(got, pallas(probe2_kernel(R), x))
+    for nstages in (4, 16):
+        got, walk = row_cmpex_walk(x, probes.p2a_distances(nstages, R))
+        want = pallas(DMA2.cmpex_rows_kernel(nstages, R), x,
+                      scratch_shapes=[pltpu.VMEM((R, 128), jnp.uint32)])
+        np.testing.assert_array_equal(got, want)
+
+
+def test_row_cmpex_walk_catches_an_unswizzled_tile(monkeypatch):
+    monkeypatch.setattr(sys.modules[__name__], "tile_slot", lambda t: t)
+    x = u32_block(22, (4096, 2))
+    got, walk = row_cmpex_walk(x, P2A_4096[16])
+    np.testing.assert_array_equal(got, numpy_row_cmpex(x, P2A_4096[16]))
+    assert max(walk.bank_hits) > 1  # still right, but threads share banks

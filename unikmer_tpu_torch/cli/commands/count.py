@@ -28,7 +28,7 @@ from ...models.count import (
     count_packed_taxids, count_stream, count_stream_packed, linear_codes_all,
     parse_taxid_records,
 )
-from ...ops.codec import MAX_K_ENCODED
+from ...ops.codec import MAX_K_ENCODED, MAX_K_HASHED
 from ...taxonomy.taxdump import load_taxonomy
 from ...utils.log import die, log
 from ...utils.stages import stage
@@ -88,21 +88,39 @@ def _not_ported(args, opt) -> str | None:
     return None
 
 
-def run(args) -> int:
-    opt = get_options(args)
+def _reference_checks(args) -> None:
+    """The reference's flag checks and warnings, in its order
+    (unikmer_tpu/cli/commands/count.py:59-97), so a flag combination that
+    the reference refuses exits with its message even where it names a
+    flag the port does not run yet."""
     k = args.kmer_len
     if k <= 0:
         die("k-mer length must be positive")
-    todo = _not_ported(args, opt)
-    if todo:
-        die(f"not supported by unikmer_tpu_torch yet: {todo}")
+    hashed = args.hash
+    if k > MAX_K_ENCODED and not hashed:
+        hashed = True
+        log.warning("flag -H/--hash is switched on for k > 32")
+    if hashed and k > MAX_K_HASHED:
+        die(f"k-mer size ({k}) should be <=64")
+    if args.scale > 0xFFFFFFFF:
+        die("scale must fit in 32 bits (the .unik header stores uint32)")
+    if args.scale > 1 and not hashed:
+        hashed = True
+        log.warning("flag -H/--hash is switched on for scale > 1")
+    if (args.minimizer_w > 0 or args.syncmer_s > 0) and not (hashed and args.canonical):
+        hashed = True
+        log.warning("flags -H/--hash and -K/--canonical are switched on for sketches")
+    if args.minimizer_w > 0 and args.syncmer_s > 0:
+        die("flag --minimizer-w and --syncmer-s can not be given simultaneously")
+    if args.syncmer_impl == "compat":
+        if args.syncmer_s <= 0:
+            die("flag --syncmer-impl=compat requires -S/--syncmer-s")
     if args.unique and args.repeated:
         die("flag -u/--unique and -d/--repeated are not compatible")
     if args.linear and args.sort:
         die("flag -l/--linear and -s/--sort are not compatible")
     if args.linear and (args.unique or args.repeated):
         log.warning("flag -d/--repeated and -u/--unique are ignored when -l/--linear given")
-    re_taxid = None
     if args.parse_taxid:
         if args.taxid > 0:
             die("flag -t/--taxid and -T/--parse-taxid can not be given simultaneously")
@@ -110,7 +128,17 @@ def run(args) -> int:
             die("flag -r/--parse-taxid-regexp needed when given flag -T/--parse-taxid")
         if not re.search(r"\(.+\)", args.parse_taxid_regexp):
             die('value of -r/--parse-taxid-regexp must contain "(" and ")" to capture taxid')
-        re_taxid = re.compile(args.parse_taxid_regexp.encode())
+
+
+def run(args) -> int:
+    opt = get_options(args)
+    k = args.kmer_len
+    _reference_checks(args)
+    todo = _not_ported(args, opt)
+    if todo:
+        die(f"not supported by unikmer_tpu_torch yet: {todo}")
+    re_taxid = (re.compile(args.parse_taxid_regexp.encode())
+                if args.parse_taxid else None)
     try:
         device = get_device()
     except RuntimeError as e:

@@ -19,19 +19,47 @@
 //                   streaming (__ldcs / __stcs, evict-first): 3-4% faster than
 //                   default-cached ones with L2 warm and level with them with
 //                   L2 flushed; ld.global.nc.L1::no_allocate.L2::256B loads
-//                   were slower (chip_smoke.py's PROBE_VARIANTS time these).
+//                   were slower (chip_smoke.py's VARIANTS time these).
 // row_cmpex_u32     replaces probe2 (exp_pallas_dma.py:101, call :118) and
 //                   cmpex_rows_kernel (exp_pallas_dma2.py:96, call :123):
 //                   compare-exchange stages at row distances d on an (R, C)
 //                   array; rows (g*2d + i, g*2d + i + d) for i < d take
 //                   (min, max), and a row whose partner would lie past R
-//                   (ragged R) keeps its value.  Columns never mix, so each
-//                   block holds one column, up to kMaxRows rows (160 KB),
-//                   in shared memory and runs all the stages there, one
-//                   launch in all (the TPU kept the block in VMEM for the
-//                   same reason): C blocks, 128 for the probes, fill the
-//                   SMs, and each thread does a few pairs per stage, with
-//                   shifts in place of divisions when d is a power of two.
+//                   (ragged R) keeps its value.  Columns never mix, and a
+//                   stage at d = 2^b pairs rows that differ in bit b only,
+//                   so a run of such stages touches only the rows that its
+//                   bits link.  The host splits the stages into launches of
+//                   three routes, any R:
+//                   - registers: a run whose distances are powers of two
+//                     of at most kRegBits distinct bits.  A thread holds
+//                     the 2^b rows that the run's b bits link, 16 bytes of
+//                     columns each where C % 4 == 0, applies the whole run
+//                     with no barrier and writes them back; neighbouring
+//                     threads take neighbouring column groups, so every
+//                     access moves whole rows a warp.  P1b's 64 stages at
+//                     d = 2048 are one launch: two uint4 in, 64
+//                     compare-exchanges, two uint4 out.
+//                   - tile: a longer power-of-two run, of at most kTileBits
+//                     distinct bits (P2a's cycle d = 2048 .. 1).  A block
+//                     holds the 2^bits rows that they link, one column, in
+//                     shared memory; each thread holds kRegBits of those
+//                     bits in registers at a time (a phase), so a barrier
+//                     comes only where the register mapping changes.  The
+//                     tile's slots are swizzled so that the phases of a
+//                     bitonic cycle read and write 32 banks a warp.
+//                   - pass: any other stage (d not a power of two), one pass
+//                     over device memory, 16 bytes a thread where C % 4 ==
+//                     0; consecutive stages at one distance fuse into it.
+//                   The host hands each launch its row bits' positions and
+//                   its stages as runs (a bit, a repeat count), so a thread
+//                   finds its rows by inserting zero bits and applies a run
+//                   with one dispatch; a descending sweep over a thread's
+//                   bits (a bitonic merge's) is unrolled.  Rows past R
+//                   hold 0xffffffff, so no compare-exchange needs a branch.
+//                   The tile's column-wise global loads and stores (4 bytes
+//                   a row) cost most of its time; they are what a block
+//                   that links all of R's rows must pay.  (The TPU kept
+//                   the whole block in VMEM; here no block can hold it.)
 // transpose128_u32  replaces probe3 (exp_pallas_dma.py:130, call :138): each
 //                   (128, 128) tile is transposed.  A block takes one
 //                   kSub x kSub sub-tile (a 1-D grid with an int64 tile
@@ -124,62 +152,355 @@ copy_inc_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   }
 }
 
-// The top rows of a stage at distance d: r = (p / d) * 2d + p % d for
-// p < top_rows(rows, d); those with r + d < rows have a partner.
-__device__ __forceinline__ int top_rows(int rows, int d) {
-  const int full = rows / (2 * d);
-  const int rem = rows - full * 2 * d;
-  return full * d + (rem < d ? rem : d);
+// ---- row_cmpex_u32 ----
+
+constexpr int kRegBits = 4;      // a thread holds up to 2^kRegBits rows
+constexpr int kTileBits = 14;    // a tile holds up to 2^kTileBits rows (64 KB)
+constexpr int kMaxStages = 256;  // stages a launch
+constexpr int kRowThreads = 256;  // threads a block of the register and pass routes
+static_assert(kRegBits == 4, "the cases of stages_at");
+
+// x with a zero bit inserted at bit b (the bits from b up move up one).
+__device__ __forceinline__ uint64_t insert_zero(uint64_t x, int b) {
+  return ((x >> b) << (b + 1)) | (x & ((1ull << b) - 1));
 }
 
-constexpr int kSlabThreads = 1024;
-constexpr int kMaxStages = 256;          // stages per launch
-constexpr int64_t kMaxRows = 40 * 1024;  // 160 KB of the 227 KB a block may use
+__device__ __forceinline__ void cmpex(uint32_t& a, uint32_t& b) {
+  const uint32_t lo = umin32(a, b);
+  b = umax32(a, b);
+  a = lo;
+}
 
-struct Distances {
-  int32_t d[kMaxStages];
+__device__ __forceinline__ void cmpex(uint4& a, uint4& b) {
+  cmpex(a.x, b.x);
+  cmpex(a.y, b.y);
+  cmpex(a.z, b.z);
+  cmpex(a.w, b.w);
+}
+
+// A row past R holds 0xffffffff in registers and shared memory: as the
+// bottom of a pair it leaves the top row as it is, and its own top row is
+// past R too, so it stays 0xffffffff and no stage needs a branch; it is
+// never stored.
+__device__ __forceinline__ void absent(uint32_t& x) { x = ~0u; }
+__device__ __forceinline__ void absent(uint4& x) { x = make_uint4(~0u, ~0u, ~0u, ~0u); }
+
+// One stage on a thread's rows v[u], u < 2^PB: u and u | 2^Q (bit Q of u
+// clear) are the pair.
+template <int Q, int PB, typename T>
+__device__ __forceinline__ void cmpex_bit(T (&v)[1 << PB]) {
+#pragma unroll
+  for (int u = 0; u < (1 << PB); ++u) {
+    if (!(u & (1 << Q))) cmpex(v[u], v[u | (1 << Q)]);
+  }
+}
+
+// `reps` stages on the bit at position q of the thread's rows.
+template <int PB, typename T>
+__device__ __forceinline__ void stages_at(T (&v)[1 << PB], int q, int reps) {
+  switch (q) {
+    case 0:
+      for (int i = 0; i < reps; ++i) cmpex_bit<0, PB>(v);
+      break;
+    case 1:
+      if constexpr (PB > 1) {
+        for (int i = 0; i < reps; ++i) cmpex_bit<1, PB>(v);
+      }
+      break;
+    case 2:
+      if constexpr (PB > 2) {
+        for (int i = 0; i < reps; ++i) cmpex_bit<2, PB>(v);
+      }
+      break;
+    default:
+      if constexpr (PB > 3) {
+        for (int i = 0; i < reps; ++i) cmpex_bit<3, PB>(v);
+      }
+      break;
+  }
+}
+
+// One stage on each held bit, the highest first: a bitonic merge's sweep,
+// unrolled (a dispatch a stage costs as much as the stages here).
+template <int PB, typename T>
+__device__ __forceinline__ void sweep(T (&v)[1 << PB]) {
+  if constexpr (PB > 3) cmpex_bit<3, PB>(v);
+  if constexpr (PB > 2) cmpex_bit<2, PB>(v);
+  if constexpr (PB > 1) cmpex_bit<1, PB>(v);
+  cmpex_bit<0, PB>(v);
+}
+
+// Stages as runs: run r is reps[r] stages on the bit at position q[r].
+struct Runs {
+  uint8_t q[kMaxStages];
+  uint16_t reps[kMaxStages];
 };
 
-// Block c holds column c of every row in shared memory and runs the stages.
-__global__ void __launch_bounds__(kSlabThreads)
-row_cmpex_slab_kernel(const uint32_t* in, uint32_t* out, int rows, int64_t cols,
-                      Distances ds, int nd) {
-  extern __shared__ uint32_t col[];
-  const int64_t c = blockIdx.x;
-  for (int r = threadIdx.x; r < rows; r += kSlabThreads) {
-    col[r] = in[static_cast<int64_t>(r) * cols + c];
+// Runs first .. last on a thread's rows; `is_sweep` when they are one
+// stage on each held bit, the highest first.
+template <int PB, typename T>
+__device__ __forceinline__ void apply_runs(T (&v)[1 << PB], const Runs& runs,
+                                           int first, int last, bool is_sweep) {
+  if (is_sweep) {
+    sweep<PB>(v);
+  } else {
+    for (int r = first; r < last; ++r) stages_at<PB>(v, runs.q[r], runs.reps[r]);
   }
-  __syncthreads();
-  for (int s = 0; s < nd; ++s) {
-    const int d = ds.d[s];
-    const int top = top_rows(rows, d);
-    if ((d & (d - 1)) == 0) {
-      const int lg = __ffs(d) - 1;
-      for (int p = threadIdx.x; p < top; p += kSlabThreads) {
-        const int r = ((p >> lg) << (lg + 1)) | (p & (d - 1));
-        if (r + d < rows) {
-          const uint32_t x = col[r];
-          const uint32_t y = col[r + d];
-          col[r] = umin32(x, y);
-          col[r + d] = umax32(x, y);
-        }
-      }
+}
+
+// Row u of a thread whose other bits are `base`; bit q of u is `bit[q]`.
+template <int PB, typename I>
+__device__ __forceinline__ I row_of(I base, const I (&bit)[PB], int u) {
+#pragma unroll
+  for (int q = 0; q < PB; ++q) {
+    if ((u >> q) & 1) base |= bit[q];
+  }
+  return base;
+}
+
+struct RegRun {  // a run of stages on the rows of PB row bits
+  uint8_t ubit[kRegBits];  // the row bits, ascending
+  int nruns;
+  int sweep;  // the runs are one sweep (see apply_runs)
+  Runs runs;
+};
+
+// The register route.  Thread id holds column group id % groups of the
+// 2^PB rows whose other bits are id / groups (zeros inserted at ubit).
+template <int PB, typename T>
+__global__ void __launch_bounds__(kRowThreads)
+row_cmpex_regs_kernel(const uint32_t* in, uint32_t* out, int64_t rows,
+                      int64_t cols, int64_t threads, RegRun run) {
+  constexpr int kV = sizeof(T) / 4;
+  const int64_t id = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (id >= threads) return;
+  const int64_t groups = cols / kV;
+  const int64_t col = (id % groups) * kV;
+  uint64_t base = static_cast<uint64_t>(id / groups);
+  uint64_t bit[PB];
+#pragma unroll
+  for (int q = 0; q < PB; ++q) {
+    base = insert_zero(base, run.ubit[q]);
+    bit[q] = 1ull << run.ubit[q];
+  }
+  T v[1 << PB];
+  uint32_t present = 0;
+#pragma unroll
+  for (int u = 0; u < (1 << PB); ++u) {
+    const uint64_t r = row_of<PB>(base, bit, u);
+    if (r < static_cast<uint64_t>(rows)) {
+      present |= 1u << u;
+      v[u] = *reinterpret_cast<const T*>(in + r * cols + col);
     } else {
-      for (int p = threadIdx.x; p < top; p += kSlabThreads) {
-        const int r = (p / d) * 2 * d + p % d;
-        if (r + d < rows) {
-          const uint32_t x = col[r];
-          const uint32_t y = col[r + d];
-          col[r] = umin32(x, y);
-          col[r + d] = umax32(x, y);
+      absent(v[u]);
+    }
+  }
+  apply_runs<PB>(v, run.runs, 0, run.nruns, run.sweep);
+#pragma unroll
+  for (int u = 0; u < (1 << PB); ++u) {
+    if ((present >> u) & 1) {
+      *reinterpret_cast<T*>(out + row_of<PB>(base, bit, u) * cols + col) = v[u];
+    }
+  }
+}
+
+struct TileRun {  // a run of stages on the rows of tbits row bits
+  uint8_t ubit[kTileBits];  // tile bit i is row bit ubit[i], ascending
+  int tbits;
+  int nphases;
+  uint8_t ppos[kMaxStages][kRegBits];  // phase p's tile bits, ascending
+  uint16_t first[kMaxStages + 1];  // phase p: runs first[p] .. first[p+1]
+  uint8_t sweep[kMaxStages];  // phase p's runs are one sweep
+  Runs runs;
+};
+
+// Shared-memory slot of tile row t.  Within each 32 rows the slot is
+// t's low five bits xor bits 5-9 and xor bit 8 into bit 4, so every phase
+// of a bitonic cycle (bits 0-3, 4-7, 8-11) puts a warp on 32 banks.
+__device__ __forceinline__ uint32_t tile_slot(uint32_t t) {
+  return t ^ (((t >> 5) & 31) ^ ((t >> 4) & 16));
+}
+
+// The tile route.  Block b holds column b % cols of the rows whose other
+// bits are b / cols (zeros inserted at ubit); in phase p thread tau holds
+// the 2^4 tile rows whose bits ppos[p] run over u and whose other tile
+// bits are tau (zeros inserted at ppos[p]).
+__global__ void __launch_bounds__(1 << (kTileBits - kRegBits))
+row_cmpex_tile_kernel(const uint32_t* in, uint32_t* out, int64_t rows,
+                      int64_t cols, TileRun run) {
+  constexpr int PB = kRegBits;
+  extern __shared__ uint32_t tile[];
+  const int64_t col = blockIdx.x % cols;
+  uint64_t base = static_cast<uint64_t>(blockIdx.x / cols);
+  uint64_t umask = 0;
+  for (int i = 0; i < run.tbits; ++i) {
+    base = insert_zero(base, run.ubit[i]);
+    umask |= 1ull << run.ubit[i];
+  }
+  const bool ragged = (base | umask) >= static_cast<uint64_t>(rows);
+  uint32_t v[1 << PB];
+  for (int p = 0; p < run.nphases; ++p) {
+    uint32_t tb = threadIdx.x;
+    uint32_t tbit[PB];
+#pragma unroll
+    for (int q = 0; q < PB; ++q) {
+      tb = static_cast<uint32_t>(insert_zero(tb, run.ppos[p][q]));
+      tbit[q] = 1u << run.ppos[p][q];
+    }
+    const bool global = p == 0 || p + 1 == run.nphases;
+    uint64_t gbase = base, gbit[PB];
+    uint32_t present = 0xffffu;  // which rows lie below R, for the global phases
+    if (global) {
+      for (uint32_t t = tb; t; t &= t - 1) gbase |= 1ull << run.ubit[__ffs(t) - 1];
+#pragma unroll
+      for (int q = 0; q < PB; ++q) gbit[q] = 1ull << run.ubit[run.ppos[p][q]];
+      if (ragged) {
+        present = 0;
+#pragma unroll
+        for (int u = 0; u < (1 << PB); ++u) {
+          if (row_of<PB>(gbase, gbit, u) < static_cast<uint64_t>(rows)) {
+            present |= 1u << u;
+          }
         }
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < (1 << PB); ++u) {
+      if (p == 0) {
+        v[u] = ((present >> u) & 1)
+                   ? in[row_of<PB>(gbase, gbit, u) * cols + col] : ~0u;
+      } else {
+        v[u] = tile[tile_slot(row_of<PB>(tb, tbit, u))];
+      }
+    }
+    apply_runs<PB>(v, run.runs, run.first[p], run.first[p + 1], run.sweep[p]);
+    if (p + 1 == run.nphases) {
+#pragma unroll
+      for (int u = 0; u < (1 << PB); ++u) {
+        if ((present >> u) & 1) out[row_of<PB>(gbase, gbit, u) * cols + col] = v[u];
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < (1 << PB); ++u) {
+        tile[tile_slot(row_of<PB>(tb, tbit, u))] = v[u];
+      }
+      __syncthreads();
+    }
   }
-  for (int r = threadIdx.x; r < rows; r += kSlabThreads) {
-    out[static_cast<int64_t>(r) * cols + c] = col[r];
+}
+
+// The pass route: stage d `reps` times over every top row r = (p / d) * 2d
+// + p % d, p = id / groups; a top row without a partner is copied.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+row_cmpex_pass_kernel(const uint32_t* in, uint32_t* out, int64_t rows,
+                      int64_t cols, int64_t d, int64_t reps, int64_t threads) {
+  constexpr int kV = sizeof(T) / 4;
+  const int64_t id = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (id >= threads) return;
+  const int64_t groups = cols / kV;
+  const int64_t col = (id % groups) * kV;
+  const int64_t p = id / groups;
+  const int64_t r = (p / d) * 2 * d + p % d;
+  const T* src = reinterpret_cast<const T*>(in + r * cols + col);
+  T* dst = reinterpret_cast<T*>(out + r * cols + col);
+  if (r + d < rows) {
+    const int64_t step = d * cols / kV;
+    T a = src[0], b = src[step];
+    for (int64_t i = 0; i < reps; ++i) cmpex(a, b);
+    dst[0] = a;
+    dst[step] = b;
+  } else if (in != out) {
+    dst[0] = src[0];
   }
+}
+
+// Rows r with r % 2d < d: the top rows of a stage at distance d.
+int64_t top_rows(int64_t rows, int64_t d) {
+  const int64_t full = rows / (2 * d);
+  const int64_t rem = rows - full * 2 * d;
+  return full * d + (rem < d ? rem : d);
+}
+
+int popcount64(uint64_t x) { return __builtin_popcountll(x); }
+
+// Blocks of up to kRowThreads threads for `threads` threads, halved down to
+// one warp while the grid would not reach two blocks an SM.
+int64_t row_block(int64_t threads) {
+  int64_t blk = kRowThreads;
+  while (blk > 32 && (threads + blk - 1) / blk < 2 * 132) blk /= 2;
+  return blk;
+}
+
+template <int PB, typename T>
+cudaError_t launch_regs(const uint32_t* in, uint32_t* out, int64_t rows,
+                        int64_t cols, int64_t threads, const RegRun& run,
+                        cudaStream_t stream) {
+  const int64_t blk = row_block(threads);
+  const int64_t blocks = (threads + blk - 1) / blk;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  row_cmpex_regs_kernel<PB, T><<<static_cast<unsigned>(blocks),
+                                 static_cast<unsigned>(blk), 0, stream>>>(
+      in, out, rows, cols, threads, run);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_regs_pb(int pb, int nbits, const uint32_t* in,
+                           uint32_t* out, int64_t rows, int64_t cols,
+                           const RegRun& run, cudaStream_t stream) {
+  const int64_t threads =
+      (int64_t{1} << (nbits - pb)) * (cols / static_cast<int64_t>(sizeof(T) / 4));
+  switch (pb) {
+    case 1: return launch_regs<1, T>(in, out, rows, cols, threads, run, stream);
+    case 2: return launch_regs<2, T>(in, out, rows, cols, threads, run, stream);
+    case 3: return launch_regs<3, T>(in, out, rows, cols, threads, run, stream);
+    default: return launch_regs<4, T>(in, out, rows, cols, threads, run, stream);
+  }
+}
+
+// Append stage `q` to the runs: one more repeat of the last run when it is
+// on the same bit, else a new run.  Returns the number of runs.
+int add_stage(Runs& runs, int nruns, int first_of_phase, int q) {
+  if (nruns > first_of_phase && runs.q[nruns - 1] == q) {
+    ++runs.reps[nruns - 1];
+    return nruns;
+  }
+  runs.q[nruns] = static_cast<uint8_t>(q);
+  runs.reps[nruns] = 1;
+  return nruns + 1;
+}
+
+// Whether runs first .. last are one stage on each of `bits` bits, the
+// highest first.
+int is_sweep(const Runs& runs, int first, int last, int bits) {
+  if (last - first != bits) return 0;
+  for (int r = first; r < last; ++r) {
+    if (runs.q[r] != bits - 1 - (r - first) || runs.reps[r] != 1) return 0;
+  }
+  return 1;
+}
+
+// The set bits of mask, ascending, into bits[]; returns how many.
+int bit_positions(uint64_t mask, uint8_t* bits) {
+  int n = 0;
+  for (; mask; mask &= mask - 1) bits[n++] = static_cast<uint8_t>(__builtin_ctzll(mask));
+  return n;
+}
+
+template <typename T>
+cudaError_t launch_pass(const uint32_t* in, uint32_t* out, int64_t rows,
+                        int64_t cols, int64_t d, int64_t reps,
+                        cudaStream_t stream) {
+  const int64_t threads =
+      top_rows(rows, d) * (cols / static_cast<int64_t>(sizeof(T) / 4));
+  const int64_t blk = row_block(threads);
+  const int64_t blocks = (threads + blk - 1) / blk;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  row_cmpex_pass_kernel<T><<<static_cast<unsigned>(blocks),
+                             static_cast<unsigned>(blk), 0, stream>>>(
+      in, out, rows, cols, d, reps, threads);
+  return cudaGetLastError();
 }
 
 constexpr int kSub = 64;  // sub-tile side; 128 makes one whole tile a block
@@ -290,29 +611,99 @@ int ukt_copy_inc_u32(const void* in, void* out, int64_t n, void* stream) {
 }
 
 // The row compare-exchange stages dists[0..nd) (host memory, each in
-// [1, rows]) on a (rows, cols) u32 array, rows <= kMaxRows; in == out is
-// allowed.  Returns the first launch's error, else cudaGetLastError().
+// [1, rows)) on a (rows, cols) u32 array, any rows; in == out is allowed.
+// Splits the stages into launches of the three routes (see the top of this
+// file); the first launch reads `in`, the others work on `out` in place.
+// Returns the first launch's error, else cudaSuccess.
 int ukt_row_cmpex_u32(const void* in, void* out, int64_t rows, int64_t cols,
                       const int64_t* dists, int64_t nd, void* stream) {
-  if (rows > kMaxRows || cols > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 2 || cols < 1 || nd < 1) return static_cast<int>(cudaErrorInvalidValue);
+  for (int64_t i = 0; i < nd; ++i) {
+    if (dists[i] < 1 || dists[i] >= rows) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      row_cmpex_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMaxRows * sizeof(uint32_t)));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      row_cmpex_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      4 << kTileBits);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = cols % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int nbits = 64 - __builtin_clzll(static_cast<uint64_t>(rows - 1));
   const uint32_t* src = static_cast<const uint32_t*>(in);
-  for (int64_t s0 = 0; s0 < nd; s0 += kMaxStages) {
-    Distances ds;
-    const int n = static_cast<int>(nd - s0 < kMaxStages ? nd - s0 : kMaxStages);
-    for (int i = 0; i < n; ++i) ds.d[i] = static_cast<int32_t>(dists[s0 + i]);
-    row_cmpex_slab_kernel<<<static_cast<unsigned>(cols), kSlabThreads,
-                            static_cast<size_t>(rows * sizeof(uint32_t)),
-                            static_cast<cudaStream_t>(stream)>>>(
-        src, static_cast<uint32_t*>(out), static_cast<int>(rows), cols, ds, n);
-    err = cudaGetLastError();
+  uint32_t* dst = static_cast<uint32_t*>(out);
+  for (int64_t i = 0; i < nd;) {
+    const int64_t d = dists[i];
+    int64_t j = i + 1;
+    cudaError_t err;
+    if (d & (d - 1)) {  // the pass route, with the stages at d that follow
+      while (j < nd && dists[j] == d) ++j;
+      err = vec ? launch_pass<uint4>(src, dst, rows, cols, d, j - i, st)
+                : launch_pass<uint32_t>(src, dst, rows, cols, d, j - i, st);
+    } else {
+      uint64_t umask = static_cast<uint64_t>(d);
+      for (; j < nd && j - i < kMaxStages && !(dists[j] & (dists[j] - 1)) &&
+             popcount64(umask | static_cast<uint64_t>(dists[j])) <= kTileBits;
+           ++j) {
+        umask |= static_cast<uint64_t>(dists[j]);
+      }
+      const int tbits = popcount64(umask);
+      // the position of a stage's bit among umask's
+      auto tile_bit = [&](int64_t s) {
+        return popcount64(umask & (static_cast<uint64_t>(dists[s]) - 1));
+      };
+      if (tbits <= kRegBits) {
+        RegRun run{};
+        bit_positions(umask, run.ubit);
+        for (int64_t s = i; s < j; ++s) {
+          run.nruns = add_stage(run.runs, run.nruns, 0, tile_bit(s));
+        }
+        run.sweep = is_sweep(run.runs, 0, run.nruns, tbits);
+        err = vec ? launch_regs_pb<uint4>(tbits, nbits, src, dst, rows, cols, run, st)
+                  : launch_regs_pb<uint32_t>(tbits, nbits, src, dst, rows, cols, run, st);
+      } else {
+        // phases: consecutive stages while they name at most kRegBits
+        // tile bits, then padded with the lowest other tile bits
+        TileRun run{};
+        run.tbits = bit_positions(umask, run.ubit);
+        int nruns = 0;
+        uint32_t cur = 0;
+        int64_t open = i;  // the phase's first stage
+        auto close = [&](int64_t end) {
+          uint32_t pm = cur;
+          for (uint32_t free = ((1u << tbits) - 1) & ~pm; popcount64(pm) < kRegBits;
+               free &= free - 1) {
+            pm |= free & (~free + 1);
+          }
+          bit_positions(pm, run.ppos[run.nphases]);
+          for (int64_t s = open; s < end; ++s) {
+            nruns = add_stage(run.runs, nruns, run.first[run.nphases],
+                              popcount64(pm & ((1u << tile_bit(s)) - 1)));
+          }
+          run.sweep[run.nphases] = is_sweep(run.runs, run.first[run.nphases],
+                                            nruns, kRegBits);
+          run.first[++run.nphases] = static_cast<uint16_t>(nruns);
+          cur = 0;
+          open = end;
+        };
+        for (int64_t s = i; s < j; ++s) {
+          const uint32_t b = 1u << tile_bit(s);
+          if (popcount64(cur | b) > kRegBits) close(s);
+          cur |= b;
+        }
+        close(j);
+        const int64_t blocks = (int64_t{1} << (nbits - tbits)) * cols;
+        if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+        row_cmpex_tile_kernel<<<static_cast<unsigned>(blocks),
+                                1u << (tbits - kRegBits), 4u << tbits, st>>>(
+            src, dst, rows, cols, run);
+        err = cudaGetLastError();
+      }
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
-    src = static_cast<const uint32_t*>(out);
+    src = dst;
+    i = j;
   }
   return static_cast<int>(cudaSuccess);
 }

@@ -77,9 +77,11 @@ def encode_2bit(packed2: torch.Tensor, validmask: torch.Tensor, n: int,
         return encode_2bit_plain(packed2, validmask, n, k, canonical)
     if dev.type != "cuda":
         raise ValueError(f"encode_2bit: unsupported device {dev}")
-    for name, t in (("packed2", packed2), ("validmask", validmask)):
-        if t.data_ptr() % 8:
-            raise ValueError(f"{name} must be 8-byte aligned")
+    # the kernel reads 16-byte words: a view off a 16-byte boundary is cloned
+    if packed2.data_ptr() % 16:
+        packed2 = packed2.clone()
+    if validmask.data_ptr() % 16:
+        validmask = validmask.clone()
     keyed = torch.empty(n, dtype=torch.int64, device=dev)
     valid = torch.empty(n, dtype=torch.uint8, device=dev)
     if n == 0:

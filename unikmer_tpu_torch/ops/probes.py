@@ -21,7 +21,7 @@ wrapper counts the calls that launched its kernel in ``.launches``.
 
 from __future__ import annotations
 
-import ctypes
+import array
 
 import torch
 
@@ -104,10 +104,12 @@ def p2a_distances(nstages: int, rows: int) -> list[int]:
     return out
 
 
-def _check_distances(distances) -> list[int]:
-    ds = [int(d) for d in distances]
-    if any(d < 1 for d in ds):
-        raise ValueError(f"row distances must be >= 1, got {ds}")
+def _check_distances(distances) -> array.array:
+    """The distances as an int64 array (its buffer is what the kernel's
+    entry point reads)."""
+    ds = array.array("q", distances)
+    if ds and min(ds) < 1:
+        raise ValueError(f"row distances must be >= 1, got {ds.tolist()}")
     return ds
 
 
@@ -126,29 +128,24 @@ def row_cmpex_u32_plain(x: torch.Tensor, distances) -> torch.Tensor:
     return a
 
 
-# rows of one column that fit a block's shared memory (csrc/probes.cu)
-ROW_CMPEX_MAX_ROWS = 40 * 1024
-
-
 def row_cmpex_u32(x: torch.Tensor, distances) -> torch.Tensor:
     """P1b/P2a: the row compare-exchange stages of ``distances`` on a
-    (R, C) tensor, R <= ROW_CMPEX_MAX_ROWS on the card; a new tensor."""
+    (R, C) tensor, any R; a new tensor.  On the card one call may launch
+    several kernels (csrc/probes.cu splits the stages into routes); it
+    counts once in ``.launches``."""
     _check("row_cmpex_u32", x, 2)
     ds = _check_distances(distances)
     if x.is_cpu:
         return row_cmpex_u32_plain(x, ds)
-    if x.shape[0] > ROW_CMPEX_MAX_ROWS:
-        raise ValueError(f"row_cmpex_u32 takes at most {ROW_CMPEX_MAX_ROWS} "
-                         f"rows on the card, got {x.shape[0]}")
     x = x.contiguous()
+    rows, cols = x.shape
+    if ds and max(ds) >= rows:  # a distance >= R pairs no rows
+        ds = array.array("q", [d for d in ds if d < rows])
     if not ds or x.numel() == 0:
         return x.clone()
     out = torch.empty_like(x)
-    rows, cols = x.shape
-    # a distance >= rows pairs no rows: clamped, it fits the kernel's int32
-    host = (ctypes.c_int64 * len(ds))(*(min(d, rows) for d in ds))
     _ROW_CMPEX(x.device, x.data_ptr(), out.data_ptr(), rows, cols,
-               ctypes.addressof(host), len(ds))
+               ds.buffer_info()[0], len(ds))
     row_cmpex_u32.launches += 1
     return out
 
