@@ -23,9 +23,9 @@ oracles:
 The launch counters, zeroed before each path's run and read after it,
 show that the run went through the kernels of its path.  P1a and P1c
 are timed in turns with their library calls (library, kernel, kernel,
-library; TURNS rounds); K1, P1a, P1b/P2a and P1c in turns with variants
-of their kernels that each undo one design choice or are the kernel's
-earlier design (VARIANTS, csrc/earlier/).  The host cost of the launch path is read
+library; TURNS rounds); K1 and P1b/P2a in turns with their earlier designs
+(csrc/earlier/, built by unikmer_tpu_torch/kernel_variants.py, which
+times the other design variants on its own).  The host cost of the launch path is read
 as host microseconds per wrapper call over HOST_CALLS un-synchronised
 calls: for P1c's call step by step as the path stood before the launch
 helper of _kernels.py (``launch_breakdown``), and for every wrapper
@@ -122,27 +122,9 @@ def device_ms(fn, kernel: str, reps: int = 20):
     time, without the host's launch overhead that the CUDA events around
     a short call also hold.  None when the profiler records no device
     time."""
-    return device_profile(fn, kernel, reps)[0]
+    from unikmer_tpu_torch.kernel_variants import device_ms as profiled
 
-
-def device_profile(fn, kernel: str, reps: int = 20):
-    """(mean device ms a call in the CUDA kernels whose name holds
-    ``kernel``, the number of those kernels a call launches), from
-    torch.profiler; (None, None) when it records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    total_us = sum(getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0.0) for e in events)
-    if not total_us:
-        return None, None
-    return total_us / reps / 1e3, sum(e.count for e in events) / reps
+    return profiled(fn, kernel, reps)
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -187,7 +169,9 @@ def k1_lengths() -> tuple:
                          block + 1, 2 * block + 1}))
 
 
-def check_k1(dev, rng, variants):
+def check_k1(dev, rng, first):
+    """K1 held to its plain version (and ``first``, the earlier design) at
+    every length of k1_lengths, then timed in turns with it."""
     from unikmer_tpu_torch.models.count import pack_bases_2bit
     from unikmer_tpu_torch.ops.encode import encode_2bit, encode_2bit_plain
 
@@ -197,17 +181,14 @@ def check_k1(dev, rng, variants):
 
     ns = k1_lengths()
     big = random_bases(rng, max(ns))
-    first = variants["K1 first design, one window a thread"]
     err, cases = 0.0, 0
     for n in ns:
         p2, vm = upload(big[:n])
         for k in K1_KS:
             for canonical in (False, True):
                 pk, pv = encode_2bit_plain(p2, vm, n, k, canonical)
-                kernels = [("kernel", encode_2bit)]
-                if 0 < n <= K1_NS[-2]:
-                    kernels.append(("first design", first))
-                for which, fn in kernels:
+                for which, fn in (("kernel", encode_2bit),
+                                  ("earlier design", first)):
                     kk, kv = fn(p2, vm, n, k, canonical)
                     torch.cuda.synchronize()
                     e = abs_err(kk, pk)
@@ -229,16 +210,15 @@ def check_k1(dev, rng, variants):
     p2, vm = upload(big[:n])
     fns = {"kernel": lambda: encode_2bit(p2, vm, n, 23, True),
            "kernel, not canonical": lambda: encode_2bit(p2, vm, n, 23, False),
-           **{name: (lambda f=f: f(p2, vm, n, 23, True))
-              for name, f in variants.items() if name.startswith("K1")}}
+           "earlier design": lambda: first(p2, vm, n, 23, True)}
     t = turns_ms(fns)
     plain_ms = cuda_ms(lambda: encode_2bit_plain(p2, vm, n, 23, True))
     # packed bases and mask read once, the u64 codes and bool flags written
     bound = bytes_ms(p2.numel() + vm.numel() + 9 * n)
     dms = {name: device_ms(fn, "encode_2bit") for name, fn in fns.items()}
-    say(f"K1 encode_2bit: exact on {cases + 1} cases (n in {ns}, the first "
-        f"design beside it up to n={K1_NS[-2]}); n={n} k=23 canonical, in "
-        f"turns: " + "; ".join(
+    say(f"K1 encode_2bit: exact on {cases + 1} cases (n in {ns}, the "
+        f"earlier design beside it); n={n} k=23 canonical, in turns: "
+        + "; ".join(
             f"{name} {t[name]['median']} ms (spread {t[name]['spread']}, "
             f"device {dms[name]})" for name in fns)
         + f"; plain {plain_ms} ms, bound {bound} ms")
@@ -829,218 +809,18 @@ def turns_ms(fns: dict, rounds: int = TURNS, before=None) -> dict:
     each round runs them in order and then in reverse (library, kernel,
     kernel, library); ``before()`` runs ahead of each timing, outside the
     events."""
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    got = {name: [] for name in fns}
-    for _ in range(rounds):
-        for name in [*fns, *reversed(fns)]:
-            if before is not None:
-                before()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            fns[name]()
-            t1.record()
-            t1.synchronize()
-            got[name].append(t0.elapsed_time(t1))
-    return {name: quartiles(v) for name, v in got.items()}
+    from unikmer_tpu_torch.kernel_variants import turns_ms as in_turns
+
+    return in_turns(fns, rounds, before)
 
 
-def _launch_count(count):
-    """A launcher of an entry point (in, out, count, stream) into a new
-    tensor, ``count(x)`` its count argument."""
-    def launch(fn, x):
-        y = torch.empty_like(x)
-        return y, fn(x.data_ptr(), y.data_ptr(), count(x), _stream(x))
-    return launch
-
-
-def _launch_row_cmpex(fn, x, ds):
-    """ukt_row_cmpex_u32's launch as ops/probes.py makes it."""
-    import array
-
-    host = array.array("q", [d for d in ds if d < x.shape[0]])
-    y = torch.empty_like(x)
-    return y, fn(x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
-                 host.buffer_info()[0], len(host), _stream(x))
-
-
-def _launch_encode(fn, p2, vm, n, k, canonical):
-    """ukt_encode_2bit's launch as ops/encode.py makes it."""
-    keyed = torch.empty(n, dtype=torch.int64, device=p2.device)
-    valid = torch.empty(n, dtype=torch.uint8, device=p2.device)
-    err = fn(p2.data_ptr(), p2.numel(), vm.data_ptr(), vm.numel(), n, k,
-             int(canonical), keyed.data_ptr(), valid.data_ptr(), _stream(p2))
-    return (keyed, valid), err
-
-
-def _stream(x):
-    return torch._C._cuda_getCurrentRawStream(x.device.index)
-
-
-_P, _I32, _I64 = "p", "i32", "i64"
-U32_ARGS = (_P, _P, _I64, _P)
-ROW_CMPEX_ARGS = (_P, _P, _I64, _I64, _P, _I64, _P)
-ENCODE_ARGS = (_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _P)
-EARLIER_ROW_CMPEX = "earlier/row_cmpex_one_column_a_block.cu"
-EARLIER_ENCODE = "earlier/encode_one_window_a_thread.cu"
-
-# name: (source under csrc/, entry point, its arguments, launcher,
-# substitutions).  Each is the source with one design choice undone, or a
-# kernel's earlier design, built alone; chip_smoke.py times them in turns
-# with the kernels as built.
-VARIANTS = {
-    "P1c whole tile a block": (
-        "probes.cu", "ukt_transpose128_u32", U32_ARGS,
-        _launch_count(lambda x: x.shape[0] // 128),
-        [("constexpr int kSub = 64;", "constexpr int kSub = 128;")]),
-    "P1a default-cached loads and stores": (
-        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
-        _launch_count(lambda x: x.numel()),
-        [("__ldcs(in4 + i)", "in4[i]"),
-         ("__stcs(out4 + i, inc4(v[u]))", "out4[i] = inc4(v[u])")]),
-    "P1a streaming loads, default-cached stores": (
-        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
-        _launch_count(lambda x: x.numel()),
-        [("__stcs(out4 + i, inc4(v[u]))", "out4[i] = inc4(v[u])")]),
-    "P1a default-cached loads, streaming stores": (
-        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
-        _launch_count(lambda x: x.numel()),
-        [("__ldcs(in4 + i)", "in4[i]")]),
-    "P1a loads ld.global.nc.L1::no_allocate.L2::256B": (
-        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
-        _launch_count(lambda x: x.numel()),
-        [("__ldcs(in4 + i)", "ld_nc_256(in4 + i)"),
-         ("__device__ __forceinline__ uint4 inc4(uint4 v) {",
-          "__device__ __forceinline__ uint4 ld_nc_256(const uint4* p) {\n"
-          "  uint4 v;\n"
-          "  asm volatile(\"ld.global.nc.L1::no_allocate.L2::256B.v4.u32 "
-          "{%0, %1, %2, %3}, [%4];\" : \"=r\"(v.x), \"=r\"(v.y), "
-          "\"=r\"(v.z), \"=r\"(v.w) : \"l\"(p));\n"
-          "  return v;\n"
-          "}\n\n"
-          "__device__ __forceinline__ uint4 inc4(uint4 v) {")]),
-    "P1a 1 uint4 a thread": (
-        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
-        _launch_count(lambda x: x.numel()),
-        [("constexpr int kIncVecs = 4;", "constexpr int kIncVecs = 1;")]),
-    "P1a 8 uint4 a thread": (
-        "probes.cu", "ukt_copy_inc_u32", U32_ARGS,
-        _launch_count(lambda x: x.numel()),
-        [("constexpr int kIncVecs = 4;", "constexpr int kIncVecs = 8;")]),
-    "P1b first design, one column a block": (
-        EARLIER_ROW_CMPEX, "ukt_row_cmpex_u32", ROW_CMPEX_ARGS,
-        _launch_row_cmpex, []),
-    "P1b no tile route (register runs only)": (
-        "probes.cu", "ukt_row_cmpex_u32", ROW_CMPEX_ARGS, _launch_row_cmpex,
-        [("constexpr int kTileBits = 14;", "constexpr int kTileBits = 4;")]),
-    "P1b every stage a pass": (
-        "probes.cu", "ukt_row_cmpex_u32", ROW_CMPEX_ARGS, _launch_row_cmpex,
-        [("if (d & (d - 1)) {  // the pass route",
-          "if (true) {  // the pass route")]),
-    "P1b no unrolled sweep (a dispatch a run)": (
-        "probes.cu", "ukt_row_cmpex_u32", ROW_CMPEX_ARGS, _launch_row_cmpex,
-        [("  if (is_sweep) {\n    sweep<PB>(v);", "  if (false) {\n    sweep<PB>(v);")]),
-    "K1 first design, one window a thread": (
-        EARLIER_ENCODE, "ukt_encode_2bit", ENCODE_ARGS, _launch_encode, []),
-    "K1 keys stored from registers": (
-        "encode.cu", "ukt_encode_2bit", ENCODE_ARGS, _launch_encode,
-        [("    s_keys[key_slot(t, s)] = make_uint4(",
-          "    if (i0 + 2 * s + 1 < n) reinterpret_cast<uint4*>(keyed + i0)[s] "
-          "= make_uint4("),
-         ("for (int p = t; p < kKeyVecs; p += kThreads) {",
-          "for (int p = t; p < 0; p += kThreads) {")]),
-    "K1 no global loads": (
-        "encode.cu", "ukt_encode_2bit", ENCODE_ARGS, _launch_encode,
-        [("  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs",
-          "  return make_uint4(t, 0u, 0u, 0u);\n"
-          "  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs")]),
-    "K1 stores only (no loads, no roll)": (
-        "encode.cu", "ukt_encode_2bit", ENCODE_ARGS, _launch_encode,
-        [("  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs",
-          "  return make_uint4(t, 0u, 0u, 0u);\n"
-          "  const int64_t first = span * kBlockWindows;\n  return t < kPackedVecs"),
-         ("const uint64_t code = (canonical && rc < fwd) ? rc : fwd;",
-          "const uint64_t code = i0 + j;")]),
-}
-
-
-def ptxas_lines(text: str, kernels) -> list:
-    """ptxas's registers line of each kernel whose name holds one of
-    ``kernels``, from nvcc -Xptxas -v output."""
-    out, name, frame = [], None, ""
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name, frame = m.group(1), ""
-        elif "stack frame" in line:
-            frame = line.strip()
-        elif "registers" in line and name and any(k in name for k in kernels):
-            at = name.index(next(k for k in kernels if k in name))
-            label = re.match(r"\w*?_kernel(I\w*?EE)?", name[at:]).group(0)
-            out.append(f"{label}: {line.split(':', 1)[1].strip()}"
-                       + (f" ({frame})" if frame.split()[0] != "0" else ""))
-    return out
-
-
-def build_variants() -> dict:
-    """Each of VARIANTS built alone (one nvcc each, all at once, with the
-    sources as built for ptxas's report) under
-    build/unikmer_tpu_torch/variants/; returns name -> a launcher that
-    takes the wrapper's arguments and returns the variant's result."""
-    import ctypes
-
-    from unikmer_tpu_torch import _kernels
-
-    out = _kernels.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = [_kernels.find_nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v"]
-    cmds = {f"{s} as built": [*nvcc, "-c", "-o", str(out / f"{s}.o"),
-                              str(_kernels.CSRC / s)]
-            for s in ("encode.cu", "probes.cu")}
-    for i, (name, (source, _, _, _, subs)) in enumerate(VARIANTS.items()):
-        text = (_kernels.CSRC / source).read_text()
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in {source}")
-            text = text.replace(old, new)
-        (out / f"v{i}.cu").write_text(text)
-        cmds[name] = [*nvcc, "-shared", "-o", str(out / f"v{i}.so"),
-                      str(out / f"v{i}.cu")]
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-             for name, cmd in cmds.items()}
-    for name, proc in procs.items():
-        text = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc failed\n{text}")
-        say(f"ptxas, {name}: " + "; ".join(ptxas_lines(
-            text, ("transpose128", "copy_inc", "row_cmpex", "encode_2bit"))))
-    say(f"variants built in {time.perf_counter() - t0:.3f} s")
-    types = {_P: ctypes.c_void_p, _I32: ctypes.c_int, _I64: ctypes.c_int64}
-    launchers = {}
-    for i, (name, (_, entry, args, launch, _)) in enumerate(VARIANTS.items()):
-        fn = getattr(ctypes.CDLL(str(out / f"v{i}.so")), entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [types[a] for a in args]
-
-        def run(*a, fn=fn, launch=launch, name=name):
-            result, err = launch(fn, *a)
-            if err:
-                raise SystemExit(f"{name}: CUDA error {err}")
-            return result
-
-        launchers[name] = run
-    return launchers
-
-
-def check_probes(dev, rng, variants):
+def check_probes(dev, rng, first_row_cmpex):
     """The four probe kernels held to their plain versions at the
     scripts' sizes and at ragged ones, then timed at the scripts' sizes
-    (P1a and P1c in turns with their library calls, each kernel in turns
-    with its variants); returns one result dict per kernel."""
+    (P1a and P1c in turns with their library calls, P1b/P2a with
+    ``first_row_cmpex``, its earlier design); returns one result dict per
+    kernel."""
+    from unikmer_tpu_torch.kernel_variants import kernels_per_call
     from unikmer_tpu_torch import probes as entry
     from unikmer_tpu_torch.ops import probes
 
@@ -1057,15 +837,9 @@ def check_probes(dev, rng, variants):
                 (u32_tensor(rng, (7, 128), dev).reshape(-1)[1:],),
                 (u32_tensor(rng, ((1 << 21) + 3,), dev),),
                 (u32_tensor(rng, ((1 << 21) + 4,), dev)[1:],)])
-    p1a_variants = {k: v for k, v in variants.items() if k.startswith("P1a")}
-    for name, launch in p1a_variants.items():
-        hold(name, launch, probes.copy_inc_u32_plain,
-             [(x1,), (u32_tensor(rng, ((1 << 21) + 4,), dev)[1:],)])
     cold = dict(before=lambda: flush.fill_(1))  # L2 flushed each time
     t = turns_ms({"library": lambda: x1 + 1,
-                  "kernel": lambda: probes.copy_inc_u32(x1),
-                  **{k: (lambda f=f: f(x1)) for k, f in p1a_variants.items()}},
-                 **cold)
+                  "kernel": lambda: probes.copy_inc_u32(x1)}, **cold)
     # the same after a read of the flush buffer: L2 then holds no dirty
     # lines that the copy's own lines must first write back
     clean = turns_ms({"library": lambda: x1 + 1,
@@ -1077,9 +851,6 @@ def check_probes(dev, rng, variants):
         library_ms_spread=t["library"]["spread"],
         ms_after_a_read_flush=clean["kernel"]["median"],
         library_ms_after_a_read_flush=clean["library"]["median"],
-        variants={k: dict(ms=t[k]["median"], ms_spread=t[k]["spread"],
-                          device_ms=device_ms(lambda f=f: f(x1), "copy_inc"))
-                  for k, f in p1a_variants.items()},
         plain_ms=cuda_ms(lambda: probes.copy_inc_u32_plain(x1), reps=10,
                          **cold),
         device_ms=device_ms(lambda: probes.copy_inc_u32(x1), "copy_inc"),
@@ -1102,25 +873,23 @@ def check_probes(dev, rng, variants):
                   probes.p2a_distances(64, P2A_BIG_ROWS))]
     err = hold("P1b/P2a row_cmpex_u32", probes.row_cmpex_u32,
                probes.row_cmpex_u32_plain, row_cases)
-    row_variants = {k: v for k, v in variants.items() if k.startswith("P1b")}
-    for name, launch in row_variants.items():
-        hold(name, launch, probes.row_cmpex_u32_plain,
-             [(blk, p1b), *((blk, d) for d in p2a.values())])
+    hold("P1b/P2a earlier design", first_row_cmpex, probes.row_cmpex_u32_plain,
+         [(blk, p1b), *((blk, d) for d in p2a.values())])
     schedules = {"p1b": p1b, **{f"p2a_{s}": d for s, d in p2a.items()}}
     row = {}
     for sched, ds in schedules.items():
         fns = {"kernel": lambda ds=ds: probes.row_cmpex_u32(blk, ds),
-               **{k: (lambda f=f, ds=ds: f(blk, ds))
-                  for k, f in row_variants.items()}}
+               "earlier design": lambda ds=ds: first_row_cmpex(blk, ds)}
         t = turns_ms(fns)
-        prof = {k: device_profile(f, "row_cmpex") for k, f in fns.items()}
         row[sched] = dict(
             ms=t["kernel"]["median"], ms_spread=t["kernel"]["spread"],
-            device_ms=prof["kernel"][0], kernels_per_call=prof["kernel"][1],
-            variants={k: dict(ms=t[k]["median"], ms_spread=t[k]["spread"],
-                              device_ms=prof[k][0],
-                              kernels_per_call=prof[k][1])
-                      for k in row_variants})
+            device_ms=device_ms(fns["kernel"], "row_cmpex"),
+            kernels_per_call=kernels_per_call(fns["kernel"]),
+            variants={"earlier design": dict(
+                ms=t["earlier design"]["median"],
+                ms_spread=t["earlier design"]["spread"],
+                device_ms=device_ms(fns["earlier design"], "row_cmpex"),
+                kernels_per_call=kernels_per_call(fns["earlier design"]))})
     out["P1b"] = dict(
         max_abs_err=err, **{k: v for k, v in row["p1b"].items()
                             if k != "variants"},
@@ -1143,15 +912,10 @@ def check_probes(dev, rng, variants):
                 (u32_tensor(rng, (3 * 128, 128), dev),), (misaligned,),
                 (big,)])
     del big, misaligned
-    p1c_variants = {k: v for k, v in variants.items() if k.startswith("P1c")}
-    for name, launch in p1c_variants.items():
-        hold(name, launch, probes.transpose128_u32_plain,
-             [(blk,), (u32_tensor(rng, (3 * 128, 128), dev),)])
     library = (lambda: blk.view(rows // 128, 128, 128)
                .transpose(1, 2).contiguous())
     t = turns_ms({"library": library,
-                  "kernel": lambda: probes.transpose128_u32(blk),
-                  **{k: (lambda f=f: f(blk)) for k, f in p1c_variants.items()}})
+                  "kernel": lambda: probes.transpose128_u32(blk)})
     out["P1c"] = dict(
         max_abs_err=err, ms=t["kernel"]["median"],
         ms_spread=t["kernel"]["spread"], library_ms=t["library"]["median"],
@@ -1160,10 +924,6 @@ def check_probes(dev, rng, variants):
         device_ms=device_ms(lambda: probes.transpose128_u32(blk),
                             "transpose128"),
         bound_ms=bytes_ms(two_mib), bound_by="bytes",
-        variants={k: dict(ms=t[k]["median"], ms_spread=t[k]["spread"],
-                          device_ms=device_ms(lambda f=f: f(blk),
-                                              "transpose128"))
-                  for k, f in p1c_variants.items()},
         tiles_held=[1, 3, 32, P1C_BIG_TILES])
 
     err = hold("P2b lane_cmpex_u32", probes.lane_cmpex_u32,
@@ -1408,9 +1168,19 @@ def main() -> int:
     t0 = time.perf_counter()
     say(f"host engine: {native.engine()} "
         f"(build+load {time.perf_counter() - t0:.3f} s); the oracles: numpy")
-    variants = build_variants()
-    results = {"k1": check_k1(dev, rng, variants), "k2": check_k2(dev, rng),
-               "k3": check_k3(dev, rng), **check_probes(dev, rng, variants)}
+    from unikmer_tpu_torch import kernel_variants as kv
+    from unikmer_tpu_torch.ops.encode import encode_2bit
+    from unikmer_tpu_torch.ops.probes import row_cmpex_u32
+
+    t0 = time.perf_counter()
+    pr5 = kv.build([kv.EARLIER_K1, kv.EARLIER_ROW_CMPEX])
+    say(f"the earlier designs of K1 and row_cmpex_u32 built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    results = {
+        "k1": check_k1(dev, rng, kv.using(pr5[kv.EARLIER_K1], encode_2bit)),
+        "k2": check_k2(dev, rng), "k3": check_k3(dev, rng),
+        **check_probes(dev, rng,
+                       kv.using(pr5[kv.EARLIER_ROW_CMPEX], row_cmpex_u32))}
     from unikmer_tpu_torch import probes as entry
 
     launch_breakdown(entry.probe_inputs(dev)[1])

@@ -26,6 +26,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from unikmer_tpu_torch.ops import probes
+from unikmer_tpu_torch import kernel_variants
 from unikmer_tpu_torch import probes as probe_main
 
 REPO = Path(__file__).resolve().parent.parent
@@ -245,6 +246,7 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     before = [f.launches for f in (probes.copy_inc_u32, probes.row_cmpex_u32,
                                    probes.transpose128_u32,
                                    probes.lane_cmpex_u32)]
+    kernels = probes.row_cmpex_u32.kernels
     assert torch.equal(probes.copy_inc_u32(x), probes.copy_inc_u32_plain(x))
     assert torch.equal(probes.row_cmpex_u32(x, [64, 1]),
                        probes.row_cmpex_u32_plain(x, [64, 1]))
@@ -255,6 +257,7 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
                                   probes.transpose128_u32,
                                   probes.lane_cmpex_u32)]
     assert after == before
+    assert probes.row_cmpex_u32.kernels == kernels
 
 
 def test_wrappers_reject_bad_inputs():
@@ -436,11 +439,30 @@ def test_copy_inc_on_card(cuda_device, shape):
     (1000, 6, [512, 256, 128, 64, 32, 16, 8, 4, 2, 1]),  # a ragged tile
     (1 << 17, 4, [1 << b for b in range(16, -1, -1)]),  # tile, then registers
     (70001, 3, [1 << b for b in range(16, -1, -1)] + [5, 5, 70000]),
-    (65537, 2, [32768, 3, 1, 50000])])  # past the first design's 40,960 rows
+    (65537, 2, [32768, 3, 1, 50000]),  # past the first design's 40,960 rows
+    (1 << 16, 128, probes.p2a_distances(64, 1 << 16)),  # column-group tiles
+    (1 << 13, 528, probes.p2a_distances(16, 1 << 13)),
+    (1 << 13, 528, [1 << b for b in range(12, -1, -1)] + [5])])
 def test_row_cmpex_on_card(cuda_device, rows, cols, distances):
     x = to_port(u32_block(8, (rows, cols))).to(cuda_device)
     assert torch.equal(probes.row_cmpex_u32(x, distances),
                        probes.row_cmpex_u32_plain(x, distances))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,distances,kernels", [
+    (4096, 128, probes.p1b_distances(4096), 1),
+    (4096, 128, probes.p2a_distances(64, 4096), 1),
+    (65537, 2, [32768, 3, 1, 50000], 4),
+    (1 << 16, 128, probes.p2a_distances(64, 1 << 16), 6)])
+def test_row_cmpex_counts_its_kernels_on_card(cuda_device, rows, cols,
+                                              distances, kernels):
+    x = to_port(u32_block(8, (rows, cols))).to(cuda_device)
+    k0, l0 = probes.row_cmpex_u32.kernels, probes.row_cmpex_u32.launches
+    probes.row_cmpex_u32(x, distances)
+    assert probes.row_cmpex_u32.launches - l0 == 1
+    assert probes.row_cmpex_u32.kernels - k0 == kernels
+    assert len(row_cmpex_plan(rows, distances, cols % 4 == 0)) == kernels
 
 
 @pytest.mark.cuda
@@ -477,8 +499,9 @@ def test_lane_cmpex_on_card(cuda_device, rows):
 # row_cmpex_u32's host plan and its three routes (registers, tile, pass),
 # walked in numpy with the constants of csrc/probes.cu
 
-REG_BITS, TILE_BITS, MAX_STAGES = (
-    cu_const(n) for n in ("kRegBits", "kTileBits", "kMaxStages"))
+REG_BITS, TILE_BITS, VEC_TILE_BITS, MAX_STAGES = (
+    cu_const(n) for n in ("kRegBits", "kTileBits", "kVecTileBits",
+                          "kMaxStages"))
 
 
 def popcount(x):
@@ -509,11 +532,13 @@ def as_runs(qs):
     return runs
 
 
-def row_cmpex_plan(rows, distances):
+def row_cmpex_plan(rows, distances, column_groups=False):
     """ukt_row_cmpex_u32's launches for the wrapper's distances (those
     below R): ("pass", d, reps), ("regs", umask, runs) or ("tile", umask,
     [(pmask, runs)]), a run (q, repeats) of stages on the bit at position
-    q of the thread's register set."""
+    q of the thread's register set; a tile of column groups links at most
+    VEC_TILE_BITS bits."""
+    tile_max = VEC_TILE_BITS if column_groups else TILE_BITS
     ds = [d for d in distances if d < rows]
     plan, i = [], 0
     while i < len(ds):
@@ -526,7 +551,7 @@ def row_cmpex_plan(rows, distances):
             u = d
             while (j < len(ds) and j - i < MAX_STAGES
                    and not ds[j] & (ds[j] - 1)
-                   and popcount(u | ds[j]) <= TILE_BITS):
+                   and popcount(u | ds[j]) <= tile_max):
                 u |= ds[j]
                 j += 1
             tbit = [popcount(u & (ds[s] - 1)) for s in range(i, j)]
@@ -566,7 +591,10 @@ def cmpex_regs(v, runs):
                     v[u], v[w] = np.minimum(v[u], v[w]), np.maximum(v[u], v[w])
 
 
-def tile_slot(t):
+def tile_slot(t, v):
+    """Shared-memory slot of tile row t, a slot holding v u32."""
+    if v == 4:
+        return t ^ ((t >> 4) & 7)
     return t ^ (((t >> 5) & 31) ^ ((t >> 4) & 16))
 
 
@@ -574,13 +602,14 @@ class RowWalk:
     """The routes over an (R, C) u32 array: the first launch reads ``x``
     and writes ``out``, the others work on ``out``; records whether every
     row was written, each warp's global accesses and each tile phase's
-    banks."""
+    banks.  A tile holds ``tile_v`` columns (4: a column group)."""
 
-    def __init__(self, x, vec):
+    def __init__(self, x, vec, tile_v):
         self.x, self.out = x, np.zeros_like(x)
         self.written = np.zeros(x.shape, bool)
         self.first = True
         self.v = 4 if vec else 1
+        self.tile_v = tile_v
         self.rows, self.cols = x.shape
         self.nbits = (self.rows - 1).bit_length()
         self.sectors = []  # (sectors a warp access touches, the least it could)
@@ -621,44 +650,51 @@ class RowWalk:
         self.first = False
 
     def tile(self, umask, phases):
-        tbits = popcount(umask)
+        tbits, v = popcount(umask), self.tile_v
         nt = 1 << (tbits - REG_BITS)
-        blocks = (1 << (self.nbits - tbits)) * self.cols
+        groups = self.cols // v
+        blocks = (1 << (self.nbits - tbits)) * groups
         b = np.arange(blocks)[:, None]
-        col = np.broadcast_to(b % self.cols, (blocks, nt))
-        base = deposit(b // self.cols, ((1 << self.nbits) - 1) & ~umask)
+        col = (b % groups)[:, :, None] * v + np.arange(v)  # (blocks, 1, v)
+        base = deposit(b // groups, ((1 << self.nbits) - 1) & ~umask)
         tau = np.arange(nt)[None, :]
         tall = (1 << tbits) - 1
-        smem = np.zeros((blocks, 1 << tbits), self.x.dtype)
+        smem = np.zeros((blocks, 1 << tbits, v), self.x.dtype)
         src = self.src()
         for p, (pm, runs) in enumerate(phases):
             assert popcount(pm) == REG_BITS
             tb = deposit(tau, tall & ~pm)
             t = [tb | deposit(np.full_like(tb, u), pm) for u in range(16)]
-            rows = [np.broadcast_to(base | deposit(tt, umask), (blocks, nt)) for tt in t]
+            rows = [np.broadcast_to(base | deposit(tt, umask), (blocks, nt))[..., None]
+                    for tt in t]
             present = [r < self.rows for r in rows]
+            slots = [np.broadcast_to(tile_slot(tt, v), (blocks, nt)) for tt in t]
             if p == 0:
                 vals = [np.where(pr, src[np.minimum(r, self.rows - 1), col], ABSENT)
                         for r, pr in zip(rows, present)]
             else:
-                vals = [np.take_along_axis(smem, tile_slot(np.broadcast_to(tt, (blocks, nt))), 1)
-                        for tt in t]
-                for tt in t:  # the reads of phase p, then its writes
-                    self.note_banks(tile_slot(tt))
+                vals = [smem[b, slot] for slot in slots]
+                for slot in slots:  # the reads of phase p, then its writes
+                    self.note_banks(slot, v)
             cmpex_regs(vals, runs)
             if p + 1 == len(phases):
                 for r, pr, val in zip(rows, present, vals):
-                    self.store(r, col, val, pr)
+                    shape = val.shape
+                    self.store(np.broadcast_to(r, shape), np.broadcast_to(col, shape),
+                               val, np.broadcast_to(pr, shape))
             else:
-                for tt, val in zip(t, vals):
-                    np.put_along_axis(smem, tile_slot(np.broadcast_to(tt, (blocks, nt))), val, 1)
-                    self.note_banks(tile_slot(tt))
+                for slot, val in zip(slots, vals):
+                    smem[b, slot] = val
+                    self.note_banks(slot, v)
         self.first = False
 
-    def note_banks(self, slots):
-        for w in range(0, slots.shape[1], 32):
-            banks = slots[0, w:w + 32] % 32
-            self.bank_hits.append(np.bincount(banks).max())
+    def note_banks(self, slots, v):
+        """Most threads on one bank in each shared access of block 0's
+        threads: 32 // v threads at a time, v words each."""
+        per = 32 // v
+        for w in range(0, slots.shape[1], per):
+            words = (slots[0, w:w + per, None] * v + np.arange(v)).reshape(-1)
+            self.bank_hits.append(np.bincount(words % 32).max())
 
     def pass_(self, d, reps):
         v, groups = self.v, self.cols // self.v
@@ -682,10 +718,15 @@ class RowWalk:
         self.first = False
 
 
-def row_cmpex_walk(x, distances):
-    """The kernels' result for the wrapper's call, and the walk."""
-    walk = RowWalk(x, vec=x.shape[1] % 4 == 0)
-    for launch in row_cmpex_plan(x.shape[0], distances):
+def row_cmpex_walk(x, distances, column_groups=None):
+    """The kernels' result for the wrapper's call, and the walk; tiles of
+    column groups where ``column_groups`` (default: where C % 4 == 0, as
+    the kernels take a 16-byte aligned array)."""
+    rows, cols = x.shape
+    if column_groups is None:
+        column_groups = cols % 4 == 0
+    walk = RowWalk(x, vec=cols % 4 == 0, tile_v=4 if column_groups else 1)
+    for launch in row_cmpex_plan(rows, distances, column_groups):
         {"pass": walk.pass_, "regs": walk.regs, "tile": walk.tile}[launch[0]](
             *launch[1:])
     if walk.first:  # no stage pairs rows: the wrapper's clone
@@ -698,12 +739,12 @@ P2A_4096 = {s: probes.p2a_distances(s, 4096) for s in (4, 16, 64)}
 
 
 def test_row_cmpex_plan_of_the_probes():
-    assert row_cmpex_plan(4096, probes.p1b_distances(4096)) == [
+    assert row_cmpex_plan(4096, probes.p1b_distances(4096), True) == [
         ("regs", 2048, [(0, 64)])]
-    assert row_cmpex_plan(4096, P2A_4096[4]) == [
+    assert row_cmpex_plan(4096, P2A_4096[4], True) == [
         ("regs", 0xF00, [(3, 1), (2, 1), (1, 1), (0, 1)])]
     for s, nphases in ((16, 4), (64, 16)):
-        (route, umask, phases), = row_cmpex_plan(4096, P2A_4096[s])
+        (route, umask, phases), = row_cmpex_plan(4096, P2A_4096[s], True)
         assert (route, umask, len(phases)) == ("tile", 0xFFF, nphases)
         assert [pm for pm, _ in phases[:4]] == [0xF00, 0xF0, 0xF, 0xF00]
         assert phases[0][1] == [(3, 1), (2, 1), (1, 1), (0, 1)]
@@ -751,8 +792,55 @@ def test_row_cmpex_walk_matches_the_pallas_probes():
 
 
 def test_row_cmpex_walk_catches_an_unswizzled_tile(monkeypatch):
-    monkeypatch.setattr(sys.modules[__name__], "tile_slot", lambda t: t)
+    monkeypatch.setattr(sys.modules[__name__], "tile_slot", lambda t, v: t)
     x = u32_block(22, (4096, 2))
     got, walk = row_cmpex_walk(x, P2A_4096[16])
     np.testing.assert_array_equal(got, numpy_row_cmpex(x, P2A_4096[16]))
     assert max(walk.bank_hits) > 1  # still right, but threads share banks
+    x = u32_block(22, (4096, 4))
+    got, walk = row_cmpex_walk(x, P2A_4096[16], column_groups=True)
+    np.testing.assert_array_equal(got, numpy_row_cmpex(x, P2A_4096[16]))
+    assert max(walk.bank_hits) > 1
+
+
+@pytest.mark.parametrize("column_groups", [True, False],
+                         ids=["column_groups", "one_column"])
+@pytest.mark.parametrize("rows,cols,distances", [
+    (4096, 4, probes.p1b_distances(4096)),
+    (4096, 8, P2A_4096[16]), (4096, 4, P2A_4096[64]),
+    (1000, 8, [512, 256, 128, 64, 32, 16, 8, 4, 2, 1]),  # a ragged tile
+    (1 << 15, 4, [1 << b for b in range(14, -1, -1)] * 2),  # 12-bit tiles
+    (70001, 4, [1 << b for b in range(16, -1, -1)] + [5, 5, 70000]),
+], ids=lambda v: str(v) if isinstance(v, int) else f"{len(v)}stages")
+def test_row_cmpex_walk_of_both_tile_widths(rows, cols, distances,
+                                            column_groups):
+    x = u32_block(rows + cols + 1, (rows, cols))
+    got, walk = row_cmpex_walk(x, distances, column_groups)
+    np.testing.assert_array_equal(got, numpy_row_cmpex(x, distances))
+    if rows == 4096:  # a warp's (a quarter-warp's) tile accesses on 32 banks
+        assert all(h == 1 for h in walk.bank_hits)
+    most = VEC_TILE_BITS if column_groups else TILE_BITS
+    for launch in row_cmpex_plan(rows, distances, column_groups):
+        if launch[0] == "tile":
+            assert popcount(launch[1]) <= most
+
+
+@pytest.mark.parametrize("name", list(kernel_variants.VARIANTS))
+def test_kernel_variants_apply_to_the_sources(name):
+    """Each variant's substitutions find their text in csrc/ as it is,
+    and an earlier design's source exists."""
+    _, source, subs, earlier, _ = kernel_variants.VARIANTS[name]
+    csrc = REPO / "unikmer_tpu_torch" / "csrc"
+    text = (csrc / source).read_text()
+    for old, _new in subs:
+        assert text.count(old) == 1
+    assert earlier is None or (csrc / earlier).is_file()
+
+
+def test_row_cmpex_plan_of_column_group_tiles():
+    plan = row_cmpex_plan(1 << 16, probes.p2a_distances(64, 1 << 16), True)
+    assert [r for r, *_ in plan] == ["tile"] * 5 + ["regs"]
+    assert [u for _, u, _ in plan] == [0xFFF0, 0xFF0F, 0xF0FF, 0x0FFF,
+                                       0xFFF0, 0x000F]
+    stages = sum(n for _, _, ph in plan[:-1] for _, runs in ph for _, n in runs)
+    assert stages + sum(n for _, n in plan[-1][2]) == 64

@@ -125,7 +125,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ukt_copy_inc_u32.restype = i32
     lib.ukt_copy_inc_u32.argtypes = [p, p, i64, p]
     lib.ukt_row_cmpex_u32.restype = i32
-    lib.ukt_row_cmpex_u32.argtypes = [p, p, i64, i64, p, i64, p]
+    lib.ukt_row_cmpex_u32.argtypes = [p, p, i64, i64, p, i64, p, p]
     lib.ukt_transpose128_u32.restype = i32
     lib.ukt_transpose128_u32.argtypes = [p, p, i64, p]
     lib.ukt_lane_cmpex_u32.restype = i32

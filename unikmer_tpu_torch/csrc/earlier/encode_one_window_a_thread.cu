@@ -1,6 +1,6 @@
 // K1 in its earlier design, one window a thread, kept as a variant for
-// timing beside csrc/encode.cu (chip_smoke.py builds it alone into its own
-// library).  Otherwise as it stood:
+// timing beside csrc/encode.cu (kernel_variants.py links it in place of
+// encode.cu's entry point).  Otherwise as it stood:
 //
 // K1: fused 2-bit window encode of the count pipeline, for sm_90a.
 // Replaces the TPU kernel unikmer_tpu/ops/pallas_encode.py:79 `_encode_kernel`
@@ -94,10 +94,6 @@ encode_2bit_kernel(const uint8_t* __restrict__ packed2, int64_t packed_bytes,
 }  // namespace
 
 extern "C" {
-
-const char* ukt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // Launch K1 over n windows on `stream`.  Returns cudaGetLastError().
 int ukt_encode_2bit(const void* packed2, int64_t packed_bytes,

@@ -1,7 +1,7 @@
 // The row compare-exchange kernel of csrc/probes.cu in its earlier design,
-// kept as a variant for timing beside the current one (chip_smoke.py builds
-// it alone into its own library): one column a block, held in shared
-// memory, a barrier after every stage, at most kMaxRows rows.
+// kept as a variant for timing beside the current one (kernel_variants.py
+// links it in place of probes.cu's entry point): one column a block, held
+// in shared memory, a barrier after every stage, at most kMaxRows rows.
 
 #include <cuda_runtime.h>
 
@@ -81,9 +81,12 @@ extern "C" {
 
 // The row compare-exchange stages dists[0..nd) (host memory, each in
 // [1, rows]) on a (rows, cols) u32 array, rows <= kMaxRows; in == out is
-// allowed.  Returns the first launch's error, else cudaGetLastError().
+// allowed.  Sets *kernels to the number of kernels launched.  Returns the
+// first launch's error, else cudaGetLastError().
 int ukt_row_cmpex_u32(const void* in, void* out, int64_t rows, int64_t cols,
-                      const int64_t* dists, int64_t nd, void* stream) {
+                      const int64_t* dists, int64_t nd, int64_t* kernels,
+                      void* stream) {
+  *kernels = 0;
   if (rows > kMaxRows || cols > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -102,6 +105,7 @@ int ukt_row_cmpex_u32(const void* in, void* out, int64_t rows, int64_t cols,
         src, static_cast<uint32_t*>(out), static_cast<int>(rows), cols, ds, n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++*kernels;
     src = static_cast<const uint32_t*>(out);
   }
   return static_cast<int>(cudaSuccess);

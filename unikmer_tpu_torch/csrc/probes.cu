@@ -39,14 +39,17 @@
 //                     access moves whole rows a warp.  P1b's 64 stages at
 //                     d = 2048 are one launch: two uint4 in, 64
 //                     compare-exchanges, two uint4 out.
-//                   - tile: a longer power-of-two run, of at most kTileBits
-//                     distinct bits (P2a's cycle d = 2048 .. 1).  A block
-//                     holds the 2^bits rows that they link, one column, in
-//                     shared memory; each thread holds kRegBits of those
-//                     bits in registers at a time (a phase), so a barrier
-//                     comes only where the register mapping changes.  The
-//                     tile's slots are swizzled so that the phases of a
-//                     bitonic cycle read and write 32 banks a warp.
+//                   - tile: a longer power-of-two run (P2a's cycle d =
+//                     2048 .. 1).  A block holds the 2^bits rows that the
+//                     run's bits link in shared memory (64 KB): a column
+//                     group of 16 bytes a row, at most kVecTileBits bits,
+//                     where C % 4 == 0, else one column, at most kTileBits
+//                     bits.  Each thread holds kRegBits of the bits in
+//                     registers at a time (a phase), so a barrier comes
+//                     only where the register mapping changes.  The tile's
+//                     slots are swizzled so that the phases of a bitonic
+//                     cycle hit every bank once a warp (a quarter-warp for
+//                     16-byte slots).
 //                   - pass: any other stage (d not a power of two), one pass
 //                     over device memory, 16 bytes a thread where C % 4 ==
 //                     0; consecutive stages at one distance fuse into it.
@@ -56,9 +59,17 @@
 //                   with one dispatch; a descending sweep over a thread's
 //                   bits (a bitonic merge's) is unrolled.  Rows past R
 //                   hold 0xffffffff, so no compare-exchange needs a branch.
-//                   The tile's column-wise global loads and stores (4 bytes
-//                   a row) cost most of its time; they are what a block
-//                   that links all of R's rows must pay.  (The TPU kept
+//                   A tile's global loads and stores move one piece of each
+//                   row (4 or 16 bytes, a 32-byte sector either way): a
+//                   block that links all of R's rows reads each row
+//                   alone.  A column group moves 4x the bytes a sector
+//                   but leaves a quarter of the blocks, each with 4x the
+//                   compare-exchanges: on the H100 it is level with one
+//                   column a block at the probes' 4,096 rows and several
+//                   times faster at 2^16 rows.  The phase-0 load stays a
+//                   select: as an if/else it compiles to more branches
+//                   and runs slower (kernel_variants.py times both
+//                   choices; PERF.md holds the numbers).  (The TPU kept
 //                   the whole block in VMEM; here no block can hold it.)
 // transpose128_u32  replaces probe3 (exp_pallas_dma.py:130, call :138): each
 //                   (128, 128) tile is transposed.  A block takes one
@@ -155,10 +166,19 @@ copy_inc_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 // ---- row_cmpex_u32 ----
 
 constexpr int kRegBits = 4;      // a thread holds up to 2^kRegBits rows
-constexpr int kTileBits = 14;    // a tile holds up to 2^kTileBits rows (64 KB)
+constexpr int kTileBits = 14;    // a one-column tile holds up to 2^14 rows
+constexpr int kVecTileBits = 12;  // a column-group tile holds up to 2^12 rows
+constexpr int kTileBytes = 4 << kTileBits;  // 64 KB either way
 constexpr int kMaxStages = 256;  // stages a launch
 constexpr int kRowThreads = 256;  // threads a block of the register and pass routes
 static_assert(kRegBits == 4, "the cases of stages_at");
+static_assert(16 << kVecTileBits == kTileBytes, "both tiles take 64 KB");
+
+// Tile bits of a tile whose rows hold one T.
+template <typename T>
+constexpr int tile_bits_of() {
+  return sizeof(T) == 16 ? kVecTileBits : kTileBits;
+}
 
 // x with a zero bit inserted at bit b (the bits from b up move up one).
 __device__ __forceinline__ uint64_t insert_zero(uint64_t x, int b) {
@@ -184,6 +204,12 @@ __device__ __forceinline__ void cmpex(uint4& a, uint4& b) {
 // never stored.
 __device__ __forceinline__ void absent(uint32_t& x) { x = ~0u; }
 __device__ __forceinline__ void absent(uint4& x) { x = make_uint4(~0u, ~0u, ~0u, ~0u); }
+template <typename T>
+__device__ __forceinline__ T absent_row() {
+  T x;
+  absent(x);
+  return x;
+}
 
 // One stage on a thread's rows v[u], u < 2^PB: u and u | 2^Q (bit Q of u
 // clear) are the pair.
@@ -314,31 +340,61 @@ struct TileRun {  // a run of stages on the rows of tbits row bits
   Runs runs;
 };
 
-// Shared-memory slot of tile row t.  Within each 32 rows the slot is
-// t's low five bits xor bits 5-9 and xor bit 8 into bit 4, so every phase
-// of a bitonic cycle (bits 0-3, 4-7, 8-11) puts a warp on 32 banks.
+// Shared-memory slot of tile row t, so that every phase of a bitonic cycle
+// (bits 0-3, 4-7, 8-11) hits each bank once.  u32 slots: within each 32
+// rows the slot is t's low five bits xor bits 5-9 and xor bit 8 into bit
+// 4 (a warp on 32 banks).  uint4 slots: t's low three bits xor bits 4-6
+// (each quarter-warp, which one 16-byte access serves at a time, on the
+// 8 groups of four banks).
+template <typename T>
 __device__ __forceinline__ uint32_t tile_slot(uint32_t t) {
-  return t ^ (((t >> 5) & 31) ^ ((t >> 4) & 16));
+  if constexpr (sizeof(T) == 16) {
+    return t ^ ((t >> 4) & 7);
+  } else {
+    return t ^ (((t >> 5) & 31) ^ ((t >> 4) & 16));
+  }
 }
 
-// The tile route.  Block b holds column b % cols of the rows whose other
-// bits are b / cols (zeros inserted at ubit); in phase p thread tau holds
-// the 2^4 tile rows whose bits ppos[p] run over u and whose other tile
-// bits are tau (zeros inserted at ppos[p]).
-__global__ void __launch_bounds__(1 << (kTileBits - kRegBits))
+// The dynamic shared memory of a tile, declared with its element type.
+template <typename T>
+struct TileMemory;
+template <>
+struct TileMemory<uint32_t> {
+  __device__ static uint32_t* get() {
+    extern __shared__ uint32_t tile_u32[];
+    return tile_u32;
+  }
+};
+template <>
+struct TileMemory<uint4> {
+  __device__ static uint4* get() {
+    extern __shared__ uint4 tile_u4[];
+    return tile_u4;
+  }
+};
+
+// The tile route.  Block b holds column group b % groups (one T of each
+// row) of the rows whose other bits are b / groups (zeros inserted at
+// ubit); in phase p thread tau holds the 2^4 tile rows whose bits ppos[p]
+// run over u and whose other tile bits are tau (zeros inserted at
+// ppos[p]).
+template <typename T>
+__global__ void __launch_bounds__(1 << (tile_bits_of<T>() - kRegBits))
 row_cmpex_tile_kernel(const uint32_t* in, uint32_t* out, int64_t rows,
                       int64_t cols, TileRun run) {
   constexpr int PB = kRegBits;
-  extern __shared__ uint32_t tile[];
-  const int64_t col = blockIdx.x % cols;
-  uint64_t base = static_cast<uint64_t>(blockIdx.x / cols);
+  constexpr int kV = sizeof(T) / 4;
+  T* tile = TileMemory<T>::get();
+  const int64_t groups = cols / kV;
+  const int64_t col = (blockIdx.x % groups) * kV;
+  uint64_t base = static_cast<uint64_t>(blockIdx.x / groups);
   uint64_t umask = 0;
   for (int i = 0; i < run.tbits; ++i) {
     base = insert_zero(base, run.ubit[i]);
     umask |= 1ull << run.ubit[i];
   }
   const bool ragged = (base | umask) >= static_cast<uint64_t>(rows);
-  uint32_t v[1 << PB];
+  T v[1 << PB];
   for (int p = 0; p < run.nphases; ++p) {
     uint32_t tb = threadIdx.x;
     uint32_t tbit[PB];
@@ -368,21 +424,25 @@ row_cmpex_tile_kernel(const uint32_t* in, uint32_t* out, int64_t rows,
     for (int u = 0; u < (1 << PB); ++u) {
       if (p == 0) {
         v[u] = ((present >> u) & 1)
-                   ? in[row_of<PB>(gbase, gbit, u) * cols + col] : ~0u;
+                   ? *reinterpret_cast<const T*>(
+                         in + row_of<PB>(gbase, gbit, u) * cols + col)
+                   : absent_row<T>();
       } else {
-        v[u] = tile[tile_slot(row_of<PB>(tb, tbit, u))];
+        v[u] = tile[tile_slot<T>(row_of<PB>(tb, tbit, u))];
       }
     }
     apply_runs<PB>(v, run.runs, run.first[p], run.first[p + 1], run.sweep[p]);
     if (p + 1 == run.nphases) {
 #pragma unroll
       for (int u = 0; u < (1 << PB); ++u) {
-        if ((present >> u) & 1) out[row_of<PB>(gbase, gbit, u) * cols + col] = v[u];
+        if ((present >> u) & 1) {
+          *reinterpret_cast<T*>(out + row_of<PB>(gbase, gbit, u) * cols + col) = v[u];
+        }
       }
     } else {
 #pragma unroll
       for (int u = 0; u < (1 << PB); ++u) {
-        tile[tile_slot(row_of<PB>(tb, tbit, u))] = v[u];
+        tile[tile_slot<T>(row_of<PB>(tb, tbit, u))] = v[u];
       }
       __syncthreads();
     }
@@ -486,6 +546,24 @@ int bit_positions(uint64_t mask, uint8_t* bits) {
   int n = 0;
   for (; mask; mask &= mask - 1) bits[n++] = static_cast<uint8_t>(__builtin_ctzll(mask));
   return n;
+}
+
+template <typename T>
+cudaError_t launch_tile(const uint32_t* in, uint32_t* out, int64_t rows,
+                        int64_t cols, int nbits, const TileRun& run,
+                        cudaStream_t stream) {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      row_cmpex_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTileBytes);
+  if (opt_in != cudaSuccess) return opt_in;
+  const int64_t blocks = (int64_t{1} << (nbits - run.tbits)) *
+                         (cols / static_cast<int64_t>(sizeof(T) / 4));
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  row_cmpex_tile_kernel<T><<<static_cast<unsigned>(blocks),
+                             1u << (run.tbits - kRegBits),
+                             static_cast<unsigned>(sizeof(T)) << run.tbits,
+                             stream>>>(in, out, rows, cols, run);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -614,23 +692,24 @@ int ukt_copy_inc_u32(const void* in, void* out, int64_t n, void* stream) {
 // [1, rows)) on a (rows, cols) u32 array, any rows; in == out is allowed.
 // Splits the stages into launches of the three routes (see the top of this
 // file); the first launch reads `in`, the others work on `out` in place.
-// Returns the first launch's error, else cudaSuccess.
+// Sets *kernels to the number of kernels launched.  Returns the first
+// launch's error, else cudaSuccess.
 int ukt_row_cmpex_u32(const void* in, void* out, int64_t rows, int64_t cols,
-                      const int64_t* dists, int64_t nd, void* stream) {
+                      const int64_t* dists, int64_t nd, int64_t* kernels,
+                      void* stream) {
+  *kernels = 0;
   if (rows < 2 || cols < 1 || nd < 1) return static_cast<int>(cudaErrorInvalidValue);
   for (int64_t i = 0; i < nd; ++i) {
     if (dists[i] < 1 || dists[i] >= rows) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      row_cmpex_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      4 << kTileBits);
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = cols % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int nbits = 64 - __builtin_clzll(static_cast<uint64_t>(rows - 1));
+  const bool vec_tile = vec;  // a tile of column groups
+  const int tile_max = vec_tile ? kVecTileBits : kTileBits;
   const uint32_t* src = static_cast<const uint32_t*>(in);
   uint32_t* dst = static_cast<uint32_t*>(out);
   for (int64_t i = 0; i < nd;) {
@@ -644,7 +723,7 @@ int ukt_row_cmpex_u32(const void* in, void* out, int64_t rows, int64_t cols,
     } else {
       uint64_t umask = static_cast<uint64_t>(d);
       for (; j < nd && j - i < kMaxStages && !(dists[j] & (dists[j] - 1)) &&
-             popcount64(umask | static_cast<uint64_t>(dists[j])) <= kTileBits;
+             popcount64(umask | static_cast<uint64_t>(dists[j])) <= tile_max;
            ++j) {
         umask |= static_cast<uint64_t>(dists[j]);
       }
@@ -693,15 +772,12 @@ int ukt_row_cmpex_u32(const void* in, void* out, int64_t rows, int64_t cols,
           cur |= b;
         }
         close(j);
-        const int64_t blocks = (int64_t{1} << (nbits - tbits)) * cols;
-        if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-        row_cmpex_tile_kernel<<<static_cast<unsigned>(blocks),
-                                1u << (tbits - kRegBits), 4u << tbits, st>>>(
-            src, dst, rows, cols, run);
-        err = cudaGetLastError();
+        err = vec_tile ? launch_tile<uint4>(src, dst, rows, cols, nbits, run, st)
+                       : launch_tile<uint32_t>(src, dst, rows, cols, nbits, run, st);
       }
     }
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++*kernels;
     src = dst;
     i = j;
   }

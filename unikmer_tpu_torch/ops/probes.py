@@ -132,7 +132,8 @@ def row_cmpex_u32(x: torch.Tensor, distances) -> torch.Tensor:
     """P1b/P2a: the row compare-exchange stages of ``distances`` on a
     (R, C) tensor, any R; a new tensor.  On the card one call may launch
     several kernels (csrc/probes.cu splits the stages into routes); it
-    counts once in ``.launches``."""
+    counts once in ``.launches``, and ``.kernels`` adds the kernels it
+    launched."""
     _check("row_cmpex_u32", x, 2)
     ds = _check_distances(distances)
     if x.is_cpu:
@@ -144,13 +145,16 @@ def row_cmpex_u32(x: torch.Tensor, distances) -> torch.Tensor:
     if not ds or x.numel() == 0:
         return x.clone()
     out = torch.empty_like(x)
+    kernels = array.array("q", [0])
     _ROW_CMPEX(x.device, x.data_ptr(), out.data_ptr(), rows, cols,
-               ds.buffer_info()[0], len(ds))
+               ds.buffer_info()[0], len(ds), kernels.buffer_info()[0])
     row_cmpex_u32.launches += 1
+    row_cmpex_u32.kernels += kernels[0]
     return out
 
 
 row_cmpex_u32.launches = 0
+row_cmpex_u32.kernels = 0
 
 
 # ---------------------------------------------------------------------
