@@ -2,45 +2,54 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels (K1 encode, K2 radix sort, K3 key+value
-radix sort, and the four P1/P2 probe kernels) from unikmer_tpu_torch/csrc,
-holds each against its plain PyTorch version on the card (exact
-equality), then drives the port's paths and holds their results against
-oracles:
+Builds the hand-written kernels (K1 encode, H1 ntHash encode, K2 radix
+sort, K3 key+value radix sort, and the four P1/P2 probe kernels) from
+unikmer_tpu_torch/csrc, holds each against its plain PyTorch version on
+the card (exact equality), then drives the port's paths and holds their
+results against oracles:
 
-  count     ``count -k 23 -K -s -C`` over a 134 Mbp FASTA of 4 records
-            (and -u, -d, k = 32 over one 50 Mbp record);
+  count     ``count -k 23 -K -s -C`` over a 134 Mbp FASTA of 4 records,
+            and over the same FASTA bench.py's two ntHash configurations,
+            ``count -k 31 -K -H -s -C`` and ``count -k 31 -K -D 15 -s -C``
+            (and -u, -d, k = 32 and k = 64 -H -u over one 50 Mbp record);
   count -T  over a synthetic 100,000-node taxonomy written as nodes.dmp:
             T1, 8,192 records of 4,000 bases, each with its own taxid,
-            one piece of ~2^25 windows on the 'paths' LCA tier; T2,
-            1,024 records of 98,304 bases with 512 taxids, streamed in
-            pieces on the 'table' tier; T3, k = 32 -u over two 1 Mbp
-            records, keeping a real 2^64-1 code with its taxid;
+            one piece of ~2^25 windows on the 'paths' LCA tier, 2-bit
+            and hashed (T1H, k = 31 -H); T2, 1,024 records of 98,304
+            bases with 512 taxids, streamed in pieces on the 'table'
+            tier; T3, k = 32 -u over two 1 Mbp records, keeping a real
+            2^64-1 code with its taxid;
+  count -l  ``count -k 27 -K -l -H -C`` over two 1 Mbp records;
   probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
             of scripts/exp_pallas_dma*.py, each kernel held to its plain
             version inside the entry point.
 
 The launch counters, zeroed before each path's run and read after it,
-show that the run went through the kernels of its path.  P1a and P1c
-are timed in turns with their library calls (library, kernel, kernel,
-library; TURNS rounds); K1 and P1b/P2a in turns with their earlier designs
-(csrc/earlier/, built by unikmer_tpu_torch/kernel_variants.py, which
-times the other design variants on its own).  The host cost of the launch path is read
-as host microseconds per wrapper call over HOST_CALLS un-synchronised
-calls: for P1c's call step by step as the path stood before the launch
-helper of _kernels.py (``launch_breakdown``), and for every wrapper
-(``host_us`` in the kernels line).
+show that the run went through the kernels of its path (and that a
+hashed run launched H1 and no K1).  P1a and P1c are timed in turns with
+their library calls (library, kernel, kernel, library; TURNS rounds); K1
+and P1b/P2a in turns with their earlier designs (csrc/earlier/, built by
+unikmer_tpu_torch/kernel_variants.py, which times the other design
+variants on its own), H1 with K1 at the same k.  The host cost of the
+launch path is read as host microseconds per wrapper call over
+HOST_CALLS un-synchronised calls: for P1c's call step by step as the
+path stood before the launch helper of _kernels.py
+(``launch_breakdown``), and for every wrapper (``host_us`` in the
+kernels line).
 
 The count oracle is this script's own numpy count (every window's 2-bit
-code, the canonical form written out below, np.unique) over the bases
-packed by the port's host layer; for -T the record ids come from a
-searchsorted over the record starts and the taxids merge through the
-port's Taxonomy.lca_reduce.  Its result goes through the port's
-UnikWriter with the same flags.  The oracle runs those host layers on
-their numpy branches (UNIKMER_TPU_NO_NATIVE=1), so the CLI's native
-host library is held to them here; the CPU tests hold the numpy
-branches to the JAX package.  Nothing of the port's device code enters
-the oracle.  The script imports nothing of unikmer_tpu or jax.
+code, the canonical form written out below, a sort and its distinct
+values, ``unique_counts``; for hashed runs every window's ntHash v1
+from its definition, ``nthash_oracle``, and the
+scaled threshold of ``scaled_max_hash_oracle``) over the bases packed by
+the port's host layer; for -T the record ids come from a searchsorted
+over the record starts and the taxids merge through the port's
+Taxonomy.lca_reduce.  Its result goes through the port's UnikWriter
+with the same flags.  The oracle runs those host layers on their numpy
+branches (UNIKMER_TPU_NO_NATIVE=1), so the CLI's native host library is
+held to them here; the CPU tests hold the numpy branches to the JAX
+package.  Nothing of the port's device code enters the oracle.  The
+script imports nothing of unikmer_tpu or jax.
 
 Exits non-zero, printing no result, without a CUDA device or outside
 the repository.  The last line of stdout is
@@ -65,6 +74,11 @@ import torch
 SEED = 20261016
 K1_KS = (1, 5, 23, 31, 32)
 K1_NS = (0, 1, 7, 4099, (1 << 25) + 3)
+H1_KS = (1, 2, 31, 32, 33, 63, 64)
+# ntHash v1 seeds (will-rowe/nthash) by base A, C, G, T, then any other byte
+NT_SEEDS = np.array([0x3C8BFBB395C60474, 0x3193C18562A02B4C,
+                     0x20323ED082572324, 0x295549F54BE24456, 0], np.uint64)
+NT_SEEDS_RC = NT_SEEDS[[3, 2, 1, 0, 4]]  # of the complement base
 K2_NS = (0, 1, 1000, (1 << 20) + 3, 1 << 25)
 K3_NS = K2_NS
 K3_BITS = (2, 46, 64)
@@ -77,6 +91,7 @@ T1_RECORDS, T1_BASES = 8192, 4000  # one taxid each: the paths tier
 T2_TAXIDS, T2_BASES = 512, 98304  # two records each: the table tier
 T3_BASES = 1 << 20
 RECORD_BASES = 1 << 25
+LINEAR_BASES = 1 << 20  # the -l -H run's two records
 LINE = 60
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 FLUSH_BYTES = 256 << 20  # written between P1a's repetitions: > the 50 MB L2
@@ -226,6 +241,76 @@ def check_k1(dev, rng, first):
                 ms_spread=t["kernel"]["spread"], device_ms=dms["kernel"],
                 plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=None, lengths_held=list(ns),
+                variants={name: dict(ms=t[name]["median"],
+                                     ms_spread=t[name]["spread"],
+                                     device_ms=dms[name])
+                          for name in fns if name != "kernel"})
+
+
+def h1_lengths() -> tuple:
+    """H1's lengths: K1_NS and, at a thread's windows (kW) and at one and
+    two blocks' (kThreads * kW), each minus and plus one."""
+    w = cu_const("nthash.cu", "kW")
+    block = w * cu_const("nthash.cu", "kThreads")
+    return tuple(sorted({*K1_NS, w - 1, w, w + 1, block - 1, block + 1,
+                         2 * block - 1, 2 * block + 1}))
+
+
+def check_h1(dev, rng):
+    """H1 held exactly to its plain version at every k of H1_KS, canonical
+    and not, scale 1 and 15, at every length of h1_lengths; then timed at
+    n = 2^25+3, k = 31, canonical, in turns with K1 at the same k."""
+    from unikmer_tpu_torch.models.count import pack_bases_2bit
+    from unikmer_tpu_torch.ops.encode import encode_2bit
+    from unikmer_tpu_torch.ops.nthash import (
+        encode_nthash, encode_nthash_plain, scaled_max_hash,
+    )
+
+    ns = h1_lengths()
+    big = random_bases(rng, max(ns))
+    big[1000:1100] = 255  # an N run
+    err, cases, kept = 0.0, 0, 0
+    for n in ns:
+        p2, vm = (torch.from_numpy(a).to(dev) for a in pack_bases_2bit(big[:n]))
+        for k in H1_KS:
+            for canonical in (False, True):
+                for scale in (1, 15):
+                    mh = scaled_max_hash(scale)
+                    pk, pv = encode_nthash_plain(p2, vm, n, k, canonical, mh)
+                    kk, kv = encode_nthash(p2, vm, n, k, canonical, mh)
+                    torch.cuda.synchronize()
+                    e = abs_err(kk, pk)
+                    err = max(err, e)
+                    cases += 1
+                    kept += int(pv.sum())
+                    if e or not torch.equal(kv, pv):
+                        raise SystemExit(f"H1 mismatch: n={n} k={k} canonical="
+                                         f"{canonical} scale={scale} err={e}")
+    n = (1 << 25) + 3
+    p2, vm = (torch.from_numpy(a).to(dev) for a in pack_bases_2bit(big[:n]))
+    fns = {"kernel": lambda: encode_nthash(p2, vm, n, 31, True),
+           "kernel, scale 15": lambda: encode_nthash(p2, vm, n, 31, True,
+                                                     scaled_max_hash(15)),
+           "K1 encode_2bit at k=31": lambda: encode_2bit(p2, vm, n, 31, True)}
+    t = turns_ms(fns)
+    plain_ms = cuda_ms(lambda: encode_nthash_plain(p2, vm, n, 31, True))
+    # packed bases and mask read once, the u64 keys and u8 flags written
+    bound = bytes_ms(p2.numel() + vm.numel() + 9 * n)
+    dms = {name: device_ms(fn, "encode_2bit" if name.startswith("K1")
+                           else "encode_nthash")
+           for name, fn in fns.items()}
+    share = f"{bound / dms['kernel']:.1%}" if dms["kernel"] else "not measured"
+    say(f"H1 encode_nthash: exact on {cases} cases ({kept} kept windows; "
+        f"k in {H1_KS}, canonical and not, scale 1 and 15, n in {ns}); "
+        f"n={n} k=31 canonical, in turns: " + "; ".join(
+            f"{name} {t[name]['median']} ms (spread {t[name]['spread']}, "
+            f"device {dms[name]})" for name in fns)
+        + f"; plain {plain_ms} ms, bound {bound} ms ({share} of the kernel's "
+        f"device ms)")
+    return dict(max_abs_err=err, ms=t["kernel"]["median"],
+                ms_spread=t["kernel"]["spread"], device_ms=dms["kernel"],
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None, lengths_held=list(ns), ks_held=list(H1_KS),
                 variants={name: dict(ms=t[name]["median"],
                                      ms_spread=t[name]["spread"],
                                      device_ms=dms[name])
@@ -477,10 +562,93 @@ def numpy_windows(bases: np.ndarray, k: int, canonical: bool):
     return codes, pos
 
 
-def numpy_count(bases: np.ndarray, k: int, canonical: bool, mode: str):
-    """Straight numpy count of 2-bit k-mers (independent of the port)."""
-    codes, _ = numpy_windows(bases, k, canonical)
-    u, counts = np.unique(codes, return_counts=True)
+def rol_np(x, s: int):
+    """Rotate u64 values left by s (mod 64)."""
+    s %= 64
+    return x if s == 0 else (x << np.uint64(s)) | (x >> np.uint64(64 - s))
+
+
+def nthash_block_tables(w: int):
+    """(TF, TR) over all 4^w codes c of w bases (first base in the top
+    2-bit group): ntHash v1's definition for one block of w bases,
+    TF[c] = XOR_{t<w} rol(seed[s_t], w-1-t), TR[c] = XOR_{t<w}
+    rol(seed[comp s_t], t)."""
+    c = np.arange(4 ** w, dtype=np.int64)
+    tf = np.zeros(len(c), np.uint64)
+    tr = np.zeros(len(c), np.uint64)
+    for t in range(w):
+        s = (c >> (2 * (w - 1 - t))) & 3
+        tf ^= rol_np(NT_SEEDS[s], w - 1 - t)
+        tr ^= rol_np(NT_SEEDS_RC[s], t)
+    return tf, tr
+
+
+def nthash_oracle(bases: np.ndarray, k: int, canonical: bool):
+    """(codes, positions) of every valid window's ntHash v1, written from
+    its definition (will-rowe/nthash, the reference's hash), independent of
+    the port:
+
+      F = XOR_{j<k} rol(seed[s_j], k-1-j),  R = XOR_{j<k} rol(seed[comp s_j], j)
+
+    and min(F, R) when canonical.  The table form over 8-base blocks: the
+    window is cut into blocks of up to 8 bases from its start, and a
+    block of w bases at offset o adds rol(TF_w[c], k-o-w) to F and
+    rol(TR_w[c], o) to R, c its 2-bit code (nthash_block_tables).  Only
+    windows of valid bases are kept, so no block holds a byte that is no
+    base.  Whole-array passes in one thread: 4 table lookups a direction
+    a window at k = 31, where the direct form takes 31."""
+    m = len(bases) - k + 1
+    if m <= 0:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    # the 8-base code at every position, by doubling (1, 2, 4, 8 bases)
+    # over 8 bases of padding; a block of w < 8 bases is its top 2w bits
+    c8 = np.zeros(len(bases) + 8, np.intp)
+    c8[:len(bases)] = bases & 3
+    for half in (1, 2, 4):
+        c8 = (c8[:-half] << (2 * half)) | c8[half:]
+    f = np.zeros(m, np.uint64)
+    r = np.zeros(m, np.uint64)
+    tmp = np.empty(m, np.uint64)
+    for o in range(0, k, 8):
+        w = min(8, k - o)
+        tf, tr = nthash_block_tables(w)
+        c = c8[o:o + m] if w == 8 else c8[o:o + m] >> (2 * (8 - w))
+        f ^= np.take(rol_np(tf, k - o - w), c, out=tmp)
+        if canonical:
+            r ^= np.take(rol_np(tr, o), c, out=tmp)
+    del c8, c, tmp
+    if canonical:
+        np.minimum(f, r, out=f)
+    bad = np.concatenate([[0], np.cumsum(bases >= 4, dtype=np.int64)])
+    pos = np.flatnonzero(bad[k:] - bad[:m] == 0)
+    return f[pos], pos
+
+
+def scaled_max_hash_oracle(scale: int) -> int:
+    """The reference's scaled threshold, uint64(float64(MaxUint64) /
+    float64(scale)) (unikmer cmd/count.go), written anew here."""
+    if scale <= 1:
+        return (1 << 64) - 1
+    return min(int(np.float64(2.0**64 - 1) / np.float64(scale)),
+               (1 << 64) - 1)
+
+
+def unique_counts(codes: np.ndarray):
+    """(the distinct codes ascending, the count of each), from one np.sort:
+    on the 133 M codes of the hashed main path, np.unique took minutes on
+    the card's host, this form seconds (the oracle's ``unique`` time)."""
+    s = np.sort(codes)
+    first = np.flatnonzero(np.concatenate([s[:1] == s[:1], s[1:] != s[:-1]]))
+    return s[first], np.diff(np.append(first, len(s)))
+
+
+def numpy_count(bases: np.ndarray, k: int, canonical: bool, mode: str,
+                hashed: bool = False):
+    """Straight numpy count of 2-bit or ntHash k-mers (independent of the
+    port)."""
+    windows = nthash_oracle if hashed else numpy_windows
+    codes, _ = windows(bases, k, canonical)
+    u, counts = unique_counts(codes)
     if mode == "unique":
         return u[counts == 1]
     if mode == "repeated":
@@ -488,15 +656,18 @@ def numpy_count(bases: np.ndarray, k: int, canonical: bool, mode: str):
     return u
 
 
-def write_oracle(out: str, k: int, flag: int, codes, taxids=None) -> None:
+def write_oracle(out: str, k: int, flag: int, codes, taxids=None,
+                 scale: int = 1, number: int | None = None) -> None:
     """The oracle's codes through the port's UnikWriter, with the CLI's
-    writer settings for -C."""
+    writer settings for -C (``number`` -1 for -l, which leaves the count
+    out of the header)."""
     from unikmer_tpu_torch.io import unik
 
     with open(out, "wb") as fh, unik.UnikWriter(
-            fh, k=k, flag=flag, number=len(codes), compress=False,
+            fh, k=k, flag=flag,
+            number=len(codes) if number is None else number, compress=False,
             compression_level=5, threads=min(os.cpu_count() or 4, 4),
-            global_taxid=0, scale=1, max_taxid=(1 << 32) - 1) as w:
+            global_taxid=0, scale=scale, max_taxid=(1 << 32) - 1) as w:
         w.write_codes(codes, taxids)
 
 
@@ -516,17 +687,21 @@ def numpy_host():
             os.environ["UNIKMER_TPU_NO_NATIVE"] = old
 
 
-def oracle_unik(fa: str, out: str, k: int, canonical: bool, mode: str) -> str:
-    """Write the oracle's .unik for ``count -k k [-K] -s -C [-u|-d]``."""
+def oracle_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
+                hashed: bool = False) -> str:
+    """Write the oracle's .unik for ``count -k k [-K] [-H] -s -C [-u|-d]``."""
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.io.fastx import pack_files
 
+    t0 = time.perf_counter()
     with numpy_host():
         packed = pack_files([fa], k)
-        codes = numpy_count(packed.bases, k, canonical, mode)
+        codes = numpy_count(packed.bases, k, canonical, mode, hashed)
         write_oracle(out, k, unik.SORTED
-                     | (unik.CANONICAL if canonical else 0), codes)
-    return "numpy"
+                     | (unik.CANONICAL if canonical else 0)
+                     | (unik.HASHED if hashed else 0), codes)
+    return (f"numpy{' ntHash' if hashed else ''} "
+            f"({time.perf_counter() - t0:.3f} s)")
 
 
 def same_bytes(a: str, b: str) -> bool:
@@ -548,26 +723,60 @@ def run_cli(argv):
         raise SystemExit(f"CLI exited {rc}: {' '.join(argv)}")
 
 
-def check_against_oracle(tmp, fa, name, k, canonical, mode, extra):
+def encode_wrappers() -> dict:
+    """The count path's encode and sort wrappers by kernel key."""
+    from unikmer_tpu_torch.ops.encode import encode_2bit
+    from unikmer_tpu_torch.ops.nthash import encode_nthash
+    from unikmer_tpu_torch.ops.radix_sort import (
+        radix_sort_kv_u64, radix_sort_u64,
+    )
+
+    return {"k1": encode_2bit, "h1": encode_nthash, "k2": radix_sort_u64,
+            "k3": radix_sort_kv_u64}
+
+
+def counted_cli(argv, need: dict):
+    """Run the CLI with every launch counter zeroed just before and read
+    just after; ``need`` maps a kernel key to True (it must launch) or
+    False (it must not).  Returns (seconds, launches, stage seconds and
+    calls)."""
+    from unikmer_tpu_torch.utils.stages import record_stages
+
+    wrappers = encode_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with record_stages() as st:
+        t0 = time.perf_counter()
+        run_cli(argv)
+        secs = time.perf_counter() - t0
+    launches = {key: w.launches for key, w in wrappers.items()}
+    wrong = {key for key, must in need.items() if (launches[key] > 0) != must}
+    if wrong:
+        raise SystemExit(f"{' '.join(argv)}: launches {launches}, expected "
+                         f"{need}")
+    return secs, launches, st
+
+
+def check_against_oracle(tmp, fa, name, k, canonical, mode, extra,
+                         hashed=False):
     out = os.path.join(tmp, name)
     argv = ["count", "-k", str(k), *(["-K"] if canonical else []), "-s",
             "-C", *extra, fa, "-o", out]
-    t0 = time.perf_counter()
-    run_cli(argv)
-    secs = time.perf_counter() - t0
-    which = oracle_unik(fa, out + ".oracle.unik", k, canonical, mode)
+    need = ({"h1": True, "k1": False, "k2": True} if hashed
+            else {"k1": True, "h1": False, "k2": True})
+    secs, launches, _ = counted_cli(argv, need)
+    which = oracle_unik(fa, out + ".oracle.unik", k, canonical, mode, hashed)
     if not same_bytes(out + ".unik", out + ".oracle.unik"):
         raise SystemExit(f"{' '.join(argv)}: .unik differs from the oracle "
                          f"({which})")
     say(f"{' '.join(argv[:-3])}: {os.path.getsize(out + '.unik')} bytes, "
-        f"equal to the {which} oracle; CLI {secs:.3f} s")
+        f"equal to the {which} oracle; CLI {secs:.3f} s, launches {launches}")
 
 
 def main_path(tmp, rng):
-    from unikmer_tpu_torch.ops.encode import encode_2bit
-    from unikmer_tpu_torch.ops.radix_sort import radix_sort_u64
-    from unikmer_tpu_torch.utils.stages import record_stages
-
+    """The 134 Mbp CLI count, 2-bit and then hashed (bench.py's two ntHash
+    configurations), then -u, -d, k = 32 and k = 64 -H -u over one 50 Mbp
+    record; returns the launches of the 2-bit and the -K -H run."""
     fa = os.path.join(tmp, "in.fa")
     t0 = time.perf_counter()
     write_fasta(fa, rng, 4, RECORD_BASES)
@@ -575,15 +784,8 @@ def main_path(tmp, rng):
         f"{time.perf_counter() - t0:.3f} s")
     out = os.path.join(tmp, "k23")
     argv = ["count", "-k", "23", "-K", "-s", "-C", fa, "-o", out]
-    encode_2bit.launches = 0
-    radix_sort_u64.launches = 0
-    with record_stages() as st:
-        t0 = time.perf_counter()
-        run_cli(argv)
-        secs = time.perf_counter() - t0
-    launches = {"k1": encode_2bit.launches, "k2": radix_sort_u64.launches}
-    if min(launches.values()) < 1:
-        raise SystemExit(f"main path skipped a kernel: {launches}")
+    secs, launches, st = counted_cli(argv, {"k1": True, "h1": False,
+                                            "k2": True})
     windows = 4 * (RECORD_BASES - 23 + 1)
     say(f"main path {' '.join(argv[:6])}: {secs:.3f} s, "
         f"{windows / secs:.1f} windows/s, launches {launches}")
@@ -594,12 +796,90 @@ def main_path(tmp, rng):
         raise SystemExit(f"main path .unik differs from the {which} oracle")
     say(f"main path .unik ({os.path.getsize(out + '.unik')} bytes) equal to "
         f"the {which} oracle")
+    hashed = hashed_main_path(tmp, fa)
     os.remove(fa)
     one = os.path.join(tmp, "one.fa")
     write_fasta(one, rng, 1, RECORD_BASES + (RECORD_BASES >> 1))
     check_against_oracle(tmp, one, "u", 23, True, "unique", ["-u"])
     check_against_oracle(tmp, one, "d", 23, True, "repeated", ["-d"])
     check_against_oracle(tmp, one, "k32", 32, False, "distinct", [])
+    check_against_oracle(tmp, one, "k64Hu", 64, False, "unique", ["-H", "-u"],
+                         hashed=True)
+    os.remove(one)
+    return {"k1": launches["k1"], "k2": launches["k2"], "h1": hashed["h1"]}
+
+
+def hashed_main_path(tmp, fa):
+    """``count -k 31 -K -H -s -C`` and ``count -k 31 -K -D 15 -s -C`` over
+    the 134 Mbp FASTA (bench.py's count_nthash_canonical_sort_distinct and
+    count_scaled_s15_sort_distinct), each held to the ntHash oracle, whose
+    one hash of every window serves both; returns the -H run's launches."""
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.io.fastx import pack_files
+
+    k = 31
+    t = [time.perf_counter()]
+    with numpy_host():
+        bases = pack_files([fa], k).bases
+        t.append(time.perf_counter())
+        codes, _ = nthash_oracle(bases, k, True)
+        t.append(time.perf_counter())
+        u, _ = unique_counts(codes)
+        t.append(time.perf_counter())
+    del bases, codes
+    say(f"ntHash oracle of {fa}: k={k} canonical, {len(u)} distinct codes, "
+        f"{t[3] - t[0]:.3f} s (pack {t[1] - t[0]:.3f}, hash "
+        f"{t[2] - t[1]:.3f}, unique {t[3] - t[2]:.3f})")
+    windows = 4 * (RECORD_BASES - k + 1)
+    first = None
+    for name, extra, scale in (("H", ["-H"], 1), ("D15", ["-D", "15"], 15)):
+        out = os.path.join(tmp, f"k31{name}")
+        argv = ["count", "-k", str(k), "-K", *extra, "-s", "-C", fa, "-o", out]
+        secs, launches, st = counted_cli(argv, {"h1": True, "k1": False,
+                                                "k2": True})
+        first = first or launches
+        say(f"hashed main path {' '.join(argv[:-3])}: {secs:.3f} s, "
+            f"{windows / secs:.1f} windows/s, launches {launches}")
+        say(f"hashed main path {' '.join(extra)} stage seconds: " + json.dumps(
+            {s: round(v, 4) for s, v in st.seconds.items()}))
+        t0 = time.perf_counter()
+        want = u[u <= np.uint64(scaled_max_hash_oracle(scale))]
+        with numpy_host():
+            write_oracle(out + ".oracle.unik", k, unik.SORTED | unik.CANONICAL
+                         | unik.HASHED, want, scale=scale)
+        if not same_bytes(out + ".unik", out + ".oracle.unik"):
+            raise SystemExit(f"{' '.join(argv)}: .unik differs from the ntHash "
+                             f"oracle")
+        say(f"hashed main path {' '.join(extra)} .unik ({os.path.getsize(out + '.unik')} "
+            f"bytes, {len(want)} codes) equal to the ntHash oracle (written in "
+            f"{time.perf_counter() - t0:.3f} s)")
+        os.remove(out + ".unik")
+        os.remove(out + ".oracle.unik")
+    return first
+
+
+def linear_hashed_path(tmp, rng):
+    """A small ``count -k 27 -K -l -H -C`` (two 2^20-base records) held
+    to the ntHash oracle's windows in genome order."""
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.io.fastx import pack_files
+
+    fa = os.path.join(tmp, "lin.fa")
+    write_fasta(fa, rng, 2, LINEAR_BASES)
+    out = os.path.join(tmp, "linH")
+    argv = ["count", "-k", "27", "-K", "-l", "-H", "-C", fa, "-o", out]
+    secs, launches, _ = counted_cli(argv, {"h1": True, "k1": False})
+    t0 = time.perf_counter()
+    with numpy_host():
+        codes, _ = nthash_oracle(pack_files([fa], 27).bases, 27, True)
+        write_oracle(out + ".oracle.unik", 27, unik.CANONICAL | unik.HASHED,
+                     codes, number=-1)
+    if not same_bytes(out + ".unik", out + ".oracle.unik"):
+        raise SystemExit(f"{' '.join(argv)}: .unik differs from the oracle")
+    say(f"{' '.join(argv[:-3])}: {len(codes)} windows in genome order, "
+        f"equal to the ntHash oracle ({time.perf_counter() - t0:.3f} s); "
+        f"CLI {secs:.3f} s, launches {launches}")
+    os.remove(fa)
     return launches
 
 
@@ -656,8 +936,8 @@ def write_taxid_fasta(path: str, rng, taxids, record_bases: int,
 
 
 def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
-                      data_dir: str):
-    """Write the oracle's .unik for ``count -k k [-K] -s -C -T -r ...``;
+                      data_dir: str, hashed: bool = False):
+    """Write the oracle's .unik for ``count -k k [-K] [-H] -s -C -T -r ...``;
     returns (which oracle, codes, taxids)."""
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.io.fastx import pack_records, read_fastx
@@ -670,7 +950,8 @@ def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
         rec_taxids = np.array([int(re_t.search(r.name).group(1))
                                for r in records], np.uint32)
         packed = pack_records(records, k)
-        codes, pos = numpy_windows(packed.bases, k, canonical)
+        windows = nthash_oracle if hashed else numpy_windows
+        codes, pos = windows(packed.bases, k, canonical)
         taxids = rec_taxids[np.searchsorted(packed.starts, pos, "right") - 1]
         uniq, merged = taxdb.lca_reduce(codes, taxids)
         if mode != "distinct":
@@ -678,52 +959,45 @@ def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
             keep = counts == 1 if mode == "unique" else counts > 1
             uniq, merged = uniq[keep], merged[keep]
         write_oracle(out, k, unik.SORTED | unik.INCLUDE_TAXID
-                     | (unik.CANONICAL if canonical else 0), uniq, merged)
-    return "numpy + lca_reduce", uniq, merged
+                     | (unik.CANONICAL if canonical else 0)
+                     | (unik.HASHED if hashed else 0), uniq, merged)
+    return f"numpy{' ntHash' if hashed else ''} + lca_reduce", uniq, merged
 
 
-def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows):
+def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows,
+              hashed=False):
     """One ``count -T`` CLI run with its launch counts, stage seconds and
     peak device memory, held against the oracle's bytes; returns (the
     launches, the oracle's codes and taxids)."""
-    from unikmer_tpu_torch.ops.encode import encode_2bit
-    from unikmer_tpu_torch.ops.radix_sort import radix_sort_kv_u64
-    from unikmer_tpu_torch.utils.stages import record_stages
-
     out = os.path.join(tmp, name)
     flags = {"unique": ["-u"], "repeated": ["-d"]}.get(mode, [])
-    argv = ["count", "-k", str(k), *(["-K"] if canonical else []), "-s", "-C",
-            *flags, "-T", "-r", RE_TAXID, "--data-dir", data_dir, fa,
-            "-o", out]
+    argv = ["count", "-k", str(k), *(["-K"] if canonical else []),
+            *(["-H"] if hashed else []), "-s", "-C", *flags, "-T", "-r",
+            RE_TAXID, "--data-dir", data_dir, fa, "-o", out]
     torch.cuda.reset_peak_memory_stats()
-    encode_2bit.launches = 0
-    radix_sort_kv_u64.launches = 0
-    with record_stages() as st:
-        t0 = time.perf_counter()
-        run_cli(argv)
-        secs = time.perf_counter() - t0
-    launches = {"k1": encode_2bit.launches, "k3": radix_sort_kv_u64.launches}
+    encode = "h1" if hashed else "k1"
+    secs, launches, st = counted_cli(
+        argv, {encode: True, "h1" if encode == "k1" else "k1": False,
+               "k3": True})
     peak = torch.cuda.max_memory_allocated()
-    if min(launches.values()) < 1:
-        raise SystemExit(f"{name} skipped a kernel: {launches}")
     say(f"{name} {' '.join(argv[:-5])}: {secs:.3f} s, {windows} windows, "
-        f"{windows / secs:.1f} windows/s, pieces {st.calls.get('k1', 0)}, "
+        f"{windows / secs:.1f} windows/s, pieces {st.calls.get(encode, 0)}, "
         f"launches {launches}, peak device memory {peak} B")
     say(f"{name} stage seconds: " + json.dumps(
         {s: round(v, 4) for s, v in st.seconds.items()}))
     which, codes, taxids = oracle_taxid_unik(fa, out + ".oracle.unik", k,
-                                             canonical, mode, data_dir)
+                                             canonical, mode, data_dir, hashed)
     if not same_bytes(out + ".unik", out + ".oracle.unik"):
         raise SystemExit(f"{name}: .unik differs from the {which} oracle")
     say(f"{name} .unik ({os.path.getsize(out + '.unik')} bytes, {len(codes)} "
         f"codes, {len(np.unique(taxids))} distinct taxids) equal to the "
         f"{which} oracle")
-    os.remove(fa)
     return launches, codes, taxids
 
 
 def taxid_path(tmp, rng):
-    """T1, T2 and T3 (module docstring); returns K3's launches in all."""
+    """T1, T1 hashed, T2 and T3 (module docstring); returns K3's launches
+    in T1-T3."""
     from unikmer_tpu_torch.taxonomy.lca import device_lca_plan
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
@@ -757,6 +1031,10 @@ def taxid_path(tmp, rng):
             tmp, name, fa, d, k, canonical, mode,
             len(taxids) * (length - k + 1))
         k3 += launches["k3"]
+        if name == "T1":  # the same input hashed: H1, then K3
+            taxid_run(tmp, "T1H", fa, d, 31, True, "distinct",
+                      len(taxids) * (length - 31 + 1), hashed=True)
+        os.remove(fa)
     # T3: the one window of 32 T's is a real 2^64-1 code, kept with the
     # taxid of its record
     if not (codes[-1] == SENT and got_taxids[-1] == t3[0]):
@@ -1078,6 +1356,7 @@ def host_costs(dev, rng) -> dict:
     from unikmer_tpu_torch.models.count import pack_bases_2bit
     from unikmer_tpu_torch.ops import probes
     from unikmer_tpu_torch.ops.encode import encode_2bit
+    from unikmer_tpu_torch.ops.nthash import encode_nthash
     from unikmer_tpu_torch.ops.radix_sort import (
         radix_sort_kv_u64, radix_sort_u64,
     )
@@ -1094,6 +1373,7 @@ def host_costs(dev, rng) -> dict:
     smi_clocks("before host_us")
     got = host_us_turns({
         "k1": lambda: encode_2bit(p2, vm, n, 23, True),
+        "h1": lambda: encode_nthash(p2, vm, n, 31, True),
         "k2": lambda: radix_sort_u64(keys, 46),
         "k3": lambda: radix_sort_kv_u64(keys, vals, 46),
         "P1a": lambda: probes.copy_inc_u32(small),
@@ -1129,6 +1409,9 @@ def probe_path():
 KERNELS = (  # (key, name, source, the TPU kernel it replaces, also)
     ("k1", "K1 encode_2bit", "unikmer_tpu_torch/csrc/encode.cu",
      "unikmer_tpu/ops/pallas_encode.py:79", []),
+    ("h1", "H1 encode_nthash", "unikmer_tpu_torch/csrc/nthash.cu",
+     "unikmer_tpu/ops/nthash.py:68 nthash_windows (XLA, no Pallas kernel)",
+     ["unikmer_tpu/models/count.py:278", "unikmer_tpu/models/count.py:195-197"]),
     ("k2", "K2 radix_sort_u64", "unikmer_tpu_torch/csrc/radix_sort.cu",
      "unikmer_tpu/ops/pallas_sort.py:235", []),
     ("k3", "K3 radix_sort_kv_u64", "unikmer_tpu_torch/csrc/radix_sort.cu",
@@ -1145,6 +1428,7 @@ KERNELS = (  # (key, name, source, the TPU kernel it replaces, also)
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -1178,6 +1462,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     results = {
         "k1": check_k1(dev, rng, kv.using(pr5[kv.EARLIER_K1], encode_2bit)),
+        "h1": check_h1(dev, rng),
         "k2": check_k2(dev, rng), "k3": check_k3(dev, rng),
         **check_probes(dev, rng,
                        kv.using(pr5[kv.EARLIER_ROW_CMPEX], row_cmpex_u32))}
@@ -1189,12 +1474,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="unikmer-torch-smoke-") as tmp:
         launches = main_path(tmp, rng)
         launches["k3"] = taxid_path(tmp, rng)
+        linear_hashed_path(tmp, rng)
     launches.update(probe_path())
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          **({"also_replaces": also} if also else {}),
          "launches": launches[key], **results[key]}
         for key, name, source, replaces, also in KERNELS]}))
+    say(f"chip_smoke total seconds: {time.perf_counter() - start:.3f}")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -46,6 +46,13 @@ CASES = [
     ["-k", "32", "-s", "-t", "9606"],
     ["-k", "5", "-K", "-c"],
     ["-k", "17", "-s", "-B", "r1"],
+    # hashed (ntHash): -H, k > 32, scaled, -T with a small nodes.dmp, -l
+    ["-k", "21", "-H", "-s"],
+    ["-k", "40", "-u"],
+    ["-k", "21", "-K", "-D", "8", "-s"],
+    ["-k", "21", "-K", "-s", "-T", "-r", r"sample(\d+)", "--data-dir",
+     "tests/data/taxdump", "-H"],
+    ["-k", "21", "-l", "-H"],
 ]
 
 
@@ -62,12 +69,9 @@ def test_count_bytes_match_jax_cli(fastas, envs, tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-k", "21", "-H"], "item 5"),
-    (["-k", "40"], "item 5"),
-    (["-k", "21", "-D", "8"], "item 5"),
     (["-k", "21", "-W", "5"], "item 6"),
     (["-k", "21", "-S", "9"], "item 6"),
-    (["-k", "21", "-T", "-r", r"(\d+)", "-H"], "item 5"),
+    (["-k", "21", "--syncmer-impl", "compat", "-S", "9"], "item 6"),
     (["-k", "21", "-T", "-r", r"(\d+)", "-W", "5"], "item 6"),
     (["-k", "21", "--mesh", "2"], "item 9"),
     (["-k", "21", "-T", "-r", r"(\d+)", "--mesh", "2"], "item 9"),

@@ -20,6 +20,9 @@ import chip_smoke
 from unikmer_tpu.io import fastx as jax_fastx
 from unikmer_tpu.io import unik as jax_unik
 from unikmer_tpu.ops.codec import canonical_np as jax_canonical_np
+from unikmer_tpu.ops.codec import window_valid as jax_window_valid
+from unikmer_tpu.ops.nthash import nthash_windows_np as jax_nthash_windows_np
+from unikmer_tpu.ops.nthash import scaled_max_hash as jax_scaled_max_hash
 from unikmer_tpu.taxonomy import taxdump as jax_taxdump
 from unikmer_tpu_torch import native
 from unikmer_tpu_torch.cli.main import main as port_main
@@ -338,6 +341,64 @@ def test_chip_smoke_oracles_match_the_port_cli(tmp_path, monkeypatch):
                       "-o", out]) == 0
     chip_smoke.oracle_taxid_unik(str(tfa), out + ".oracle.unik", 15, True,
                                  "distinct", TAXDUMP)
+    assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", [1, 31, 33, 64])
+def test_chip_smoke_nthash_oracle_matches_jax(k, canonical):
+    """chip_smoke's ntHash oracle (the definition, in a table form over
+    8-base blocks) against the JAX package's doubling composition on the
+    valid windows."""
+    rng = np.random.default_rng(k)
+    bases = rng.integers(0, 4, size=5000, dtype=np.uint8)
+    bases[rng.random(5000) < 0.01] = 255
+    codes, pos = chip_smoke.nthash_oracle(bases, k, canonical)
+    want = jax_nthash_windows_np(bases, k, canonical)
+    valid = np.asarray(jax_window_valid(bases, k))
+    np.testing.assert_array_equal(pos, np.flatnonzero(valid))
+    np.testing.assert_array_equal(codes, want[valid])
+    for scale in (1, 2, 15, 1000, 2**32 - 1):
+        assert (chip_smoke.scaled_max_hash_oracle(scale)
+                == jax_scaled_max_hash(scale))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 5000])
+def test_chip_smoke_unique_counts_matches_np_unique(n):
+    codes = np.random.default_rng(n).integers(0, 50, size=n).astype(np.uint64)
+    got, want = chip_smoke.unique_counts(codes), np.unique(codes,
+                                                           return_counts=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got[0].dtype == np.uint64
+
+
+def test_chip_smoke_hashed_oracles_match_the_port_cli(tmp_path, monkeypatch):
+    monkeypatch.setenv("UNIKMER_TPU_TORCH_DEVICE", "cpu")
+    fa = random_fasta(tmp_path / "h.fa", 15)
+    for k, canonical, mode, flags in ((31, True, "distinct", ["-H"]),
+                                      (64, False, "unique", ["-u"]),
+                                      (40, True, "repeated", ["-d"])):
+        out = str(tmp_path / f"h{k}")
+        assert port_main(["count", "-k", str(k), *(["-K"] if canonical else []),
+                          "-s", "-C", *flags, fa, "-o", out]) == 0
+        chip_smoke.oracle_unik(fa, out + ".oracle.unik", k, canonical, mode,
+                               hashed=True)
+        assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
+    tfa = tmp_path / "t.fa"
+    rng = np.random.default_rng(16)
+    shared = rng.choice(list(b"ACGT"), size=300).astype(np.uint8).tobytes()
+    with open(tfa, "wb") as f:
+        for i, t in enumerate((562, 511145, 585057, 562)):
+            seq = shared + rng.choice(list(b"ACGT"), size=900).astype(
+                np.uint8).tobytes()
+            f.write(b">r%d taxid|%d\n%s\n" % (i, t, seq))
+    out = str(tmp_path / "tH")
+    assert port_main(["count", "-k", "31", "-K", "-H", "-s", "-C", "-T", "-r",
+                      chip_smoke.RE_TAXID, "--data-dir", TAXDUMP, str(tfa),
+                      "-o", out]) == 0
+    chip_smoke.oracle_taxid_unik(str(tfa), out + ".oracle.unik", 31, True,
+                                 "distinct", TAXDUMP, hashed=True)
     assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
 
 

@@ -193,10 +193,34 @@ def test_linear_codes_match_jax(k, canonical, chunk):
         jax_count.count_linear(packed, jcfg))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(k=21, hashed=True, canonical=True),
+    dict(k=40, mode="unique"),
+    dict(k=21, scale=3, canonical=True, mode="repeated"),
+], ids=str)
+def test_hashed_taxids_and_linear_match_jax(taxdb, port_taxdb, kw):
+    """-T and -l with ntHash codes (H1's plain version) against the JAX
+    package's count_packed_taxids and linear_codes_all."""
+    recs = taxid_records(kw["k"])
+    jcfg = jax_count.CountConfig(**kw)
+    cfg = port_count.CountConfig.from_reference(jcfg)
+    want = jax_count.count_packed_taxids(iter(recs), jcfg, RE_TAXID, taxdb)
+    got = port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID,
+                                         port_taxdb, CPU)
+    assert_pair_equal(got, want)
+    assert len(got[0]) > 20 and len(np.unique(got[1])) > 1
+    packed = pack_records(recs, cfg.k)
+    wc, wp = jax_count.linear_codes_all(packed.bases, jcfg, chunk_bases=900)
+    gc, gp = port_count.linear_codes_all(packed.bases, cfg, chunk_bases=900,
+                                         device=CPU)
+    np.testing.assert_array_equal(gc, wc)
+    np.testing.assert_array_equal(gp, wp)
+    assert len(gc) > 100
+
+
 def test_taxid_paths_reject_unported_configs(port_taxdb):
     recs = taxid_records(1)
-    for kw, item in ((dict(k=21, hashed=True), "item 5"),
-                     (dict(k=21, minimizer_w=5), "item 6")):
+    for kw, item in ((dict(k=21, minimizer_w=5), "item 6"),):
         cfg = port_count.CountConfig(**kw)
         with pytest.raises(NotImplementedError, match=item):
             port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID,

@@ -3,11 +3,12 @@
 Port of unikmer_tpu/cli/commands/count.py with the same flags, checks
 and messages, and the same ``.unik`` header flags and writer settings.
 2-bit configs (k <= 32, -K, -s, -u, -d, --circular, -t, several files,
--C), -T/-r (per-record taxids, LCA-merged, read with --data-dir's
-nodes.dmp) and -l (genome order, with or without -T) always run on the
-device through models/count.py; there is no size-based routing to the
-host engine.  Flags whose pipelines are not ported yet exit with an
-error that names the ROADMAP item bringing them.
+-C), hashed configs (-H, -D scaled, k 33-64: ntHash codes), -T/-r
+(per-record taxids, LCA-merged, read with --data-dir's nodes.dmp) and
+-l (genome order, with or without -T) always run on the device through
+models/count.py; there is no size-based routing to the host engine.
+Flags whose pipelines are not ported yet exit with an error that names
+the ROADMAP item bringing them.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from ._common import log_saved, new_command
 
 # unported flag -> the ROADMAP queue-1 item that brings it
 _NOT_PORTED = {
-    "hash": "-H/--hash, -D/--scale and k > 32 (ntHash): ROADMAP queue 1 item 5",
     "sketch": "-W/--minimizer-w and -S/--syncmer-s (sketches): ROADMAP queue 1 "
               "item 6",
     "mesh": "--mesh (multi-GPU over NCCL): ROADMAP queue 1 item 9",
@@ -79,8 +79,6 @@ def register(subparsers):
 
 
 def _not_ported(args, opt) -> str | None:
-    if args.hash or args.kmer_len > MAX_K_ENCODED or args.scale > 1:
-        return _NOT_PORTED["hash"]
     if args.minimizer_w > 0 or args.syncmer_s > 0 or args.syncmer_impl != "edgar":
         return _NOT_PORTED["sketch"]
     if opt.mesh >= 1 and not args.linear:  # -l runs on one device anyway
@@ -88,11 +86,12 @@ def _not_ported(args, opt) -> str | None:
     return None
 
 
-def _reference_checks(args) -> None:
+def _reference_checks(args) -> bool:
     """The reference's flag checks and warnings, in its order
     (unikmer_tpu/cli/commands/count.py:59-97), so a flag combination that
     the reference refuses exits with its message even where it names a
-    flag the port does not run yet."""
+    flag the port does not run yet.  Returns whether the codes are
+    hashed (-H, or switched on by k > 32, -D or a sketch)."""
     k = args.kmer_len
     if k <= 0:
         die("k-mer length must be positive")
@@ -128,12 +127,13 @@ def _reference_checks(args) -> None:
             die("flag -r/--parse-taxid-regexp needed when given flag -T/--parse-taxid")
         if not re.search(r"\(.+\)", args.parse_taxid_regexp):
             die('value of -r/--parse-taxid-regexp must contain "(" and ")" to capture taxid')
+    return hashed
 
 
 def run(args) -> int:
     opt = get_options(args)
     k = args.kmer_len
-    _reference_checks(args)
+    hashed = _reference_checks(args)
     todo = _not_ported(args, opt)
     if todo:
         die(f"not supported by unikmer_tpu_torch yet: {todo}")
@@ -171,7 +171,9 @@ def run(args) -> int:
     flag = 0
     if args.canonical:
         flag |= unik.CANONICAL
-    if opt.compact and not args.sort and not args.linear:
+    if hashed:
+        flag |= unik.HASHED
+    elif opt.compact and not args.sort and not args.linear:
         flag |= unik.COMPACT
     if args.parse_taxid:
         flag |= unik.INCLUDE_TAXID
@@ -185,7 +187,7 @@ def run(args) -> int:
         compression_level=opt.compression_level,
         threads=opt.threads,
         global_taxid=args.taxid if (args.taxid > 0 and not args.parse_taxid) else 0,
-        scale=1,
+        scale=args.scale if args.scale > 1 else 1,
         max_taxid=opt.max_taxid,
     )
 
@@ -210,8 +212,8 @@ def run(args) -> int:
             if buf:
                 yield pack_records(buf, k, args.circular)
 
-    cfg = CountConfig(k=k, canonical=args.canonical, circular=args.circular,
-                      mode=mode)
+    cfg = CountConfig(k=k, canonical=args.canonical, hashed=hashed,
+                      scale=args.scale, circular=args.circular, mode=mode)
     if args.linear:
         return _run_linear(args, opt, cfg, records, re_taxid, files, name_res,
                            out_file, flag, writer_kw, device)

@@ -1,21 +1,24 @@
 """The count pipeline on PyTorch: FASTA/Q -> k-mer set (port of
-unikmer_tpu/models/count.py, 2-bit codes).
+unikmer_tpu/models/count.py: 2-bit codes, and ntHash codes for hashed
+and scaled configs).
 
 One piece of packed sequence runs as: host 2-bit pack (shared native
 code), host-to-device copy, K1 (ops/encode.py: unpack + encode +
-canonical + sentinel keying), K2 sort and collapse (ops/sort.py), and a
-device-to-host copy of the kept prefix.  Streams cut the input into
-pieces at record boundaries (k-1-overlap segments inside long records)
-and merge the per-piece sorted sets on the host, spilling to external
-sort chunks beyond UNIKMER_TPU_COUNT_MEM_MB, as the JAX package does.
+canonical + sentinel keying) or, for hashed configs, H1 (ops/nthash.py:
+unpack + ntHash + canonical + scaled threshold + keying), K2 sort and
+collapse (ops/sort.py), and a device-to-host copy of the kept prefix.
+Streams cut the input into pieces at record boundaries (k-1-overlap
+segments inside long records) and merge the per-piece sorted sets on
+the host, spilling to external sort chunks beyond
+UNIKMER_TPU_COUNT_MEM_MB, as the JAX package does.
 
 ``count -T`` (per-record taxids, LCA-merged per code) runs the same
-K1 encode, then one K3 sort of (code, compact taxid id) pairs and the
-merge rounds of taxonomy/lca.py; ``count -l`` is K1 alone, the valid
-windows kept in genome order.
+encode, then one K3 sort of (code, compact taxid id) pairs and the
+merge rounds of taxonomy/lca.py; ``count -l`` is the encode alone, the
+valid windows kept in genome order.
 
-Only 2-bit configs are ported: hashed and scaled configs (ntHash) and
-the minimizer/syncmer sketches raise NotImplementedError.
+The minimizer/syncmer sketches are not ported and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ from ..ops import codec
 from ..ops import sets as host_sets
 from ..ops.codec import MAX_K_ENCODED, MAX_K_HASHED
 from ..ops.encode import encode_2bit
+from ..ops.nthash import (
+    at_most, encode_nthash, nthash_windows, scaled_max_hash,
+)
 from ..ops.sort import (
     _compact, collapse_dual_keyed, collapse_keyed, collapse_sorted,
 )
@@ -43,8 +49,6 @@ from ..utils.stages import stage
 
 _HOST = torch.device("cpu")
 
-_HASHED_TODO = ("hashed and scaled configs (ntHash, -H/-D, k > 32) are not "
-                "ported yet: ROADMAP queue 1 item 5")
 _SKETCH_TODO = ("minimizer and syncmer sketches (-W/-S) are not ported yet: "
                 "ROADMAP queue 1 item 6")
 
@@ -109,20 +113,27 @@ class CountConfig:
             raise ValueError(f"k must be <= {MAX_K_HASHED}")
 
 
-def _require_2bit(cfg: CountConfig) -> None:
+def _require_ported(cfg: CountConfig) -> None:
+    """Raise for the sketches, the one kind of config not ported yet."""
     if not cfg.segmentable:
         raise NotImplementedError(_SKETCH_TODO)
-    if cfg.hashed:
-        raise NotImplementedError(_HASHED_TODO)
 
 
 def window_codes(bases: torch.Tensor, cfg: CountConfig):
-    """Per-position (codes, valid) of a uint8 base tensor (2-bit only)."""
-    _require_2bit(cfg)
-    codes = codec.kmer_codes(bases, cfg.k)
-    if cfg.canonical:
-        codes = codec.canonical_code(codes, cfg.k)
-    return codes, codec.window_valid(bases, cfg.k)
+    """Per-position (codes, valid) of a uint8 base tensor: 2-bit codes,
+    or ntHash codes (hashed), kept at most scaled_max_hash (scaled)."""
+    _require_ported(cfg)
+    k = cfg.k
+    valid = codec.window_valid(bases, k)
+    if cfg.hashed:
+        codes = nthash_windows(bases, k, cfg.canonical)
+    else:
+        codes = codec.kmer_codes(bases, k)
+        if cfg.canonical:
+            codes = codec.canonical_code(codes, k)
+    if cfg.scale > 1:
+        valid = valid & at_most(codes, scaled_max_hash(cfg.scale))
+    return codes, valid
 
 
 def count_step(bases: torch.Tensor, cfg: CountConfig):
@@ -154,23 +165,29 @@ def pack_bases_2bit(bases: np.ndarray):
 
 
 def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device):
-    """Pack, copy and K1-encode one piece of bases -> (keyed, valid bool)."""
+    """Pack, copy and encode one piece of bases -> (keyed, valid bool):
+    K1 for 2-bit codes, H1 for hashed configs."""
     n = len(bases)
     with stage("pack", device):
         packed2, validmask = pack_bases_2bit(bases)
     with stage("h2d", device):
         p2 = torch.from_numpy(packed2).to(device)
         vm = torch.from_numpy(validmask).to(device)
-    with stage("k1", device):
-        keyed, valid = encode_2bit(p2, vm, n, cfg.k, cfg.canonical)
+    if cfg.hashed:
+        with stage("h1", device):
+            keyed, valid = encode_nthash(p2, vm, n, cfg.k, cfg.canonical,
+                                         scaled_max_hash(cfg.scale))
+    else:
+        with stage("k1", device):
+            keyed, valid = encode_2bit(p2, vm, n, cfg.k, cfg.canonical)
     return keyed, valid.view(torch.bool)
 
 
 def count_packed_dispatch(packed: PackedSeqs, cfg: CountConfig, device=None):
-    """Queue one piece's device work (pack, H2D, K1, sort, collapse);
+    """Queue one piece's device work (pack, H2D, encode, sort, collapse);
     returns a token for :func:`count_packed_fetch`."""
     device = get_device(device)
-    _require_2bit(cfg)
+    _require_ported(cfg)
     if packed.bases.size == 0:
         return ("empty", device)
     keyed, valid = _encode_piece(packed.bases, cfg, device)
@@ -183,7 +200,7 @@ def count_packed_dispatch_dual(packed: PackedSeqs, cfg: CountConfig,
     """:func:`count_packed_dispatch` yielding the piece's distinct AND
     repeated sets from one sort (the capped-multiplicity streams)."""
     device = get_device(device)
-    _require_2bit(cfg)
+    _require_ported(cfg)
     if packed.bases.size == 0:
         return ("empty", device)
     keyed, valid = _encode_piece(packed.bases, cfg, device)
@@ -402,7 +419,7 @@ def count_stream_packed(packed_iter, cfg: CountConfig,
     repeated: multiplicity capped at 2 per piece, then counted).
     Returns np.ndarray, or SpilledCount past the host memory cap."""
     device = get_device(device)
-    _require_2bit(cfg)
+    _require_ported(cfg)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     sink = _PartialSink(cfg)
@@ -422,7 +439,7 @@ def count_stream(records, cfg: CountConfig, chunk_bases: int | None = None,
     """Streaming count over FASTA/Q records: records are buffered up to
     chunk_bases, packed and counted as in :func:`count_stream_packed`."""
     device = get_device(device)
-    _require_2bit(cfg)
+    _require_ported(cfg)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
 
@@ -453,7 +470,7 @@ def linear_codes_all(bases: np.ndarray, cfg: CountConfig,
     the piece size are cut into k-1-overlap segments, each window
     landing in exactly one."""
     device = get_device(device)
-    _require_2bit(cfg)
+    _require_ported(cfg)
     n = len(bases)
     if n == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
@@ -498,9 +515,9 @@ def count_linear(packed: PackedSeqs, cfg: CountConfig,
 def count_taxids_step(keyed: torch.Tensor, valid: torch.Tensor,
                       pos_ctax: torch.Tensor, plan, cfg: CountConfig,
                       modes=("distinct",)):
-    """K1's (keyed, valid) plus per-position compact ids -> for each of
-    ``modes`` a (codes, ids, n) triple: the kept codes ascending with
-    their LCA-merged compact ids as dense prefixes of length n.  A code
+    """The encode's (keyed, valid) plus per-position compact ids -> for
+    each of ``modes`` a (codes, ids, n) triple: the kept codes ascending
+    with their LCA-merged compact ids as dense prefixes of length n.  A code
     is kept when its run holds a valid member (distinct), exactly one
     (unique) or more than one (repeated).  ``plan`` is an uploaded
     :func:`device_lca_plan`."""
@@ -596,7 +613,7 @@ def count_taxids_stream_device(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
     repeated codes, from one sort); the pieces merge on the host with
     one lca_reduce and the capped-multiplicity rule."""
     device = get_device(device)
-    _require_2bit(cfg)
+    _require_ported(cfg)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     dplan = upload_plan(plan, device)
@@ -638,7 +655,7 @@ def count_taxids_from_packed(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
     nonzero taxids, whose merge the host's order defines, take
     :func:`count_taxids_unknown`."""
     device = get_device(device)
-    _require_2bit(cfg)
+    _require_ported(cfg)
     if packed.bases.size == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.uint32)
     with stage("plan", _HOST):
@@ -657,7 +674,7 @@ def count_taxids_from_packed(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
 
 def count_taxids_unknown(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
                          taxdb, device=None):
-    """-T for a vocabulary with unknown nonzero taxids: K1's windows in
+    """-T for a vocabulary with unknown nonzero taxids: the windows in
     genome order, then taxdb.lca_reduce, whose merge order defines how
     an unknown taxid combines (the JAX package's rule)."""
     device = get_device(device)
@@ -679,7 +696,7 @@ def count_packed_taxids(records, cfg: CountConfig, re_taxid, taxdb,
     (reference count.go:334-344,377-410).  ``re_taxid`` is a compiled
     bytes regexp with one capture group.  Returns (codes, taxids) sorted
     by code, filtered by cfg.mode."""
-    _require_2bit(cfg)
+    _require_ported(cfg)
     with stage("ingest", _HOST):
         packed, rec_taxids = parse_taxid_records(records, cfg, re_taxid)
     return count_taxids_from_packed(packed, rec_taxids, cfg, taxdb, device)

@@ -107,8 +107,10 @@ def kmer_codes(bases: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def window_valid(bases: torch.Tensor, k: int) -> torch.Tensor:
-    """Bool mask: window [i, i+k) holds only valid bases and fits."""
-    _check_k(k)
+    """Bool mask: window [i, i+k) holds only valid bases and fits
+    (k <= 64: the hashed windows share it)."""
+    if not 0 < k <= MAX_K_HASHED:
+        raise ValueError(f"k must be in [1,{MAX_K_HASHED}], got {k}")
     n = bases.shape[0]
     bad = (bases >= 4).to(torch.int32)
     prefix = torch.cat([bad.new_zeros(1), torch.cumsum(bad, 0, dtype=torch.int32)])

@@ -50,8 +50,10 @@ def encode_2bit_plain(packed2: torch.Tensor, validmask: torch.Tensor, n: int,
     return keyed, valid.to(torch.uint8)
 
 
-def _check_inputs(packed2, validmask, n: int, k: int) -> None:
-    codec._check_k(k)
+def _check_inputs(packed2, validmask, n: int, k: int,
+                  max_k: int = codec.MAX_K_ENCODED) -> None:
+    if not 0 < k <= max_k:
+        raise ValueError(f"k must be in [1,{max_k}], got {k}")
     if n < 0:
         raise ValueError(f"n must be >= 0, got {n}")
     for name, t, need in (("packed2", packed2, -(-n // 4)),
@@ -75,15 +77,8 @@ def encode_2bit(packed2: torch.Tensor, validmask: torch.Tensor, n: int,
     dev = packed2.device
     if dev.type == "cpu":
         return encode_2bit_plain(packed2, validmask, n, k, canonical)
-    if dev.type != "cuda":
-        raise ValueError(f"encode_2bit: unsupported device {dev}")
-    # the kernel reads 16-byte words: a view off a 16-byte boundary is cloned
-    if packed2.data_ptr() % 16:
-        packed2 = packed2.clone()
-    if validmask.data_ptr() % 16:
-        validmask = validmask.clone()
-    keyed = torch.empty(n, dtype=torch.int64, device=dev)
-    valid = torch.empty(n, dtype=torch.uint8, device=dev)
+    packed2, validmask, keyed, valid = _launch_buffers("encode_2bit", packed2,
+                                                       validmask, n)
     if n == 0:
         return keyed, valid
     _ENCODE(dev, packed2.data_ptr(), packed2.shape[0], validmask.data_ptr(),
@@ -94,3 +89,19 @@ def encode_2bit(packed2: torch.Tensor, validmask: torch.Tensor, n: int,
 
 
 encode_2bit.launches = 0
+
+
+def _launch_buffers(name: str, packed2: torch.Tensor, validmask: torch.Tensor,
+                    n: int):
+    """(packed2, validmask, keyed, valid) for a launch of K1 or H1 on a
+    CUDA device: the inputs on 16-byte boundaries (the kernels read
+    16-byte words, so a view off one is cloned) and the empty outputs."""
+    dev = packed2.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if packed2.data_ptr() % 16:
+        packed2 = packed2.clone()
+    if validmask.data_ptr() % 16:
+        validmask = validmask.clone()
+    return (packed2, validmask, torch.empty(n, dtype=torch.int64, device=dev),
+            torch.empty(n, dtype=torch.uint8, device=dev))
