@@ -2,24 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels (K1 encode, H1 ntHash encode, K2 radix
-sort, K3 key+value radix sort, and the four P1/P2 probe kernels) from
-unikmer_tpu_torch/csrc, holds each against its plain PyTorch version on
-the card (exact equality), then drives the port's paths and holds their
-results against oracles:
+Builds the hand-written kernels (K1 encode, H1 ntHash encode, S1 sketch
+window select, K2 radix sort, K3 key+value radix sort, and the four P1/P2
+probe kernels) from unikmer_tpu_torch/csrc, holds each against its plain
+PyTorch version on the card (exact equality), then drives the port's
+paths and holds their results against oracles:
 
   count     ``count -k 23 -K -s -C`` over a 134 Mbp FASTA of 4 records,
             and over the same FASTA bench.py's two ntHash configurations,
-            ``count -k 31 -K -H -s -C`` and ``count -k 31 -K -D 15 -s -C``
-            (and -u, -d, k = 32 and k = 64 -H -u over one 50 Mbp record);
+            ``count -k 31 -K -H -s -C`` and ``count -k 31 -K -D 15 -s -C``,
+            and its two sketch configurations, ``count -k 31 -W 15 -s -C``
+            and ``count -k 31 -S 16 -s -C`` (and -u, -d, k = 32 and
+            k = 64 -H -u over one 50 Mbp record);
   count -T  over a synthetic 100,000-node taxonomy written as nodes.dmp:
             T1, 8,192 records of 4,000 bases, each with its own taxid,
-            one piece of ~2^25 windows on the 'paths' LCA tier, 2-bit
-            and hashed (T1H, k = 31 -H); T2, 1,024 records of 98,304
-            bases with 512 taxids, streamed in pieces on the 'table'
-            tier; T3, k = 32 -u over two 1 Mbp records, keeping a real
+            one piece of ~2^25 windows on the 'paths' LCA tier, 2-bit,
+            hashed (T1H, k = 31 -H) and sketched (T1W, k = 31 -W 15);
+            T2, 1,024 records of 98,304 bases with 512 taxids, streamed
+            in pieces on the 'table' tier; T3, k = 32 -u over two 1 Mbp records, keeping a real
             2^64-1 code with its taxid;
-  count -l  ``count -k 27 -K -l -H -C`` over two 1 Mbp records;
+  count -l  ``count -k 27 -K -l -H -C`` and ``count -k 23 -W 5 -l -C``
+            over two 1 Mbp records;
+  compat    ``count -k 31 -S 16 --syncmer-impl compat -s -C`` over 1,200
+            records of 1 to 7,000 bases;
   probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
             of scripts/exp_pallas_dma*.py, each kernel held to its plain
             version inside the entry point.
@@ -40,8 +45,10 @@ kernels line).
 The count oracle is this script's own numpy count (every window's 2-bit
 code, the canonical form written out below, a sort and its distinct
 values, ``unique_counts``; for hashed runs every window's ntHash v1
-from its definition, ``nthash_oracle``, and the
-scaled threshold of ``scaled_max_hash_oracle``) over the bases packed by
+from its definition, ``nthash_keyed_oracle``, and the
+scaled threshold of ``scaled_max_hash_oracle``; for sketches the
+leftmost window minimum by np.argmin over a sliding window view and the
+emit rules as defined, per record for compat) over the bases packed by
 the port's host layer; for -T the record ids come from a searchsorted
 over the record starts and the taxids merge through the port's
 Taxonomy.lca_reduce.  Its result goes through the port's UnikWriter
@@ -59,6 +66,7 @@ the repository.  The last line of stdout is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -91,7 +99,9 @@ T1_RECORDS, T1_BASES = 8192, 4000  # one taxid each: the paths tier
 T2_TAXIDS, T2_BASES = 512, 98304  # two records each: the table tier
 T3_BASES = 1 << 20
 RECORD_BASES = 1 << 25
-LINEAR_BASES = 1 << 20  # the -l -H run's two records
+LINEAR_BASES = 1 << 20  # the -l -H and -l -W runs' two records
+SKETCH_K, SKETCH_W, SKETCH_S = 31, 15, 16  # bench.py's sketch cells
+COMPAT_RECORDS, COMPAT_MAX_BASES = 1200, 7000  # the compat run's input
 LINE = 60
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 FLUSH_BYTES = 256 << 20  # written between P1a's repetitions: > the 50 MB L2
@@ -135,11 +145,16 @@ def device_ms(fn, kernel: str, reps: int = 20):
     """Mean device milliseconds per call of fn() spent in the CUDA kernels
     whose name holds ``kernel``, from torch.profiler: the kernel's own
     time, without the host's launch overhead that the CUDA events around
-    a short call also hold.  None when the profiler records no device
-    time."""
-    from unikmer_tpu_torch.kernel_variants import device_ms as profiled
+    a short call also hold.  A reading may record fewer such kernels than
+    the calls launched (lost events): it is taken as the mean of the
+    kernels it recorded times the whole number of them a call.  None when
+    the profiler records no device time."""
+    from unikmer_tpu_torch.kernel_variants import device_profile
 
-    return profiled(fn, kernel, reps)
+    ms, per_call = device_profile(fn, kernel, reps)
+    if ms is None:
+        return None
+    return ms * max(round(per_call), 1) / per_call
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -315,6 +330,95 @@ def check_h1(dev, rng):
                                      ms_spread=t[name]["spread"],
                                      device_ms=dms[name])
                           for name in fns if name != "kernel"})
+
+
+def s1_lengths() -> tuple:
+    """S1's lengths: K1_NS and, at one, two and three blocks' windows
+    (kTile - 1 each), each minus and plus one."""
+    stride = cu_const("sketch.cu", "kTile") - 1
+    return tuple(sorted({*K1_NS, stride - 1, stride, stride + 1,
+                         2 * stride - 1, 2 * stride + 1, 3 * stride + 1}))
+
+
+def s1_cases(kk, kv, sk, w, mh):
+    """(mode, args, kwargs) of each S1 mode at window width w over H1's
+    k-mer (kk, kv) and s-mer (sk) outputs: scale 1 and max_hash mh."""
+    return [("minimizer", (kk, w, kv), {}),
+            ("minimizer", (kk, w, kv), {"max_hash": mh}),
+            ("syncmer", (sk, w, kv, kk), {}),
+            ("syncmer", (sk, w, kv, kk), {"max_hash": mh}),
+            ("argmin", (sk, w), {})]
+
+
+def check_s1(dev, rng):
+    """S1 held exactly to its plain version in its three modes over H1's
+    outputs (k = 31, s = 16) at every length of s1_lengths: w = 15, 16
+    and 30 (the bench cells' minimizer and syncmer widths and the compat
+    vote window) everywhere, and w = 1, 2, a block's tile + 300 and 5,000
+    (past the shared stage) below 2^25; then each mode timed at n =
+    2^25+3."""
+    from unikmer_tpu_torch.models.count import pack_bases_2bit
+    from unikmer_tpu_torch.ops.nthash import encode_nthash, scaled_max_hash
+    from unikmer_tpu_torch.ops.sketch import sketch_select, sketch_select_plain
+
+    ns = s1_lengths()
+    tile = cu_const("sketch.cu", "kTile")
+    big = random_bases(rng, max(ns))
+    big[1000:1100] = 255  # an N run
+    big[3000:3400] = 0  # poly-A: equal hashes, the leftmost rule decides
+    big[20000:22000] = big[10000:12000]  # a repeat
+    mh = scaled_max_hash(15)
+    err, cases, kept = 0.0, 0, 0
+    for n in ns:
+        p2, vm = (torch.from_numpy(a).to(dev) for a in pack_bases_2bit(big[:n]))
+        kk, kv = encode_nthash(p2, vm, n, SKETCH_K, True)
+        sk, _ = encode_nthash(p2, vm, n, SKETCH_S, True)
+        ws = (15, 16, 30) + (() if n == ns[-1] else (1, 2, tile + 300, 5000))
+        for w in ws:
+            for mode, args, kw in s1_cases(kk, kv, sk, w, mh):
+                got = sketch_select(mode, *args, **kw)
+                want = sketch_select_plain(mode, *args, **kw)
+                torch.cuda.synchronize()
+                if mode == "argmin":
+                    e, same_flags = abs_err(got, want), True
+                else:
+                    e = abs_err(got[0], want[0])
+                    same_flags = torch.equal(got[1], want[1])
+                    kept += int(want[1].sum())
+                err = max(err, e)
+                cases += 1
+                if e or not same_flags:
+                    raise SystemExit(f"S1 mismatch: mode={mode} n={n} w={w} "
+                                     f"{kw} err={e}")
+    n = max(ns)  # 2^25+3
+    p2, vm = (torch.from_numpy(a).to(dev) for a in pack_bases_2bit(big[:n]))
+    kk, kv = encode_nthash(p2, vm, n, SKETCH_K, True)
+    sk, _ = encode_nthash(p2, vm, n, SKETCH_S, True)
+    ws = SKETCH_K - SKETCH_S + 1
+    calls = {  # name: (mode, args, bytes read and written once a window)
+        "kernel": ("minimizer", (kk, SKETCH_W, kv), 8 + 1 + 8 + 1),
+        f"syncmer s={SKETCH_S}": ("syncmer", (sk, ws, kv, kk), 8 + 1 + 8 + 9),
+        f"argmin W={2 * (SKETCH_K - SKETCH_S)}": (
+            "argmin", (sk, 2 * (SKETCH_K - SKETCH_S)), 8 + 8)}
+    fns = {name: (lambda m=m, a=a: sketch_select(m, *a))
+           for name, (m, a, _) in calls.items()}
+    t = turns_ms(fns)
+    res = {}
+    for name, (mode, args, nbytes) in calls.items():
+        res[name] = dict(
+            ms=t[name]["median"], ms_spread=t[name]["spread"],
+            device_ms=device_ms(fns[name], "sketch_select"),
+            plain_ms=cuda_ms(lambda: sketch_select_plain(mode, *args)),
+            bound_ms=bytes_ms(nbytes * n))
+    say(f"S1 sketch_select: exact on {cases} cases ({kept} kept windows; "
+        f"minimizer, syncmer and argmin modes, scale 1 and 15, n in {ns}); "
+        f"n={n}, k={SKETCH_K}, in turns: " + "; ".join(
+            f"{name} {r['ms']} ms (spread {r['ms_spread']}, device "
+            f"{r['device_ms']}), plain {r['plain_ms']} ms, bound "
+            f"{r['bound_ms']} ms" for name, r in res.items()))
+    main = res.pop("kernel")
+    return dict(max_abs_err=err, **main, bound_by="bytes", library_ms=None,
+                lengths_held=list(ns), variants=res)
 
 
 def adversarial_keys(rng, n: int, bits: int):
@@ -568,6 +672,7 @@ def rol_np(x, s: int):
     return x if s == 0 else (x << np.uint64(s)) | (x >> np.uint64(64 - s))
 
 
+@functools.lru_cache(maxsize=None)
 def nthash_block_tables(w: int):
     """(TF, TR) over all 4^w codes c of w bases (first base in the top
     2-bit group): ntHash v1's definition for one block of w bases,
@@ -583,27 +688,31 @@ def nthash_block_tables(w: int):
     return tf, tr
 
 
-def nthash_oracle(bases: np.ndarray, k: int, canonical: bool):
-    """(codes, positions) of every valid window's ntHash v1, written from
-    its definition (will-rowe/nthash, the reference's hash), independent of
-    the port:
+def nthash_keyed_oracle(bases: np.ndarray, k: int, canonical: bool = True):
+    """(keyed, valid), len(bases) long: every window's ntHash v1 written
+    from its definition (will-rowe/nthash, the reference's hash),
+    independent of the port,
 
       F = XOR_{j<k} rol(seed[s_j], k-1-j),  R = XOR_{j<k} rol(seed[comp s_j], j)
 
-    and min(F, R) when canonical.  The table form over 8-base blocks: the
-    window is cut into blocks of up to 8 bases from its start, and a
-    block of w bases at offset o adds rol(TF_w[c], k-o-w) to F and
-    rol(TR_w[c], o) to R, c its 2-bit code (nthash_block_tables).  Only
-    windows of valid bases are kept, so no block holds a byte that is no
-    base.  Whole-array passes in one thread: 4 table lookups a direction
-    a window at k = 31, where the direct form takes 31."""
-    m = len(bases) - k + 1
+    and min(F, R) when canonical, where the window's k bases are valid;
+    2^64-1 and invalid elsewhere (and past len - k).  The table form over
+    8-base blocks: the window is cut into blocks of up to 8 bases from
+    its start, and a block of w bases at offset o adds rol(TF_w[c],
+    k-o-w) to F and rol(TR_w[c], o) to R, c its 2-bit code
+    (nthash_block_tables).  Windows holding a byte that is no base are
+    not kept.  Whole-array passes in one thread: 4 table lookups a
+    direction a window at k = 31, where the direct form takes 31."""
+    n = len(bases)
+    keyed = np.full(n, SENT, np.uint64)
+    valid = np.zeros(n, bool)
+    m = n - k + 1
     if m <= 0:
-        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+        return keyed, valid
     # the 8-base code at every position, by doubling (1, 2, 4, 8 bases)
     # over 8 bases of padding; a block of w < 8 bases is its top 2w bits
-    c8 = np.zeros(len(bases) + 8, np.intp)
-    c8[:len(bases)] = bases & 3
+    c8 = np.zeros(n + 8, np.intp)
+    c8[:n] = bases & 3
     for half in (1, 2, 4):
         c8 = (c8[:-half] << (2 * half)) | c8[half:]
     f = np.zeros(m, np.uint64)
@@ -619,9 +728,112 @@ def nthash_oracle(bases: np.ndarray, k: int, canonical: bool):
     del c8, c, tmp
     if canonical:
         np.minimum(f, r, out=f)
+    del r
     bad = np.concatenate([[0], np.cumsum(bases >= 4, dtype=np.int64)])
-    pos = np.flatnonzero(bad[k:] - bad[:m] == 0)
-    return f[pos], pos
+    valid[:m] = bad[k:] - bad[:m] == 0
+    del bad
+    keyed[:m] = np.where(valid[:m], f, SENT)
+    return keyed, valid
+
+
+def nthash_oracle(bases: np.ndarray, k: int, canonical: bool):
+    """(codes, positions) of every valid window's ntHash v1, from
+    :func:`nthash_keyed_oracle`."""
+    keyed, valid = nthash_keyed_oracle(bases, k, canonical)
+    pos = np.flatnonzero(valid)
+    return keyed[pos], pos
+
+
+def window_argmin_oracle(keys: np.ndarray, w: int,
+                         chunk: int = 1 << 22) -> np.ndarray:
+    """The leftmost position of the minimum of keys[i:i+w], cut at the
+    end, for every i: np.argmin (the first minimum) over a sliding window
+    view, the tail padded with 2^64-1 (which a real key ties at most, and
+    the real key lies left of it)."""
+    n = len(keys)
+    pad = np.concatenate([keys, np.full(w - 1, SENT, np.uint64)])
+    out = np.empty(n, np.int64)
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        view = np.lib.stride_tricks.sliding_window_view(pad[a:b + w - 1], w)
+        out[a:b] = np.arange(a, b) + np.argmin(view, axis=1)
+    return out
+
+
+def minimizer_oracle(keyed: np.ndarray, valid: np.ndarray, w: int):
+    """(codes, positions) of the minimizer stream over keyed k-mer hashes,
+    from its definition: the window of w k-mer positions from i counts
+    when its k-mers are all valid, and yields its minimum (leftmost) when
+    the selected position differs from that of window i-1, or window i-1
+    did not count."""
+    n = len(keyed)
+    arg = window_argmin_oracle(keyed, w)
+    counts = np.zeros(n, bool)
+    m = n - w + 1
+    if m > 0:
+        bad = np.concatenate([[0], np.cumsum(~valid, dtype=np.int64)])
+        counts[:m] = bad[w:] - bad[:m] == 0
+    same = np.zeros(n, bool)
+    same[1:] = counts[:-1] & (arg[1:] == arg[:-1])
+    pos = np.flatnonzero(counts & ~same)
+    return keyed[arg[pos]], pos
+
+
+def syncmer_oracle(kkeyed: np.ndarray, kvalid: np.ndarray,
+                   skeyed: np.ndarray, k: int, s: int):
+    """(codes, positions) of the closed syncmers, from the definition: a
+    valid k-mer whose leftmost minimal s-mer (over its k-s+1 s-mers)
+    starts at its offset 0 or k-s."""
+    off = window_argmin_oracle(skeyed, k - s + 1) - np.arange(len(skeyed))
+    pos = np.flatnonzero(kvalid & ((off == 0) | (off == k - s)))
+    return kkeyed[pos], pos
+
+
+def compat_record_oracle(kh, kv, sh, k: int, s: int) -> np.ndarray:
+    """Positions the compat closed syncmer emits in one record, given its
+    k-mer hashes and validity (nk = len - k + 1) and keyed s-mer hashes
+    (ns = len - s + 1), written from the rule the JAX package's native
+    engine runs: mark the leftmost minimum of every window of W = 2(k-s)
+    s-mers (cut at the record's end) that is no 2^64-1 and starts a
+    valid k-mer; emit the marks, before the first mark every valid
+    position at a multiple of T = k-s from it (position >= 1), and before
+    the last mark every valid position at a multiple of T after the
+    previous mark."""
+    nk = len(kh)
+    if s == k:
+        return np.flatnonzero(kv)
+    W, T = 2 * (k - s), k - s
+    arg = window_argmin_oracle(sh, W)
+    ok = (sh[arg] != SENT) & (arg < nk)
+    ok[ok] = kv[arg[ok]]
+    mark = np.zeros(nk, bool)
+    mark[arg[ok]] = True
+    marks = np.flatnonzero(mark)
+    if len(marks) == 0:
+        return marks
+    first, last = marks[0], marks[-1]
+    i = np.arange(nk)
+    head = (i < first) & (i >= 1) & ((first - i) % T == 0) & kv
+    prev = np.maximum.accumulate(np.where(mark, i, -1))
+    inner = (i > first) & (i < last) & ((i - prev) % T == 0) & kv
+    return np.flatnonzero(mark | head | inner)
+
+
+def compat_oracle(packed, k: int, s: int):
+    """(codes, positions in packed.bases) of the compat closed syncmer,
+    record by record (compat_record_oracle); the hashes of windows inside
+    a record do not depend on the bytes between records."""
+    kkeyed, kvalid = nthash_keyed_oracle(packed.bases, k)
+    skeyed, _ = nthash_keyed_oracle(packed.bases, s)
+    parts = []
+    for start, length in zip(packed.starts, packed.lengths):
+        nk, ns = int(length) - k + 1, int(length) - s + 1
+        if nk > 0:
+            parts.append(start + compat_record_oracle(
+                kkeyed[start:start + nk], kvalid[start:start + nk],
+                skeyed[start:start + ns], k, s))
+    pos = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+    return kkeyed[pos], pos
 
 
 def scaled_max_hash_oracle(scale: int) -> int:
@@ -730,9 +942,10 @@ def encode_wrappers() -> dict:
     from unikmer_tpu_torch.ops.radix_sort import (
         radix_sort_kv_u64, radix_sort_u64,
     )
+    from unikmer_tpu_torch.ops.sketch import sketch_select
 
-    return {"k1": encode_2bit, "h1": encode_nthash, "k2": radix_sort_u64,
-            "k3": radix_sort_kv_u64}
+    return {"k1": encode_2bit, "h1": encode_nthash, "s1": sketch_select,
+            "k2": radix_sort_u64, "k3": radix_sort_kv_u64}
 
 
 def counted_cli(argv, need: dict):
@@ -762,8 +975,8 @@ def check_against_oracle(tmp, fa, name, k, canonical, mode, extra,
     out = os.path.join(tmp, name)
     argv = ["count", "-k", str(k), *(["-K"] if canonical else []), "-s",
             "-C", *extra, fa, "-o", out]
-    need = ({"h1": True, "k1": False, "k2": True} if hashed
-            else {"k1": True, "h1": False, "k2": True})
+    need = ({"h1": True, "k1": False, "k2": True, "s1": False} if hashed
+            else {"k1": True, "h1": False, "k2": True, "s1": False})
     secs, launches, _ = counted_cli(argv, need)
     which = oracle_unik(fa, out + ".oracle.unik", k, canonical, mode, hashed)
     if not same_bytes(out + ".unik", out + ".oracle.unik"):
@@ -774,9 +987,10 @@ def check_against_oracle(tmp, fa, name, k, canonical, mode, extra,
 
 
 def main_path(tmp, rng):
-    """The 134 Mbp CLI count, 2-bit and then hashed (bench.py's two ntHash
-    configurations), then -u, -d, k = 32 and k = 64 -H -u over one 50 Mbp
-    record; returns the launches of the 2-bit and the -K -H run."""
+    """The 134 Mbp CLI count, 2-bit, then hashed (bench.py's two ntHash
+    configurations) and sketched (its two sketch configurations), then
+    -u, -d, k = 32 and k = 64 -H -u over one 50 Mbp record; returns the
+    launches of the 2-bit, the -K -H and the -W 15 run."""
     fa = os.path.join(tmp, "in.fa")
     t0 = time.perf_counter()
     write_fasta(fa, rng, 4, RECORD_BASES)
@@ -785,7 +999,7 @@ def main_path(tmp, rng):
     out = os.path.join(tmp, "k23")
     argv = ["count", "-k", "23", "-K", "-s", "-C", fa, "-o", out]
     secs, launches, st = counted_cli(argv, {"k1": True, "h1": False,
-                                            "k2": True})
+                                            "k2": True, "s1": False})
     windows = 4 * (RECORD_BASES - 23 + 1)
     say(f"main path {' '.join(argv[:6])}: {secs:.3f} s, "
         f"{windows / secs:.1f} windows/s, launches {launches}")
@@ -796,7 +1010,9 @@ def main_path(tmp, rng):
         raise SystemExit(f"main path .unik differs from the {which} oracle")
     say(f"main path .unik ({os.path.getsize(out + '.unik')} bytes) equal to "
         f"the {which} oracle")
-    hashed = hashed_main_path(tmp, fa)
+    hashed, bases, keyed, valid = hashed_main_path(tmp, fa)
+    sketched = sketch_main_path(tmp, fa, bases, keyed, valid)
+    del bases, keyed, valid
     os.remove(fa)
     one = os.path.join(tmp, "one.fa")
     write_fasta(one, rng, 1, RECORD_BASES + (RECORD_BASES >> 1))
@@ -806,14 +1022,17 @@ def main_path(tmp, rng):
     check_against_oracle(tmp, one, "k64Hu", 64, False, "unique", ["-H", "-u"],
                          hashed=True)
     os.remove(one)
-    return {"k1": launches["k1"], "k2": launches["k2"], "h1": hashed["h1"]}
+    return {"k1": launches["k1"], "k2": launches["k2"], "h1": hashed["h1"],
+            "s1": sketched["s1"]}
 
 
 def hashed_main_path(tmp, fa):
     """``count -k 31 -K -H -s -C`` and ``count -k 31 -K -D 15 -s -C`` over
     the 134 Mbp FASTA (bench.py's count_nthash_canonical_sort_distinct and
     count_scaled_s15_sort_distinct), each held to the ntHash oracle, whose
-    one hash of every window serves both; returns the -H run's launches."""
+    one hash of every window serves both; returns the -H run's launches,
+    the packed bases and the oracle's keyed hashes and validity (for the
+    sketch runs)."""
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.io.fastx import pack_files
 
@@ -822,11 +1041,10 @@ def hashed_main_path(tmp, fa):
     with numpy_host():
         bases = pack_files([fa], k).bases
         t.append(time.perf_counter())
-        codes, _ = nthash_oracle(bases, k, True)
+        keyed, valid = nthash_keyed_oracle(bases, k, True)
         t.append(time.perf_counter())
-        u, _ = unique_counts(codes)
+        u, _ = unique_counts(keyed[valid])
         t.append(time.perf_counter())
-    del bases, codes
     say(f"ntHash oracle of {fa}: k={k} canonical, {len(u)} distinct codes, "
         f"{t[3] - t[0]:.3f} s (pack {t[1] - t[0]:.3f}, hash "
         f"{t[2] - t[1]:.3f}, unique {t[3] - t[2]:.3f})")
@@ -836,7 +1054,7 @@ def hashed_main_path(tmp, fa):
         out = os.path.join(tmp, f"k31{name}")
         argv = ["count", "-k", str(k), "-K", *extra, "-s", "-C", fa, "-o", out]
         secs, launches, st = counted_cli(argv, {"h1": True, "k1": False,
-                                                "k2": True})
+                                                "k2": True, "s1": False})
         first = first or launches
         say(f"hashed main path {' '.join(argv[:-3])}: {secs:.3f} s, "
             f"{windows / secs:.1f} windows/s, launches {launches}")
@@ -855,12 +1073,64 @@ def hashed_main_path(tmp, fa):
             f"{time.perf_counter() - t0:.3f} s)")
         os.remove(out + ".unik")
         os.remove(out + ".oracle.unik")
+    return first, bases, keyed, valid
+
+
+def sketch_main_path(tmp, fa, bases, keyed, valid):
+    """``count -k 31 -W 15 -s -C`` and ``count -k 31 -S 16 -s -C`` over the
+    134 Mbp FASTA (bench.py's count_minimizer_w15_sort_distinct and
+    count_syncmer_s16_sort_distinct, whole records, no -K: the sketch
+    switches it on), each held to its oracle over the ntHash oracle's
+    keyed hashes; returns the -W 15 run's launches."""
+    from unikmer_tpu_torch.io import unik
+
+    k, w, s = SKETCH_K, SKETCH_W, SKETCH_S
+    t0 = time.perf_counter()
+    with numpy_host():
+        skeyed, _ = nthash_keyed_oracle(bases, s, True)
+    say(f"ntHash oracle at s={s}: {time.perf_counter() - t0:.3f} s")
+    windows = 4 * (RECORD_BASES - k + 1)
+    runs = (("W15", ["-W", str(w)], "minimizer",
+             lambda: minimizer_oracle(keyed, valid, w)[0]),
+            ("S16", ["-S", str(s)], "closed syncmer",
+             lambda: syncmer_oracle(keyed, valid, skeyed, k, s)[0]))
+    first = None
+    for name, extra, what, oracle in runs:
+        out = os.path.join(tmp, f"k31{name}")
+        argv = ["count", "-k", str(k), *extra, "-s", "-C", fa, "-o", out]
+        torch.cuda.reset_peak_memory_stats()
+        secs, launches, st = counted_cli(argv, {"h1": True, "s1": True,
+                                                "k1": False, "k2": True})
+        peak = torch.cuda.max_memory_allocated()
+        first = first or launches
+        say(f"sketch main path {' '.join(argv[:-3])}: {secs:.3f} s, "
+            f"{windows / secs:.1f} windows/s, pieces "
+            f"{st.calls.get('s1', 0)}, launches {launches}, peak device "
+            f"memory {peak} B")
+        say(f"sketch main path {' '.join(extra)} stage seconds: " + json.dumps(
+            {x: round(v, 4) for x, v in st.seconds.items()}))
+        t0 = time.perf_counter()
+        with numpy_host():
+            u, _ = unique_counts(oracle())
+            write_oracle(out + ".oracle.unik", k, unik.SORTED | unik.CANONICAL
+                         | unik.HASHED, u)
+        if not same_bytes(out + ".unik", out + ".oracle.unik"):
+            raise SystemExit(f"{' '.join(argv)}: .unik differs from the "
+                             f"{what} oracle")
+        say(f"sketch main path {' '.join(extra)} .unik ("
+            f"{os.path.getsize(out + '.unik')} bytes, {len(u)} codes, "
+            f"{len(u) / len(keyed):.4f} of the positions) equal to the "
+            f"{what} oracle ({time.perf_counter() - t0:.3f} s)")
+        os.remove(out + ".unik")
+        os.remove(out + ".oracle.unik")
     return first
 
 
 def linear_hashed_path(tmp, rng):
     """A small ``count -k 27 -K -l -H -C`` (two 2^20-base records) held
-    to the ntHash oracle's windows in genome order."""
+    to the ntHash oracle's windows in genome order, then ``count -k 23
+    -W 5 -l -C`` over them held to the minimizer oracle's stream; returns
+    the launches of both."""
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.io.fastx import pack_files
 
@@ -868,7 +1138,8 @@ def linear_hashed_path(tmp, rng):
     write_fasta(fa, rng, 2, LINEAR_BASES)
     out = os.path.join(tmp, "linH")
     argv = ["count", "-k", "27", "-K", "-l", "-H", "-C", fa, "-o", out]
-    secs, launches, _ = counted_cli(argv, {"h1": True, "k1": False})
+    secs, launches, _ = counted_cli(argv, {"h1": True, "k1": False,
+                                           "s1": False})
     t0 = time.perf_counter()
     with numpy_host():
         codes, _ = nthash_oracle(pack_files([fa], 27).bases, 27, True)
@@ -879,6 +1150,72 @@ def linear_hashed_path(tmp, rng):
     say(f"{' '.join(argv[:-3])}: {len(codes)} windows in genome order, "
         f"equal to the ntHash oracle ({time.perf_counter() - t0:.3f} s); "
         f"CLI {secs:.3f} s, launches {launches}")
+    out = os.path.join(tmp, "linW")
+    argv = ["count", "-k", "23", "-W", "5", "-l", "-C", fa, "-o", out]
+    secs, sketch_launches, _ = counted_cli(argv, {"h1": True, "s1": True,
+                                                  "k1": False})
+    t0 = time.perf_counter()
+    with numpy_host():
+        keyed, valid = nthash_keyed_oracle(pack_files([fa], 23).bases, 23)
+        codes, _ = minimizer_oracle(keyed, valid, 5)
+        write_oracle(out + ".oracle.unik", 23, unik.CANONICAL | unik.HASHED,
+                     codes, number=-1)
+    if not same_bytes(out + ".unik", out + ".oracle.unik"):
+        raise SystemExit(f"{' '.join(argv)}: .unik differs from the "
+                         f"minimizer oracle")
+    say(f"{' '.join(argv[:-3])}: {len(codes)} minimizers in genome order, "
+        f"equal to the minimizer oracle ({time.perf_counter() - t0:.3f} s); "
+        f"CLI {secs:.3f} s, launches {sketch_launches}")
+    os.remove(fa)
+    return launches, sketch_launches
+
+
+def write_records_fasta(path: str, rng, lengths) -> None:
+    """One record of random DNA a length, with lowercase stretches and N
+    runs."""
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "wb") as f:
+        for i, n in enumerate(lengths):
+            seq = lut[rng.integers(0, 4, size=n, dtype=np.uint8)]
+            if n > 500:
+                a = int(rng.integers(0, n - 400))
+                seq[a:a + 300] |= 32
+                a = int(rng.integers(0, n - 100))
+                seq[a:a + int(rng.integers(1, 60))] = ord("N")
+            f.write(b">c%d\n%s\n" % (i, seq.tobytes()))
+
+
+def compat_path(tmp, rng):
+    """``count -k 31 -S 16 --syncmer-impl compat -s -C`` over about 4 Mbp
+    of records from 1 to COMPAT_MAX_BASES bases (some shorter than k and
+    than the W = 30 vote window), held to the per-record compat oracle;
+    returns the launches."""
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.io.fastx import pack_records, read_fastx
+
+    k, s = SKETCH_K, SKETCH_S
+    fa = os.path.join(tmp, "compat.fa")
+    lengths = rng.integers(1, COMPAT_MAX_BASES, size=COMPAT_RECORDS)
+    lengths[:6] = (1, 20, 30, 31, 32, 45)
+    write_records_fasta(fa, rng, lengths)
+    out = os.path.join(tmp, "compat")
+    argv = ["count", "-k", str(k), "-S", str(s), "--syncmer-impl", "compat",
+            "-s", "-C", fa, "-o", out]
+    secs, launches, _ = counted_cli(argv, {"h1": True, "s1": True,
+                                           "k1": False, "k2": True})
+    t0 = time.perf_counter()
+    with numpy_host():
+        codes, _ = compat_oracle(pack_records(read_fastx(fa), k), k, s)
+        u, _ = unique_counts(codes)
+        write_oracle(out + ".oracle.unik", k, unik.SORTED | unik.CANONICAL
+                     | unik.HASHED, u)
+    if not same_bytes(out + ".unik", out + ".oracle.unik"):
+        raise SystemExit(f"{' '.join(argv)}: .unik differs from the "
+                         f"per-record compat oracle")
+    say(f"{' '.join(argv[:-3])}: {len(lengths)} records, "
+        f"{int(lengths.sum())} bases, {len(u)} codes, equal to the "
+        f"per-record compat oracle ({time.perf_counter() - t0:.3f} s); CLI "
+        f"{secs:.3f} s, launches {launches}")
     os.remove(fa)
     return launches
 
@@ -936,9 +1273,10 @@ def write_taxid_fasta(path: str, rng, taxids, record_bases: int,
 
 
 def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
-                      data_dir: str, hashed: bool = False):
-    """Write the oracle's .unik for ``count -k k [-K] [-H] -s -C -T -r ...``;
-    returns (which oracle, codes, taxids)."""
+                      data_dir: str, hashed: bool = False,
+                      minimizer_w: int = 0):
+    """Write the oracle's .unik for ``count -k k [-K] [-H] [-W w] -s -C -T
+    -r ...``; returns (which oracle, codes, taxids)."""
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.io.fastx import pack_records, read_fastx
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
@@ -950,8 +1288,12 @@ def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
         rec_taxids = np.array([int(re_t.search(r.name).group(1))
                                for r in records], np.uint32)
         packed = pack_records(records, k)
-        windows = nthash_oracle if hashed else numpy_windows
-        codes, pos = windows(packed.bases, k, canonical)
+        if minimizer_w:
+            keyed, valid = nthash_keyed_oracle(packed.bases, k)
+            codes, pos = minimizer_oracle(keyed, valid, minimizer_w)
+        else:
+            windows = nthash_oracle if hashed else numpy_windows
+            codes, pos = windows(packed.bases, k, canonical)
         taxids = rec_taxids[np.searchsorted(packed.starts, pos, "right") - 1]
         uniq, merged = taxdb.lca_reduce(codes, taxids)
         if mode != "distinct":
@@ -959,26 +1301,30 @@ def oracle_taxid_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
             keep = counts == 1 if mode == "unique" else counts > 1
             uniq, merged = uniq[keep], merged[keep]
         write_oracle(out, k, unik.SORTED | unik.INCLUDE_TAXID
-                     | (unik.CANONICAL if canonical else 0)
-                     | (unik.HASHED if hashed else 0), uniq, merged)
-    return f"numpy{' ntHash' if hashed else ''} + lca_reduce", uniq, merged
+                     | (unik.CANONICAL if canonical or minimizer_w else 0)
+                     | (unik.HASHED if hashed or minimizer_w else 0),
+                     uniq, merged)
+    which = (" minimizer" if minimizer_w else " ntHash" if hashed else "")
+    return f"numpy{which} + lca_reduce", uniq, merged
 
 
 def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows,
-              hashed=False):
+              hashed=False, minimizer_w=0):
     """One ``count -T`` CLI run with its launch counts, stage seconds and
     peak device memory, held against the oracle's bytes; returns (the
     launches, the oracle's codes and taxids)."""
     out = os.path.join(tmp, name)
     flags = {"unique": ["-u"], "repeated": ["-d"]}.get(mode, [])
+    if minimizer_w:
+        flags += ["-W", str(minimizer_w)]
     argv = ["count", "-k", str(k), *(["-K"] if canonical else []),
             *(["-H"] if hashed else []), "-s", "-C", *flags, "-T", "-r",
             RE_TAXID, "--data-dir", data_dir, fa, "-o", out]
     torch.cuda.reset_peak_memory_stats()
-    encode = "h1" if hashed else "k1"
+    encode = "h1" if hashed or minimizer_w else "k1"
     secs, launches, st = counted_cli(
         argv, {encode: True, "h1" if encode == "k1" else "k1": False,
-               "k3": True})
+               "k3": True, "s1": bool(minimizer_w)})
     peak = torch.cuda.max_memory_allocated()
     say(f"{name} {' '.join(argv[:-5])}: {secs:.3f} s, {windows} windows, "
         f"{windows / secs:.1f} windows/s, pieces {st.calls.get(encode, 0)}, "
@@ -986,7 +1332,8 @@ def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows,
     say(f"{name} stage seconds: " + json.dumps(
         {s: round(v, 4) for s, v in st.seconds.items()}))
     which, codes, taxids = oracle_taxid_unik(fa, out + ".oracle.unik", k,
-                                             canonical, mode, data_dir, hashed)
+                                             canonical, mode, data_dir, hashed,
+                                             minimizer_w)
     if not same_bytes(out + ".unik", out + ".oracle.unik"):
         raise SystemExit(f"{name}: .unik differs from the {which} oracle")
     say(f"{name} .unik ({os.path.getsize(out + '.unik')} bytes, {len(codes)} "
@@ -1031,9 +1378,12 @@ def taxid_path(tmp, rng):
             tmp, name, fa, d, k, canonical, mode,
             len(taxids) * (length - k + 1))
         k3 += launches["k3"]
-        if name == "T1":  # the same input hashed: H1, then K3
+        if name == "T1":  # the same input hashed (H1, then K3) and sketched
             taxid_run(tmp, "T1H", fa, d, 31, True, "distinct",
                       len(taxids) * (length - 31 + 1), hashed=True)
+            taxid_run(tmp, "T1W", fa, d, SKETCH_K, False, "distinct",
+                      len(taxids) * (length - SKETCH_K + 1),
+                      minimizer_w=SKETCH_W)
         os.remove(fa)
     # T3: the one window of 32 T's is a real 2^64-1 code, kept with the
     # taxid of its record
@@ -1360,6 +1710,7 @@ def host_costs(dev, rng) -> dict:
     from unikmer_tpu_torch.ops.radix_sort import (
         radix_sort_kv_u64, radix_sort_u64,
     )
+    from unikmer_tpu_torch.ops.sketch import sketch_select
 
     n = 4097
     p2, vm = (torch.from_numpy(a).to(dev)
@@ -1368,12 +1719,14 @@ def host_costs(dev, rng) -> dict:
                             .view(np.int64)).to(dev)
     vals = u32_tensor(rng, (n,), dev)
     small = u32_tensor(rng, (32, 128), dev)
+    kk, kv = encode_nthash(p2, vm, n, SKETCH_K, True)
     _, blk = entry.probe_inputs(dev)
     ds = probes.p2a_distances(4, 32)
     smi_clocks("before host_us")
     got = host_us_turns({
         "k1": lambda: encode_2bit(p2, vm, n, 23, True),
         "h1": lambda: encode_nthash(p2, vm, n, 31, True),
+        "s1": lambda: sketch_select("minimizer", kk, SKETCH_W, kv),
         "k2": lambda: radix_sort_u64(keys, 46),
         "k3": lambda: radix_sort_kv_u64(keys, vals, 46),
         "P1a": lambda: probes.copy_inc_u32(small),
@@ -1412,6 +1765,11 @@ KERNELS = (  # (key, name, source, the TPU kernel it replaces, also)
     ("h1", "H1 encode_nthash", "unikmer_tpu_torch/csrc/nthash.cu",
      "unikmer_tpu/ops/nthash.py:68 nthash_windows (XLA, no Pallas kernel)",
      ["unikmer_tpu/models/count.py:278", "unikmer_tpu/models/count.py:195-197"]),
+    ("s1", "S1 sketch_select", "unikmer_tpu_torch/csrc/sketch.cu",
+     "unikmer_tpu/ops/sketch.py:42 _window_argmin and :67 _window_all (XLA, "
+     "no Pallas kernel)",
+     ["unikmer_tpu/ops/sketch.py:79-98", "unikmer_tpu/ops/sketch.py:205-221",
+      "unikmer_tpu/models/count.py:205-207"]),
     ("k2", "K2 radix_sort_u64", "unikmer_tpu_torch/csrc/radix_sort.cu",
      "unikmer_tpu/ops/pallas_sort.py:235", []),
     ("k3", "K3 radix_sort_kv_u64", "unikmer_tpu_torch/csrc/radix_sort.cu",
@@ -1462,7 +1820,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     results = {
         "k1": check_k1(dev, rng, kv.using(pr5[kv.EARLIER_K1], encode_2bit)),
-        "h1": check_h1(dev, rng),
+        "h1": check_h1(dev, rng), "s1": check_s1(dev, rng),
         "k2": check_k2(dev, rng), "k3": check_k3(dev, rng),
         **check_probes(dev, rng,
                        kv.using(pr5[kv.EARLIER_ROW_CMPEX], row_cmpex_u32))}
@@ -1475,6 +1833,7 @@ def main() -> int:
         launches = main_path(tmp, rng)
         launches["k3"] = taxid_path(tmp, rng)
         linear_hashed_path(tmp, rng)
+        compat_path(tmp, rng)
     launches.update(probe_path())
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -68,11 +68,78 @@ def test_count_bytes_match_jax_cli(fastas, envs, tmp_path, flags):
     assert outs["port"] == outs["jax"]
 
 
+@pytest.fixture(scope="module")
+def sketch_fastas(tmp_path_factory):
+    """Two files of records up to 12 kb (one shorter than k, one holding
+    a repeat), headers ``sample<taxid>``."""
+    d = tmp_path_factory.mktemp("sk")
+    rng = np.random.default_rng(20261017)
+    paths = []
+    for f in range(2):
+        lines = []
+        for r, n in enumerate((12000, 20, 3000, 9000)):
+            seq = rng.choice(np.frombuffer(b"ACGTacgtN", np.uint8), size=n,
+                             p=[.24, .24, .24, .24, .01, .01, .01, .005, .005])
+            if n > 5000:
+                seq[-2000:] = seq[:2000]
+            lines.append(f">f{f}r{r} sample{r}")
+            s = seq.tobytes().decode()
+            lines += [s[i:i + 60] for i in range(0, len(s), 60)]
+        p = d / f"sk{f}.fa"
+        p.write_text("\n".join(lines) + "\n")
+        paths.append(str(p))
+    return paths
+
+
+TS = ["-T", "-r", r"sample(\d+)", "--data-dir", "tests/data/taxdump"]
+SKETCH_CASES = [
+    ["-k", "31", "-W", "15", "-s"],
+    ["-k", "31", "-S", "16", "-s"],
+    ["-k", "21", "-S", "9", "--syncmer-impl", "compat", "-s"],
+    ["-k", "21", "-W", "5", "-D", "4", "-s"],
+    ["-k", "21", "-W", "5", "-u", "-s"],
+    ["-k", "21", "-S", "9", "-d", "-s"],
+    ["-k", "21", "-W", "5", "--circular", "-s"],
+    ["-k", "23", "-W", "5", "-l"],
+    ["-k", "21", "-W", "5", "-s", *TS],
+    ["-k", "21", "-S", "9", "--syncmer-impl", "compat", "-s", *TS],
+]
+
+
+@pytest.mark.parametrize("flags", SKETCH_CASES, ids=" ".join)
+def test_sketch_count_bytes_match_jax_cli(sketch_fastas, envs, tmp_path,
+                                          flags):
+    """The sketches with each flag they combine with: the same .unik
+    bytes as the JAX CLI (its compat runs may take its host engine; the
+    JAX tests hold that engine to its device twin)."""
+    outs = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        prefix = str(tmp_path / name)
+        assert main(["count", *flags, "-C", *sketch_fastas, "-o",
+                     prefix]) == 0
+        outs[name] = (tmp_path / f"{name}.unik").read_bytes()
+    assert len(outs["port"]) > 400
+    assert outs["port"] == outs["jax"]
+
+
+def test_sketch_without_k_flag_writes_canonical(sketch_fastas, envs,
+                                                tmp_path):
+    """``count -k 21 -W 5`` without -K: the sketch switches -K on, so the
+    header says CANONICAL (as the JAX CLI writes it)."""
+    from unikmer_tpu_torch.io import unik
+
+    outs = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        prefix = str(tmp_path / name)
+        assert main(["count", "-k", "21", "-W", "5", "-C", sketch_fastas[0],
+                     "-o", prefix]) == 0
+        outs[name] = (tmp_path / f"{name}.unik").read_bytes()
+    flag = unik.UnikReader(str(tmp_path / "port.unik")).header.flag
+    assert flag & unik.CANONICAL and flag & unik.HASHED
+    assert outs["port"] == outs["jax"]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["-k", "21", "-W", "5"], "item 6"),
-    (["-k", "21", "-S", "9"], "item 6"),
-    (["-k", "21", "--syncmer-impl", "compat", "-S", "9"], "item 6"),
-    (["-k", "21", "-T", "-r", r"(\d+)", "-W", "5"], "item 6"),
     (["-k", "21", "--mesh", "2"], "item 9"),
     (["-k", "21", "-T", "-r", r"(\d+)", "--mesh", "2"], "item 9"),
 ])

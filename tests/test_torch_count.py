@@ -227,16 +227,68 @@ def test_hashed_count_matches_jax(kw, stream):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(k=21, minimizer_w=5), "item 6"),
-    (dict(k=21, syncmer_s=9), "item 6"),
-])
-def test_unported_configs_raise(kw, item):
-    cfg = port_count.CountConfig(**kw)
-    packed = port_packed(pack_records(
-        random_records(np.random.default_rng(1), 1, 99, 100), cfg.k))
-    with pytest.raises(NotImplementedError, match=item):
-        port_count.count_packed(packed, cfg, CPU)
+SKETCH_COUNTS = [
+    (dict(k=31, minimizer_w=15), "packed"),
+    (dict(k=31, minimizer_w=15), "stream"),
+    (dict(k=31, minimizer_w=15), "linear"),
+    (dict(k=21, minimizer_w=5, scale=4, mode="unique"), "packed"),
+    (dict(k=21, minimizer_w=5, mode="repeated", circular=True), "stream"),
+    (dict(k=31, syncmer_s=16), "packed"),
+    (dict(k=31, syncmer_s=16, mode="unique"), "stream"),
+    (dict(k=21, syncmer_s=9, scale=3), "linear"),
+    (dict(k=31, syncmer_s=16, syncmer_impl="compat"), "packed"),
+    (dict(k=31, syncmer_s=16, syncmer_impl="compat", mode="repeated"),
+     "stream"),
+    (dict(k=21, syncmer_s=9, syncmer_impl="compat"), "linear"),
+    (dict(k=15, syncmer_s=15, syncmer_impl="compat", circular=True),
+     "packed"),
+]
+
+
+@pytest.mark.parametrize("kw,route", SKETCH_COUNTS,
+                         ids=lambda x: x if isinstance(x, str) else str(x))
+def test_sketch_count_matches_jax(kw, route):
+    """Sketch configs (H1 then S1, plain versions) through count_packed,
+    count_stream_packed (3 kb pieces: whole records, never segments) and
+    count_linear, against the JAX package, records packed with the
+    config's record gap."""
+    jcfg = jax_count.CountConfig(**kw)
+    cfg = port_count.CountConfig.from_reference(jcfg)
+    assert not cfg.segmentable and cfg.record_gap == jcfg.record_gap
+    recs = random_records(np.random.default_rng(cfg.k + cfg.minimizer_w),
+                          5, 30, 12000)
+    packed = pack_records(recs, cfg.k, cfg.circular, gap=cfg.record_gap)
+    if route == "stream":
+        packs = [pack_records(recs[:2], cfg.k, cfg.circular,
+                              gap=cfg.record_gap),
+                 pack_records(recs[2:], cfg.k, cfg.circular,
+                              gap=cfg.record_gap)]
+        want = jax_count.count_stream_packed(iter(packs), jcfg,
+                                             chunk_bases=3000)
+        got = port_count.count_stream_packed(
+            iter([port_packed(p) for p in packs]), cfg, chunk_bases=3000,
+            device=CPU)
+        assert max(len(r.seq) for r in recs) > 3000 + cfg.k
+    elif route == "linear":
+        want = jax_count.count_linear(packed, jcfg)
+        got = port_count.count_linear(port_packed(packed), cfg, CPU)
+    else:
+        want = jax_count.count_packed(packed, jcfg)
+        got = port_count.count_packed(port_packed(packed), cfg, CPU)
+    assert len(want) > (0 if cfg.mode == "repeated" else 200 // cfg.scale)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sketch_count_stream_keeps_records_whole():
+    """count_stream over records: a sketch piece holds whole records, so
+    a record longer than the piece size counts as one piece would."""
+    recs = random_records(np.random.default_rng(4), 3, 5000, 9000)
+    cfg = port_count.CountConfig(k=31, minimizer_w=15)
+    whole = port_count.count_packed(
+        port_packed(pack_records(recs, 31)), cfg, CPU)
+    streamed = port_count.count_stream(iter(recs), cfg, chunk_bases=2000,
+                                       device=CPU)
+    np.testing.assert_array_equal(streamed, whole)
 
 
 def test_port_imports_no_jax():
@@ -318,3 +370,27 @@ def test_count_stream_on_card_matches_oracle(cuda_device, mode):
     got = port_count.count_stream(iter(recs), cfg, chunk_bases=50000,
                                   device=cuda_device)
     np.testing.assert_array_equal(got, oracle(recs, 23, True, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(k=31, minimizer_w=15),
+    dict(k=21, minimizer_w=5, scale=4, mode="unique"),
+    dict(k=31, syncmer_s=16, mode="repeated"),
+    dict(k=31, syncmer_s=16, syncmer_impl="compat"),
+], ids=str)
+def test_sketch_count_on_card_matches_cpu(cuda_device, kw):
+    """H1 then S1 on the card against their plain versions on the CPU,
+    through count_stream (whole-record pieces) and count_linear."""
+    cfg = port_count.CountConfig(**kw)
+    recs = random_records(np.random.default_rng(22), 6, 10, 90000)
+    for dev in (cuda_device, CPU):
+        got = port_count.count_stream(iter(recs), cfg, chunk_bases=50000,
+                                      device=dev)
+        lin = port_count.count_linear(
+            port_packed(pack_records(recs, cfg.k, gap=cfg.record_gap)), cfg,
+            dev)
+        if dev == CPU:
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(lin, want_lin)
+        want, want_lin = got, lin

@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,6 +24,7 @@ from unikmer_tpu.ops.codec import canonical_np as jax_canonical_np
 from unikmer_tpu.ops.codec import window_valid as jax_window_valid
 from unikmer_tpu.ops.nthash import nthash_windows_np as jax_nthash_windows_np
 from unikmer_tpu.ops.nthash import scaled_max_hash as jax_scaled_max_hash
+from unikmer_tpu.ops import sketch as jax_sketch
 from unikmer_tpu.taxonomy import taxdump as jax_taxdump
 from unikmer_tpu_torch import native
 from unikmer_tpu_torch.cli.main import main as port_main
@@ -399,6 +401,100 @@ def test_chip_smoke_hashed_oracles_match_the_port_cli(tmp_path, monkeypatch):
                       "-o", out]) == 0
     chip_smoke.oracle_taxid_unik(str(tfa), out + ".oracle.unik", 31, True,
                                  "distinct", TAXDUMP, hashed=True)
+    assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
+
+
+def sketch_input(seed, n=6000):
+    """Bases with invalid singletons, a poly-A run (equal hashes) and a
+    repeat."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, size=n, dtype=np.uint8)
+    bases[rng.random(n) < 0.01] = 255
+    bases[2000:2300] = 0
+    bases[4000:4500] = bases[3000:3500]
+    return bases
+
+
+@pytest.mark.parametrize("k,w,s", [(31, 15, 16), (21, 5, 9), (15, 1, 15),
+                                   (64, 100, 1)])
+def test_chip_smoke_sketch_oracles_match_jax(k, w, s):
+    """chip_smoke's minimizer, closed-syncmer and per-record compat
+    oracles (written from the definitions) against the JAX package's
+    sketch streams: the same positions and codes."""
+    bases = sketch_input(k + w)
+    kk, kv = chip_smoke.nthash_keyed_oracle(bases, k)
+    sk, _ = chip_smoke.nthash_keyed_oracle(bases, s)
+    for got, (codes, emit) in (
+            (chip_smoke.minimizer_oracle(kk, kv, w),
+             jax_sketch.minimizer_windows(jnp.asarray(bases), k, w)),
+            (chip_smoke.syncmer_oracle(kk, kv, sk, k, s),
+             jax_sketch.syncmer_windows(jnp.asarray(bases), k, s))):
+        emit = np.asarray(emit)
+        np.testing.assert_array_equal(got[1], np.flatnonzero(emit))
+        np.testing.assert_array_equal(got[0], np.asarray(codes)[emit])
+        assert len(got[1]) > 20
+    rng = np.random.default_rng(k)
+    recs = [jax_fastx.Record(b"c", b"c", rng.choice(
+        np.frombuffer(b"ACGTN", np.uint8), size=int(n),
+        p=[.245, .245, .245, .245, .02]).tobytes())
+        for n in (1500, 3, k - 1, k, 2 * (k - s) + 1, 800, 2500)]
+    packed = jax_fastx.pack_records(recs, k, gap=jax_sketch.compat_gap(k, s))
+    codes, emit = jax_sketch.syncmer_compat_windows(
+        jnp.asarray(packed.bases), k, s)
+    emit = np.asarray(emit)
+    got = chip_smoke.compat_oracle(packed, k, s)
+    np.testing.assert_array_equal(got[1], np.flatnonzero(emit))
+    np.testing.assert_array_equal(got[0], np.asarray(codes)[emit])
+
+
+def test_chip_smoke_sketch_oracles_match_the_port_cli(tmp_path, monkeypatch):
+    """The .unik files chip_smoke's sketch runs hold to its oracles: -W,
+    -S and compat (-s), -l -W and -T -W, through the port's CLI on the
+    CPU."""
+    monkeypatch.setenv("UNIKMER_TPU_TORCH_DEVICE", "cpu")
+    rng = np.random.default_rng(17)
+    lengths = rng.integers(1, 3000, size=12)
+    lengths[:4] = (1, 20, 31, 45)
+    fa = str(tmp_path / "s.fa")
+    chip_smoke.write_records_fasta(fa, rng, lengths)
+    with chip_smoke.numpy_host():
+        bases = fastx.pack_files([fa], 31).bases
+        kk, kv = chip_smoke.nthash_keyed_oracle(bases, 31)
+        sk, _ = chip_smoke.nthash_keyed_oracle(bases, 16)
+        want = {
+            "W": chip_smoke.minimizer_oracle(kk, kv, 15)[0],
+            "S": chip_smoke.syncmer_oracle(kk, kv, sk, 31, 16)[0],
+            "C": chip_smoke.compat_oracle(
+                fastx.pack_records(fastx.read_fastx(fa), 31), 31, 16)[0]}
+        lin = chip_smoke.minimizer_oracle(*chip_smoke.nthash_keyed_oracle(
+            fastx.pack_files([fa], 23).bases, 23), 5)[0]
+    hashed = unik.CANONICAL | unik.HASHED
+    for name, flags in (("W", ["-W", "15"]), ("S", ["-S", "16"]),
+                        ("C", ["-S", "16", "--syncmer-impl", "compat"])):
+        out = str(tmp_path / name)
+        assert port_main(["count", "-k", "31", *flags, "-s", "-C", fa,
+                          "-o", out]) == 0
+        chip_smoke.write_oracle(out + ".oracle.unik", 31, unik.SORTED | hashed,
+                                chip_smoke.unique_counts(want[name])[0])
+        assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
+    out = str(tmp_path / "l")
+    assert port_main(["count", "-k", "23", "-W", "5", "-l", "-C", fa, "-o",
+                      out]) == 0
+    chip_smoke.write_oracle(out + ".oracle.unik", 23, hashed, lin, number=-1)
+    assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
+    tfa = tmp_path / "t.fa"
+    shared = rng.choice(list(b"ACGT"), size=300).astype(np.uint8).tobytes()
+    with open(tfa, "wb") as f:
+        for i, t in enumerate((562, 511145, 585057, 562)):
+            seq = shared + rng.choice(list(b"ACGT"), size=900).astype(
+                np.uint8).tobytes()
+            f.write(b">r%d taxid|%d\n%s\n" % (i, t, seq))
+    out = str(tmp_path / "tW")
+    assert port_main(["count", "-k", "31", "-W", "15", "-s", "-C", "-T", "-r",
+                      chip_smoke.RE_TAXID, "--data-dir", TAXDUMP, str(tfa),
+                      "-o", out]) == 0
+    chip_smoke.oracle_taxid_unik(str(tfa), out + ".oracle.unik", 31, False,
+                                 "distinct", TAXDUMP, minimizer_w=15)
     assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
 
 

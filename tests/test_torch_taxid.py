@@ -218,16 +218,38 @@ def test_hashed_taxids_and_linear_match_jax(taxdb, port_taxdb, kw):
     assert len(gc) > 100
 
 
-def test_taxid_paths_reject_unported_configs(port_taxdb):
-    recs = taxid_records(1)
-    for kw, item in ((dict(k=21, minimizer_w=5), "item 6"),):
-        cfg = port_count.CountConfig(**kw)
-        with pytest.raises(NotImplementedError, match=item):
-            port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID,
-                                           port_taxdb, CPU)
-        with pytest.raises(NotImplementedError, match=item):
-            port_count.linear_codes_all(np.zeros(50, np.uint8), cfg,
-                                        device=CPU)
+@pytest.mark.parametrize("kw", [
+    dict(k=21, minimizer_w=5),
+    dict(k=31, minimizer_w=15, mode="unique"),
+    dict(k=21, syncmer_s=9, mode="repeated"),
+    dict(k=21, syncmer_s=11, syncmer_impl="compat"),
+], ids=str)
+def test_sketch_taxids_and_linear_match_jax(taxdb, port_taxdb, kw):
+    """-T and -l -T with sketches (H1 then S1, plain versions) against the
+    JAX package: one piece, streamed whole-record pieces, and the
+    genome-order windows of records packed with the config's gap."""
+    recs = taxid_records(kw["k"] + kw.get("minimizer_w", 0), hi=2500)
+    jcfg = jax_count.CountConfig(**kw)
+    cfg = port_count.CountConfig.from_reference(jcfg)
+    want = jax_count.count_packed_taxids(iter(recs), jcfg, RE_TAXID, taxdb)
+    got = port_count.count_packed_taxids(iter(recs), cfg, RE_TAXID,
+                                         port_taxdb, CPU)
+    assert_pair_equal(got, want)
+    assert len(got[0]) > (0 if cfg.mode == "repeated" else 100)
+    assert len(np.unique(got[1])) > 1
+    packed, rec_taxids = port_count.parse_taxid_records(iter(recs), cfg,
+                                                        RE_TAXID)
+    streamed = port_count.count_taxids_stream_device(
+        packed, rec_taxids, cfg, jax_plan(taxdb, rec_taxids), port_taxdb,
+        chunk_bases=1500, device=CPU)
+    assert_pair_equal(streamed, want)
+    jpacked = pack_records(recs, cfg.k, gap=cfg.record_gap)
+    wc, wp = jax_count.linear_codes_all(jpacked.bases, jcfg, chunk_bases=900)
+    gc, gp = port_count.linear_codes_all(jpacked.bases, cfg, chunk_bases=900,
+                                         device=CPU)
+    np.testing.assert_array_equal(gc, wc)
+    np.testing.assert_array_equal(gp, wp)
+    assert len(gc) > 100
 
 
 # ---------------------------------------------------------------------

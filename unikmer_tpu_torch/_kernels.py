@@ -119,6 +119,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ukt_encode_nthash.restype = i32
     lib.ukt_encode_nthash.argtypes = [p, i64, p, i64, i64, i32, i32,
                                       ctypes.c_uint64, p, p, p]
+    lib.ukt_sketch_select.restype = i32
+    lib.ukt_sketch_select.argtypes = [i32, p, p, p, i64, i32, ctypes.c_uint64,
+                                      p, p, p]
     lib.ukt_radix_tile.restype = i32
     lib.ukt_radix_tile.argtypes = []
     lib.ukt_radix_upfront.restype = i32

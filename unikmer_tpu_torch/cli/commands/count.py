@@ -3,12 +3,13 @@
 Port of unikmer_tpu/cli/commands/count.py with the same flags, checks
 and messages, and the same ``.unik`` header flags and writer settings.
 2-bit configs (k <= 32, -K, -s, -u, -d, --circular, -t, several files,
--C), hashed configs (-H, -D scaled, k 33-64: ntHash codes), -T/-r
+-C), hashed configs (-H, -D scaled, k 33-64: ntHash codes), sketches
+(-W minimizer, -S closed syncmer, --syncmer-impl compat), -T/-r
 (per-record taxids, LCA-merged, read with --data-dir's nodes.dmp) and
 -l (genome order, with or without -T) always run on the device through
 models/count.py; there is no size-based routing to the host engine.
-Flags whose pipelines are not ported yet exit with an error that names
-the ROADMAP item bringing them.
+--mesh, not ported yet, exits with an error that names the ROADMAP item
+bringing it.
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ from ._common import log_saved, new_command
 
 # unported flag -> the ROADMAP queue-1 item that brings it
 _NOT_PORTED = {
-    "sketch": "-W/--minimizer-w and -S/--syncmer-s (sketches): ROADMAP queue 1 "
-              "item 6",
     "mesh": "--mesh (multi-GPU over NCCL): ROADMAP queue 1 item 9",
 }
 
@@ -79,8 +78,6 @@ def register(subparsers):
 
 
 def _not_ported(args, opt) -> str | None:
-    if args.minimizer_w > 0 or args.syncmer_s > 0 or args.syncmer_impl != "edgar":
-        return _NOT_PORTED["sketch"]
     if opt.mesh >= 1 and not args.linear:  # -l runs on one device anyway
         return _NOT_PORTED["mesh"]
     return None
@@ -90,8 +87,9 @@ def _reference_checks(args) -> bool:
     """The reference's flag checks and warnings, in its order
     (unikmer_tpu/cli/commands/count.py:59-97), so a flag combination that
     the reference refuses exits with its message even where it names a
-    flag the port does not run yet.  Returns whether the codes are
-    hashed (-H, or switched on by k > 32, -D or a sketch)."""
+    flag the port does not run yet.  Returns (hashed, canonical): -H,
+    or switched on by k > 32, -D or a sketch; -K, or switched on by a
+    sketch."""
     k = args.kmer_len
     if k <= 0:
         die("k-mer length must be positive")
@@ -106,8 +104,9 @@ def _reference_checks(args) -> bool:
     if args.scale > 1 and not hashed:
         hashed = True
         log.warning("flag -H/--hash is switched on for scale > 1")
-    if (args.minimizer_w > 0 or args.syncmer_s > 0) and not (hashed and args.canonical):
-        hashed = True
+    canonical = args.canonical
+    if (args.minimizer_w > 0 or args.syncmer_s > 0) and not (hashed and canonical):
+        hashed = canonical = True
         log.warning("flags -H/--hash and -K/--canonical are switched on for sketches")
     if args.minimizer_w > 0 and args.syncmer_s > 0:
         die("flag --minimizer-w and --syncmer-s can not be given simultaneously")
@@ -127,13 +126,13 @@ def _reference_checks(args) -> bool:
             die("flag -r/--parse-taxid-regexp needed when given flag -T/--parse-taxid")
         if not re.search(r"\(.+\)", args.parse_taxid_regexp):
             die('value of -r/--parse-taxid-regexp must contain "(" and ")" to capture taxid')
-    return hashed
+    return hashed, canonical
 
 
 def run(args) -> int:
     opt = get_options(args)
     k = args.kmer_len
-    hashed = _reference_checks(args)
+    hashed, canonical = _reference_checks(args)
     todo = _not_ported(args, opt)
     if todo:
         die(f"not supported by unikmer_tpu_torch yet: {todo}")
@@ -169,7 +168,7 @@ def run(args) -> int:
                 yield rec
 
     flag = 0
-    if args.canonical:
+    if canonical:
         flag |= unik.CANONICAL
     if hashed:
         flag |= unik.HASHED
@@ -191,13 +190,22 @@ def run(args) -> int:
         max_taxid=opt.max_taxid,
     )
 
+    cfg = CountConfig(k=k, canonical=canonical, hashed=hashed,
+                      scale=args.scale, minimizer_w=args.minimizer_w,
+                      syncmer_s=args.syncmer_s,
+                      syncmer_impl=args.syncmer_impl,
+                      circular=args.circular, mode=mode)
+
     def packed_stream():
         # the native fused ingest per file, else bounded record chunks
         chunk = _stream_chunk_bases(device)
         for f in files:
             if opt.verbose:
                 log.info(f"reading sequence file: {f}")
-            part = _try_native_load(f, k, args.circular)
+            # the compat syncmer needs compat_gap separator bytes between
+            # records, which the native loader's packing does not place
+            part = (None if cfg.needs_record_sep
+                    else _try_native_load(f, k, args.circular))
             if part is not None:
                 b, s, ln, _ = part
                 yield PackedSeqs(b, s, ln)
@@ -207,13 +215,12 @@ def run(args) -> int:
                 buf.append(rec)
                 size += len(rec.seq)
                 if size >= chunk:
-                    yield pack_records(buf, k, args.circular)
+                    yield pack_records(buf, k, args.circular,
+                                       gap=cfg.record_gap)
                     buf, size = [], 0
             if buf:
-                yield pack_records(buf, k, args.circular)
+                yield pack_records(buf, k, args.circular, gap=cfg.record_gap)
 
-    cfg = CountConfig(k=k, canonical=args.canonical, hashed=hashed,
-                      scale=args.scale, circular=args.circular, mode=mode)
     if args.linear:
         return _run_linear(args, opt, cfg, records, re_taxid, files, name_res,
                            out_file, flag, writer_kw, device)
@@ -261,10 +268,12 @@ def _run_linear(args, opt, cfg, records, re_taxid, files, name_res, out_file,
         taxids = rec_taxids[np.searchsorted(packed.starts, pos, side="right") - 1]
     else:
         with stage("ingest", torch.device("cpu")):
-            if not name_res and all(_native_ingest_ok(f) for f in files):
+            if (not name_res and not cfg.needs_record_sep
+                    and all(_native_ingest_ok(f) for f in files)):
                 packed = pack_files(files, k, args.circular)
             else:
-                packed = pack_records(records(), k, args.circular)
+                packed = pack_records(records(), k, args.circular,
+                                      gap=cfg.record_gap)
         codes, taxids = count_linear(packed, cfg, device), None
     with stage("write", torch.device("cpu")):
         out, _ = out_binary_stream(out_file)

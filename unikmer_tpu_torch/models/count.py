@@ -12,13 +12,18 @@ segments inside long records) and merge the per-piece sorted sets on
 the host, spilling to external sort chunks beyond
 UNIKMER_TPU_COUNT_MEM_MB, as the JAX package does.
 
+Sketch configs (-W minimizer, -S closed syncmer, ``--syncmer-impl
+compat``) encode a piece with H1 at scale 1 (the k-mers, and for
+syncmers the s-mers too), then S1 (ops/sketch.py: window select, emit
+rule and scaled threshold); the compat rule adds its vote and fill
+passes in plain PyTorch around S1's argmin, with the record separators
+carried to the card as a bitmask beside the 2-bit pack.  Sketch windows
+depend on their neighbours, so a sketch piece holds whole records.
+
 ``count -T`` (per-record taxids, LCA-merged per code) runs the same
 encode, then one K3 sort of (code, compact taxid id) pairs and the
 merge rounds of taxonomy/lca.py; ``count -l`` is the encode alone, the
 valid windows kept in genome order.
-
-The minimizer/syncmer sketches are not ported and raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ from ..ops.encode import encode_2bit
 from ..ops.nthash import (
     at_most, encode_nthash, nthash_windows, scaled_max_hash,
 )
+from ..ops.sketch import (
+    compat_gap, minimizer_windows, sketch_select, syncmer_compat_select,
+    syncmer_compat_windows, syncmer_windows, unpack_bits,
+)
 from ..ops.sort import (
     _compact, collapse_dual_keyed, collapse_keyed, collapse_sorted,
 )
@@ -48,9 +57,6 @@ from ..taxonomy.lca import (
 from ..utils.stages import stage
 
 _HOST = torch.device("cpu")
-
-_SKETCH_TODO = ("minimizer and syncmer sketches (-W/-S) are not ported yet: "
-                "ROADMAP queue 1 item 6")
 
 
 @dataclass(frozen=True)
@@ -91,9 +97,11 @@ class CountConfig:
 
     @property
     def record_gap(self) -> int:
-        if self.needs_record_sep:
-            raise NotImplementedError(_SKETCH_TODO)
-        return 1
+        """RECORD_SEP bytes between packed records: compat_gap for the
+        compat syncmer, else 1."""
+        if not self.needs_record_sep:
+            return 1
+        return compat_gap(self.k, self.syncmer_s)
 
     def __post_init__(self):
         if self.syncmer_s == 0 and self.syncmer_impl != "edgar":
@@ -113,17 +121,17 @@ class CountConfig:
             raise ValueError(f"k must be <= {MAX_K_HASHED}")
 
 
-def _require_ported(cfg: CountConfig) -> None:
-    """Raise for the sketches, the one kind of config not ported yet."""
-    if not cfg.segmentable:
-        raise NotImplementedError(_SKETCH_TODO)
-
-
 def window_codes(bases: torch.Tensor, cfg: CountConfig):
     """Per-position (codes, valid) of a uint8 base tensor: 2-bit codes,
-    or ntHash codes (hashed), kept at most scaled_max_hash (scaled)."""
-    _require_ported(cfg)
+    or ntHash codes (hashed), kept at most scaled_max_hash (scaled); for
+    sketches the (codes, emit) stream of ops/sketch.py, unscaled."""
     k = cfg.k
+    if cfg.minimizer_w > 0:
+        return minimizer_windows(bases, k, cfg.minimizer_w)
+    if cfg.syncmer_s > 0:
+        if cfg.syncmer_impl == "compat":
+            return syncmer_compat_windows(bases, k, cfg.syncmer_s)
+        return syncmer_windows(bases, k, cfg.syncmer_s)
     valid = codec.window_valid(bases, k)
     if cfg.hashed:
         codes = nthash_windows(bases, k, cfg.canonical)
@@ -139,6 +147,8 @@ def window_codes(bases: torch.Tensor, cfg: CountConfig):
 def count_step(bases: torch.Tensor, cfg: CountConfig):
     """Base tensor -> (sorted dense prefix of kept codes, n)."""
     codes, valid = window_codes(bases, cfg)
+    if cfg.scale > 1 and not cfg.segmentable:  # sketches: the selected codes
+        valid = valid & at_most(codes, scaled_max_hash(cfg.scale))
     return collapse_sorted(codes, valid, mode=cfg.mode,
                            code_bits=cfg.code_bits)
 
@@ -166,14 +176,21 @@ def pack_bases_2bit(bases: np.ndarray):
 
 def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device):
     """Pack, copy and encode one piece of bases -> (keyed, valid bool):
-    K1 for 2-bit codes, H1 for hashed configs."""
+    K1 for 2-bit codes, H1 for hashed configs, H1 then S1 for sketches."""
     n = len(bases)
     with stage("pack", device):
         packed2, validmask = pack_bases_2bit(bases)
+        # the 2-bit pack makes a separator an invalid base: the compat
+        # rule reads the separators from a mask of their own
+        sepmask = (np.packbits(bases == codec.RECORD_SEP, bitorder="little")
+                   if cfg.needs_record_sep else None)
     with stage("h2d", device):
         p2 = torch.from_numpy(packed2).to(device)
         vm = torch.from_numpy(validmask).to(device)
-    if cfg.hashed:
+        sm = None if sepmask is None else torch.from_numpy(sepmask).to(device)
+    if not cfg.segmentable:
+        keyed, valid = _encode_sketch(p2, vm, sm, n, cfg, device)
+    elif cfg.hashed:
         with stage("h1", device):
             keyed, valid = encode_nthash(p2, vm, n, cfg.k, cfg.canonical,
                                          scaled_max_hash(cfg.scale))
@@ -183,11 +200,34 @@ def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device):
     return keyed, valid.view(torch.bool)
 
 
+def _encode_sketch(p2, vm, sm, n: int, cfg: CountConfig,
+                   device: torch.device):
+    """A sketch piece: H1 at scale 1 over the k-mers (and the s-mers of a
+    syncmer), then S1 with the scaled threshold."""
+    k, s = cfg.k, cfg.syncmer_s
+    if s > k:
+        raise ValueError(f"syncmer s ({s}) must be <= k ({k})")
+    max_hash = scaled_max_hash(cfg.scale)
+    with stage("h1", device):
+        kkeyed, kvalid = encode_nthash(p2, vm, n, k, True)
+        # s == k: the s-mers are the k-mers
+        skeyed = encode_nthash(p2, vm, n, s, True)[0] if 0 < s < k else kkeyed
+    with stage("s1", device):
+        if cfg.minimizer_w > 0:
+            return sketch_select("minimizer", kkeyed, cfg.minimizer_w,
+                                 valid=kvalid, max_hash=max_hash)
+        if cfg.syncmer_impl == "edgar":
+            return sketch_select("syncmer", skeyed, k - s + 1, valid=kvalid,
+                                 khash=kkeyed, max_hash=max_hash)
+        sep = unpack_bits(sm, n)
+        return syncmer_compat_select(kkeyed, kvalid, skeyed, sep, k, s,
+                                     max_hash)
+
+
 def count_packed_dispatch(packed: PackedSeqs, cfg: CountConfig, device=None):
     """Queue one piece's device work (pack, H2D, encode, sort, collapse);
     returns a token for :func:`count_packed_fetch`."""
     device = get_device(device)
-    _require_ported(cfg)
     if packed.bases.size == 0:
         return ("empty", device)
     keyed, valid = _encode_piece(packed.bases, cfg, device)
@@ -200,7 +240,6 @@ def count_packed_dispatch_dual(packed: PackedSeqs, cfg: CountConfig,
     """:func:`count_packed_dispatch` yielding the piece's distinct AND
     repeated sets from one sort (the capped-multiplicity streams)."""
     device = get_device(device)
-    _require_ported(cfg)
     if packed.bases.size == 0:
         return ("empty", device)
     keyed, valid = _encode_piece(packed.bases, cfg, device)
@@ -419,7 +458,6 @@ def count_stream_packed(packed_iter, cfg: CountConfig,
     repeated: multiplicity capped at 2 per piece, then counted).
     Returns np.ndarray, or SpilledCount past the host memory cap."""
     device = get_device(device)
-    _require_ported(cfg)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     sink = _PartialSink(cfg)
@@ -429,7 +467,8 @@ def count_stream_packed(packed_iter, cfg: CountConfig,
             packed = next(it, None)
         if packed is None:
             break
-        for piece in split_packed(packed, chunk_bases, cfg.k):
+        for piece in split_packed(packed, chunk_bases,
+                                  cfg.k if cfg.segmentable else 0):
             _count_piece(piece, cfg, device, sink)
     return sink.result()
 
@@ -439,7 +478,6 @@ def count_stream(records, cfg: CountConfig, chunk_bases: int | None = None,
     """Streaming count over FASTA/Q records: records are buffered up to
     chunk_bases, packed and counted as in :func:`count_stream_packed`."""
     device = get_device(device)
-    _require_ported(cfg)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
 
@@ -470,14 +508,13 @@ def linear_codes_all(bases: np.ndarray, cfg: CountConfig,
     the piece size are cut into k-1-overlap segments, each window
     landing in exactly one."""
     device = get_device(device)
-    _require_ported(cfg)
     n = len(bases)
     if n == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     k = cfg.k
-    if n <= chunk_bases + k:
+    if n <= chunk_bases + k or not cfg.segmentable:
         return _linear_piece(bases, cfg, device, n)
     parts_c, parts_p = [], []
     for off in range(0, n - (k - 1), chunk_bases):
@@ -613,7 +650,6 @@ def count_taxids_stream_device(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
     repeated codes, from one sort); the pieces merge on the host with
     one lca_reduce and the capped-multiplicity rule."""
     device = get_device(device)
-    _require_ported(cfg)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     dplan = upload_plan(plan, device)
@@ -621,7 +657,8 @@ def count_taxids_stream_device(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
     capped = cfg.mode in ("unique", "repeated")
     modes = ("distinct", "repeated") if capped else ("distinct",)
     parts_c, parts_t, parts_rep = [], [], []
-    for piece, off in split_packed(packed, chunk_bases, cfg.k,
+    for piece, off in split_packed(packed, chunk_bases,
+                                   cfg.k if cfg.segmentable else 0,
                                    yield_offsets=True):
         res = _device_taxid_collapse(packed, rec_ctax, piece, off, cfg,
                                      dplan, device, modes)
@@ -655,7 +692,6 @@ def count_taxids_from_packed(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
     nonzero taxids, whose merge the host's order defines, take
     :func:`count_taxids_unknown`."""
     device = get_device(device)
-    _require_ported(cfg)
     if packed.bases.size == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.uint32)
     with stage("plan", _HOST):
@@ -696,7 +732,6 @@ def count_packed_taxids(records, cfg: CountConfig, re_taxid, taxdb,
     (reference count.go:334-344,377-410).  ``re_taxid`` is a compiled
     bytes regexp with one capture group.  Returns (codes, taxids) sorted
     by code, filtered by cfg.mode."""
-    _require_ported(cfg)
     with stage("ingest", _HOST):
         packed, rec_taxids = parse_taxid_records(records, cfg, re_taxid)
     return count_taxids_from_packed(packed, rec_taxids, cfg, taxdb, device)

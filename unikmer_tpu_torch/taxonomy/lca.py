@@ -218,29 +218,38 @@ def merge_rounds_needed(first, start, end, run_valid) -> int:
     return max(longest - 1, 0).bit_length()
 
 
-def _round_partners(start: torch.Tensor, rounds: int):
+def _round_partners(start: torch.Tensor, rounds: int,
+                    live: torch.Tensor | None = None):
     """(d, i) for each doubling round: the slots i whose partner i + d
-    lies in their run (run start ``start``)."""
+    lies in their run (run start ``start``), and, given ``live``, only
+    slots of live runs."""
     for r in range(rounds):
         d = 1 << r
-        yield d, torch.nonzero(start[d:] == start[:-d]).squeeze(1)
+        pair = start[d:] == start[:-d]
+        if live is not None:
+            pair &= live[:-d]
+        yield d, torch.nonzero(pair).squeeze(1)
 
 
 def _merge_rounds(tax: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
-                  tab: torch.Tensor, rounds: int, kind: str) -> torch.Tensor:
+                  tab: torch.Tensor, rounds: int, kind: str,
+                  live: torch.Tensor) -> torch.Tensor:
     """The doubling LCA merge: after round r every slot holds the LCA of
     the next 2^(r+1) slots of its run, so the run's first slot holds the
-    run's LCA once 2^rounds >= the run's length.  Only slots whose
-    partner at distance d lies in their run are touched; the run heads'
-    ids are the result (other slots are left partly merged)."""
+    run's LCA once 2^rounds >= the run's length.  Only slots of live runs
+    (``live``: the run holds a valid member; no other run is kept) whose
+    partner at distance d lies in their run are touched; the live run
+    heads' ids are the result (other slots are left partly merged).
+    Skipping the dead runs keeps the sentinel run of a mostly invalid
+    input (a sketch's unselected windows) out of the rounds."""
     out = tax.clone()
     if kind == "table":
-        for d, i in _round_partners(start, rounds):
+        for d, i in _round_partners(start, rounds, live):
             out[i] = lca_pairs_compact(out[i], out[i + d], tab)
         return out
-    # paths: only slots of runs with 2+ members take path rows; a run
+    # paths: only slots of live runs with 2+ members take path rows; a run
     # stays contiguous among them, so partners keep their distance
-    sub = torch.nonzero(end - start > 1).squeeze(1)
+    sub = torch.nonzero((end - start > 1) & live).squeeze(1)
     if sub.numel() == 0:
         return out
     P = tab[tax[sub].long()]  # (m, Dp)
@@ -291,5 +300,6 @@ def collapse_keyed_taxids(keyed: torch.Tensor, ids: torch.Tensor,
         run_valid = _run_valid_counts(s_valid, start, end)
         rounds = merge_rounds_needed(first, start, end, run_valid)
     with stage("lca", dev):
-        tax = _merge_rounds(tax, start, end, tab, rounds, kind)
+        tax = _merge_rounds(tax, start, end, tab, rounds, kind,
+                            run_valid > 0)
     return s_codes, tax, first, run_valid, s_valid
