@@ -32,7 +32,8 @@ paths and holds their results against oracles:
 The launch counters, zeroed before each path's run and read after it,
 show that the run went through the kernels of its path (and that a
 hashed run launched H1 and no K1).  P1a and P1c are timed in turns with
-their library calls (library, kernel, kernel, library; TURNS rounds); K1
+their library calls (library, kernel, kernel, library; TURNS rounds), S1
+with torch.argmin over an unfold view of its keys (``unfold_argmin``); K1
 and P1b/P2a in turns with their earlier designs (csrc/earlier/, built by
 unikmer_tpu_torch/kernel_variants.py, which times the other design
 variants on its own), H1 with K1 at the same k.  The host cost of the
@@ -333,11 +334,30 @@ def check_h1(dev, rng):
 
 
 def s1_lengths() -> tuple:
-    """S1's lengths: K1_NS and, at one, two and three blocks' windows
-    (kTile - 1 each), each minus and plus one."""
-    stride = cu_const("sketch.cu", "kTile") - 1
-    return tuple(sorted({*K1_NS, stride - 1, stride, stride + 1,
-                         2 * stride - 1, 2 * stride + 1, 3 * stride + 1}))
+    """S1's lengths: K1_NS and, for the runs of the timed widths (a run is
+    the largest power of two at most min(w, kMaxRun) windows), a run's and
+    one, two and three blocks' windows (kThreads runs each), each minus
+    and plus one."""
+    threads = cu_const("sketch.cu", "kThreads")
+    most = cu_const("sketch.cu", "kMaxRun")
+    ns = set(K1_NS)
+    for w in (SKETCH_W, SKETCH_K - SKETCH_S + 1, 2 * (SKETCH_K - SKETCH_S)):
+        run = 1 << (min(w, most).bit_length() - 1)
+        tile = threads * run
+        ns |= {run - 1, run, run + 1, tile - 1, tile, tile + 1, 2 * tile - 1,
+               2 * tile + 1, 3 * tile + 1}
+    return tuple(sorted(ns))
+
+
+def unfold_argmin(keys: torch.Tensor, w: int) -> torch.Tensor:
+    """The library yardstick of S1's argmin mode, one torch.argmin: the
+    keys flipped to signed order (XOR 1 << 63), w - 1 pads of the flipped
+    2^64-1, windows as an unfold(0, w, 1) view, the first minimum of each,
+    its offset made a position."""
+    flipped = keys ^ torch.iinfo(torch.int64).min
+    pad = flipped.new_full((w - 1,), torch.iinfo(torch.int64).max)
+    offset = torch.cat([flipped, pad]).unfold(0, w, 1).argmin(dim=1)
+    return offset + torch.arange(keys.shape[0], device=keys.device)
 
 
 def s1_cases(kk, kv, sk, w, mh):
@@ -362,7 +382,7 @@ def check_s1(dev, rng):
     from unikmer_tpu_torch.ops.sketch import sketch_select, sketch_select_plain
 
     ns = s1_lengths()
-    tile = cu_const("sketch.cu", "kTile")
+    tile = cu_const("sketch.cu", "kThreads") * cu_const("sketch.cu", "kMaxRun")
     big = random_bases(rng, max(ns))
     big[1000:1100] = 255  # an N run
     big[3000:3400] = 0  # poly-A: equal hashes, the leftmost rule decides
@@ -400,22 +420,36 @@ def check_s1(dev, rng):
         f"syncmer s={SKETCH_S}": ("syncmer", (sk, ws, kv, kk), 8 + 1 + 8 + 9),
         f"argmin W={2 * (SKETCH_K - SKETCH_S)}": (
             "argmin", (sk, 2 * (SKETCH_K - SKETCH_S)), 8 + 8)}
+    # the yardstick: one torch.argmin over an unfold view, first held to the
+    # plain version at every timed width
+    for mode, args, _ in calls.values():
+        lib = unfold_argmin(args[0], args[1])
+        if not torch.equal(lib, sketch_select_plain("argmin", *args[:2])):
+            raise SystemExit(f"unfold argmin differs from the plain S1 argmin "
+                             f"at w={args[1]}")
     fns = {name: (lambda m=m, a=a: sketch_select(m, *a))
            for name, (m, a, _) in calls.items()}
-    t = turns_ms(fns)
+    libs = {f"library {name}": (lambda a=a: unfold_argmin(a[0], a[1]))
+            for name, (_, a, _) in calls.items()}
+    t = turns_ms({**fns, **libs})
     res = {}
     for name, (mode, args, nbytes) in calls.items():
         res[name] = dict(
             ms=t[name]["median"], ms_spread=t[name]["spread"],
             device_ms=device_ms(fns[name], "sketch_select"),
             plain_ms=cuda_ms(lambda: sketch_select_plain(mode, *args)),
-            bound_ms=bytes_ms(nbytes * n))
+            bound_ms=bytes_ms(nbytes * n),
+            # the minimizer's and syncmer's emit rules have no single call:
+            # theirs is the argmin part's alone
+            **{"library_ms" if mode == "argmin" else "argmin_library_ms":
+               t[f"library {name}"]["median"]})
     say(f"S1 sketch_select: exact on {cases} cases ({kept} kept windows; "
         f"minimizer, syncmer and argmin modes, scale 1 and 15, n in {ns}); "
         f"n={n}, k={SKETCH_K}, in turns: " + "; ".join(
             f"{name} {r['ms']} ms (spread {r['ms_spread']}, device "
             f"{r['device_ms']}), plain {r['plain_ms']} ms, bound "
-            f"{r['bound_ms']} ms" for name, r in res.items()))
+            f"{r['bound_ms']} ms, unfold argmin (flip, pad and offset inside) "
+            f"{t[f'library {name}']['median']} ms" for name, r in res.items()))
     main = res.pop("kernel")
     return dict(max_abs_err=err, **main, bound_by="bytes", library_ms=None,
                 lengths_held=list(ns), variants=res)

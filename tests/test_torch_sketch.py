@@ -191,7 +191,7 @@ def test_sketch_select_rejects_bad_inputs():
 
 
 # ---------------------------------------------------------------------
-# S1's kernel walked block by block in numpy (csrc/sketch.cu; its tile
+# S1's kernel walked block by block in numpy (csrc/sketch.cu; its
 # constants are read from the source)
 
 CSRC = (Path(__file__).resolve().parent.parent / "unikmer_tpu_torch" / "csrc"
@@ -202,48 +202,117 @@ def cu_const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", CSRC).group(1))
 
 
-TILE = cu_const("kTile")
-STRIDE = TILE - 1  # kStride
+THREADS = cu_const("kThreads")
+MAX_RUN = cu_const("kMaxRun")
+LEAD = cu_const("kLead")
+TILE = THREADS * MAX_RUN  # a block's windows at w >= kMaxRun
 POISON = np.uint64(0x5A5A5A5A5A5A5A5A)
 
 
+def s1_run(w):
+    """Windows a thread: the largest power of two at most min(w, kMaxRun)."""
+    r = 1
+    while 2 * r <= min(w, MAX_RUN):
+        r *= 2
+    return r
+
+
 def s1_walk(mode, keys, w, valid=None, khash=None, max_hash=nthash.MAX_HASH):
-    """sketch_select_kernel over n windows, block by block: the staged
-    elements [lo, lo + kTile + w - 1) with lo = b * kStride - 1, each
-    window's leftmost argmin by a scan of its w elements, and the writes
-    of windows lo + 1 .. lo + kTile - 1.  Every slot must be written once."""
+    """sketch_select_kernel over n windows, block by block, the block's
+    threads side by side: the stage (element first - kLead + s at index s,
+    2^64-1 and invalid outside [0, n)), each thread's run of R windows from
+    s0 = kLead + tR as left suffix minima (taken on <=), one core minimum
+    over [s0+R-1, s0+w) and a right prefix (taken on <), combined left to
+    right; the minimizer's window i-1 of a run's first window from element
+    s0-1, the left suffix and the core less its last element; then the
+    block's writes.  Every slot must be written once."""
     keys = keys.view(np.uint64)
     n = len(keys)
+    r = s1_run(w)
+    tile = THREADS * r
     out = np.full(n, POISON, np.uint64)
     out_valid = np.full(n, 7, np.uint8)
     writes = np.zeros(n, np.int64)
-    for blk in range(-(-n // STRIDE)):
-        lo = blk * STRIDE - 1
-        e = lo + np.arange(TILE + w - 1)
+    s0 = LEAD + np.arange(THREADS) * r
+    rows = np.arange(THREADS)
+    mh = np.uint64(max_hash)
+
+    def window_min(sk, lo, length):  # (leftmost min, its index) of [lo, lo+length)
+        win = np.lib.stride_tricks.sliding_window_view(sk, length)[lo]
+        at = np.argmin(win, axis=1)  # numpy: the first minimum
+        return win[rows, at], lo + at
+
+    for blk in range(-(-n // tile)):
+        first = blk * tile
+        base = first - LEAD
+        e = base + np.arange(LEAD + tile + w + r)
         inside = (e >= 0) & (e < n)
-        sk = np.where(inside, keys[np.clip(e, 0, max(n - 1, 0))], SENT)
-        r = np.arange(TILE)
-        r = r[lo + r < n]
-        win = np.lib.stride_tricks.sliding_window_view(sk, w)[r]
-        arg = r + np.argmin(win, axis=1)  # numpy: the first minimum
-        rr, i = r[r >= 1], lo + r[r >= 1]
+        at = np.clip(e, 0, n - 1)
+        sk = np.where(inside, keys[at], SENT)
+        bad = ~inside | ((valid[at] == 0) if valid is not None else False)
+        # left suffix minima of [s0 + u, s0 + R - 1)
+        lk = np.zeros((THREADS, r), np.uint64)
+        lp = np.zeros((THREADS, r), np.int64)
+        for u in range(r - 2, -1, -1):
+            v = sk[s0 + u]
+            take = np.ones(THREADS, bool) if u == r - 2 else v <= lk[:, u + 1]
+            lk[:, u] = np.where(take, v, lk[:, u + 1])
+            lp[:, u] = np.where(take, s0 + u, lp[:, u + 1])
+        core_k, core_p = window_min(sk, s0 + r - 1, w - r + 1)
+        any_bad = np.concatenate([[0], np.cumsum(bad)])  # bad elements before s
+        n_bad = lambda a, b: any_bad[b] - any_bad[a]  # noqa: E731
+        right_k, right_p = np.zeros(THREADS, np.uint64), np.zeros(THREADS, np.int64)
+        args, oks, bits = [], [], np.zeros((THREADS, r), bool)
+        codes = np.zeros((THREADS, r), np.uint64)
+        for j in range(r):
+            if j > 0:
+                v = sk[s0 + w + j - 1]
+                take = np.ones(THREADS, bool) if j == 1 else v < right_k
+                right_k = np.where(take, v, right_k)
+                right_p = np.where(take, s0 + w + j - 1, right_p)
+            mk, mp = core_k, core_p
+            if j < r - 1:
+                take = lk[:, j] <= mk
+                mk, mp = np.where(take, lk[:, j], mk), np.where(take, lp[:, j], mp)
+            if j > 0:
+                take = right_k < mk
+                mk, mp = np.where(take, right_k, mk), np.where(take, right_p, mp)
+            args.append(mp)
+            codes[:, j] = mk
+            oks.append(n_bad(s0 + j, s0 + j + w) == 0)
+            if mode == "syncmer":
+                bits[:, j] = (mp == s0 + j) | (mp == s0 + j + w - 1)
+        if mode == "minimizer":
+            # window i-1 of each run's first window, [s0 - 1, s0 + w - 1):
+            # element s0-1, the left suffix, the core less its last element
+            pk, pa = sk[s0 - 1], s0 - 1
+            if r > 1:
+                take = lk[:, 0] < pk
+                pk, pa = np.where(take, lk[:, 0], pk), np.where(take, lp[:, 0], pa)
+            if w > r:
+                bk, bp = window_min(sk, s0 + r - 1, w - r)
+                take = bk < pk
+                pk, pa = np.where(take, bk, pk), np.where(take, bp, pa)
+            pok = n_bad(s0 - 1, s0 + w - 1) == 0
+            for j in range(r):
+                before_a, before_ok = (pa, pok) if j == 0 else (args[j - 1], oks[j - 1])
+                bits[:, j] = (oks[j] & (~before_ok | (args[j] != before_a))
+                              & (codes[:, j] <= mh))
+        have = min(tile, n - first)
+        i = first + np.arange(have)
+        slot = (rows[:, None] * r + np.arange(r)).reshape(-1)[:have]
         if mode == "argmin":
-            out[i] = lo + arg[rr]
-        elif mode == "minimizer":
-            sv = inside & (valid[np.clip(e, 0, max(n - 1, 0))] != 0)
-            ok = np.lib.stride_tricks.sliding_window_view(sv, w)[r].all(1)
-            emit = ok[rr] & (~ok[rr - 1] | (arg[rr] != arg[rr - 1]))
-            code = sk[arg[rr]]
-            keep = emit & (code <= np.uint64(max_hash))
-            out[i] = np.where(keep, code, SENT)
-            out_valid[i] = keep
+            out[i] = base + np.stack(args, 1).reshape(-1)[:have]
         else:
-            off = arg[rr] - rr
-            code = khash.view(np.uint64)[i]
-            keep = ((valid[i] != 0) & ((off == 0) | (off == w - 1))
-                    & (code <= np.uint64(max_hash)))
+            keep = bits.reshape(-1)[:have]
+            if mode == "minimizer":
+                code = codes.reshape(-1)[:have]
+            else:
+                code = khash.view(np.uint64)[i]
+                keep = keep & (valid[i] != 0) & (code <= mh)
             out[i] = np.where(keep, code, SENT)
             out_valid[i] = keep
+        assert (slot == np.arange(have)).all()
         writes[i] += 1
     assert (writes == 1).all()
     return out if mode == "argmin" else (out, out_valid)
@@ -255,21 +324,67 @@ def h1_outputs(rng, n, k):
     return nthash.encode_nthash(p2, vm, n, k, True)
 
 
-S1_WALK_NS = (1, 2, 14, STRIDE - 1, STRIDE, STRIDE + 1, TILE + 1,
-              2 * STRIDE - 1, 2 * STRIDE + 1, 3 * STRIDE + 500)
+def s1_lengths(w):
+    """n < w, and n at S1's run and block edges +-1 at window width w."""
+    r = s1_run(w)
+    tile = THREADS * r
+    return sorted({1, 2, 7, max(w - 1, 1), w, w + 1, r - 1 or 1, r, r + 1,
+                   tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile + 1,
+                   3 * tile + 500})
 
 
-@pytest.mark.parametrize("w", [1, 2, 15, 16, TILE + 300])
-def test_s1_walk_matches_plain(w):
-    rng = np.random.default_rng(w)
-    for n in S1_WALK_NS:
+S1_KINDS = ("h1", "all-equal", "poly-A", "max-key-beside-invalid")
+
+
+def s1_inputs(kind, rng, n):
+    """(k-mer keys, k-mer valid, s-mer keys) of one kind: H1's outputs
+    (k = 21, s = 9) of random bases, all-equal keys, H1's outputs of poly-A
+    runs (equal hashes broken by N), or keys with few values where a valid
+    2^64-1 key sits beside an invalid one (keyed 2^64-1, as H1 keys it)."""
+    if kind == "h1":
         kkeyed, kvalid = h1_outputs(rng, n, 21)
-        skeyed, _ = h1_outputs(rng, n, 9)
+        return kkeyed, kvalid, h1_outputs(rng, n, 9)[0]
+    if kind == "all-equal":
+        return (torch.full((n,), 12345, dtype=torch.int64),
+                torch.ones(n, dtype=torch.uint8),
+                torch.full((n,), -77, dtype=torch.int64))
+    if kind == "poly-A":
+        b = np.zeros(n, np.uint8)
+        b[np.arange(n) % 997 == 500] = 255
+        p2, vm = (torch.from_numpy(a) for a in pack_bases_2bit(b))
+        kkeyed, kvalid = nthash.encode_nthash(p2, vm, n, 21, True)
+        return kkeyed, kvalid, nthash.encode_nthash(p2, vm, n, 9, True)[0]
+    keys = rng.integers(0, 3, size=n, dtype=np.uint64)
+    valid = np.ones(n, np.uint8)
+    at = np.arange(n // 2, n, 37)
+    keys[at] = SENT
+    keys[at[at + 1 < n] + 1] = SENT
+    valid[at[at + 1 < n] + 1] = 0
+    skeys = np.where(rng.random(n) < 0.3, SENT, keys)
+    return (torch.from_numpy(keys.view(np.int64)), torch.from_numpy(valid),
+            torch.from_numpy(skeys.view(np.int64)))
+
+
+S1_WALK_CASES = ([pytest.param(w, "h1", id=str(w))
+                  for w in (1, 2, 15, 16, TILE + 300)]
+                 + [pytest.param(w, kind, id=f"{w}-{kind}")
+                    for kind in S1_KINDS[1:] for w in (2, 15, 16, 30)])
+
+
+@pytest.mark.parametrize("w,kind", S1_WALK_CASES)
+def test_s1_walk_matches_plain(w, kind):
+    rng = np.random.default_rng(w)
+    for n in s1_lengths(w):
+        kkeyed, kvalid, skeyed = s1_inputs(kind, rng, n)
         mh = nthash.scaled_max_hash(3)
         got = s1_walk("minimizer", kkeyed.numpy(), w, kvalid.numpy(),
                       max_hash=mh)
         want = sketch.sketch_select("minimizer", kkeyed, w, kvalid,
                                     max_hash=mh)
+        np.testing.assert_array_equal(got[0], u64(want[0]), err_msg=f"n={n}")
+        np.testing.assert_array_equal(got[1], want[1].numpy())
+        got = s1_walk("minimizer", kkeyed.numpy(), w, kvalid.numpy())
+        want = sketch.sketch_select("minimizer", kkeyed, w, kvalid)
         np.testing.assert_array_equal(got[0], u64(want[0]), err_msg=f"n={n}")
         np.testing.assert_array_equal(got[1], want[1].numpy())
         got = s1_walk("syncmer", skeyed.numpy(), w, kvalid.numpy(),
@@ -282,15 +397,30 @@ def test_s1_walk_matches_plain(w):
             sketch.sketch_select("argmin", skeyed, w).numpy())
 
 
+def test_s1_max_key_beside_invalid_is_kept():
+    """A valid key of 2^64-1 is a window minimum the minimizer keeps; the
+    invalid slot beside it, keyed the same, makes its windows invalid."""
+    keys = torch.tensor([-1, -1, -1, -1], dtype=torch.int64)
+    valid = torch.tensor([1, 1, 0, 1], dtype=torch.uint8)
+    out, ok = sketch.sketch_select("minimizer", keys, 2, valid)
+    assert ok.tolist() == [1, 0, 0, 0]
+    assert out.tolist() == [-1, -1, -1, -1]
+    walked = s1_walk("minimizer", keys.numpy(), 2, valid.numpy())
+    np.testing.assert_array_equal(walked[1], ok.numpy())
+
+
 # ---------------------------------------------------------------------
 # on the card
 
 
-def s1_cases(rng, dev, n, w):
+def s1_cases(rng, dev, n, w, kind="h1"):
     """(mode, args, kwargs) of each S1 mode over n windows of width w, on
     the card, with a scaled threshold."""
-    kkeyed, kvalid = (t.to(dev) for t in h1_outputs(rng, n, 31))
-    skeyed = h1_outputs(rng, n, 16)[0].to(dev)
+    if kind == "h1":
+        kkeyed, kvalid = (t.to(dev) for t in h1_outputs(rng, n, 31))
+        skeyed = h1_outputs(rng, n, 16)[0].to(dev)
+    else:
+        kkeyed, kvalid, skeyed = (t.to(dev) for t in s1_inputs(kind, rng, n))
     mh = nthash.scaled_max_hash(7)
     return [("minimizer", (kkeyed, w, kvalid), dict(max_hash=mh)),
             ("minimizer", (kkeyed, w, kvalid), {}),
@@ -298,17 +428,20 @@ def s1_cases(rng, dev, n, w):
             ("argmin", (skeyed, w), {})]
 
 
+S1_CARD_CASES = ([pytest.param(w, "h1", id=str(w)) for w in
+                  (1, 2, 15, 16, 30, TILE - 1, TILE + 300, 5000)]
+                 + [pytest.param(w, kind, id=f"{w}-{kind}")
+                    for kind in S1_KINDS[1:] for w in (1, 2, 15, 16, 30)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [1, 2, 15, 16, 30, TILE - 1, TILE + 300, 5000])
-def test_s1_kernel_matches_plain_on_card(cuda_device, w):
-    """Block edges +-1, w = 1, w past a block's tile (staged), and w past
-    the shared stage (read from device memory)."""
+@pytest.mark.parametrize("w,kind", S1_CARD_CASES)
+def test_s1_kernel_matches_plain_on_card(cuda_device, w, kind):
+    """n < w, run and block edges +-1, w = 1, w past a block's tile
+    (staged), and w past the shared stage (read from device memory)."""
     rng = np.random.default_rng(w)
-    for n in (1, 7, w - 1, w, w + 1, STRIDE - 1, STRIDE, STRIDE + 1,
-              2 * STRIDE, 2 * STRIDE + 1, (1 << 20) + 3):
-        if n < 1:
-            continue
-        for mode, args, kw in s1_cases(rng, cuda_device, n, w):
+    for n in [*s1_lengths(w), (1 << 20) + 3]:
+        for mode, args, kw in s1_cases(rng, cuda_device, n, w, kind):
             got = sketch.sketch_select(mode, *args, **kw)
             want = sketch.sketch_select_plain(mode, *args, **kw)
             if mode == "argmin":

@@ -1,4 +1,4 @@
-"""K1 and probe-kernel design variants, built side by side and timed on one card.
+"""K1, S1 and probe-kernel design variants, built side by side and timed on one card.
 
     python -m unikmer_tpu_torch.kernel_variants [KERNEL ...]
 
@@ -12,7 +12,7 @@ launch it.  Every exact variant is held to the plain versions; then each
 workload is timed in turns (CUDA events; the order reversed every other
 round) and by torch.profiler (device ms a call, and the kernels a
 row_cmpex_u32 call launches, from its ``.kernels`` count).  KERNEL picks
-among K1, P1a, P1b, P1c (default: all).  Prints ptxas's registers for
+among K1, P1a, P1b, P1c, S1 (default: all).  Prints ptxas's registers for
 the sources as built, then one JSON line a workload; needs a CUDA device
 and nvcc, and raises on any mismatch.  ``chip_smoke.py`` builds the
 earlier designs through :func:`build`.
@@ -35,6 +35,7 @@ from . import _kernels
 
 EARLIER_K1 = "K1 earlier design, one window a thread"
 EARLIER_ROW_CMPEX = "P1b earlier design, one column a block"
+EARLIER_S1 = "S1 earlier design, a window a thread scanned"
 
 _LD_256 = (
     "__device__ __forceinline__ uint4 ld_nc_256(const uint4* p) {\n"
@@ -130,6 +131,37 @@ VARIANTS = {
     "P1c whole tile a block": (
         "P1c", "probes.cu",
         [("constexpr int kSub = 64;", "constexpr int kSub = 128;")], None, True),
+    EARLIER_S1: (
+        "S1", "sketch.cu",
+        [("int ukt_sketch_select(", "int ukt_sketch_select_as_built(")],
+        "earlier/sketch_scan_a_window.cu", True),
+    "S1 runs of at most 16 windows": (
+        "S1", "sketch.cu",
+        [("constexpr int kMaxRun = 8;", "constexpr int kMaxRun = 16;")],
+        None, True),
+    "S1 runs of at most 4 windows": (
+        "S1", "sketch.cu",
+        [("constexpr int kMaxRun = 8;", "constexpr int kMaxRun = 4;")],
+        None, True),
+    "S1 256 threads a block": (
+        "S1", "sketch.cu",
+        [("constexpr int kThreads = 128;", "constexpr int kThreads = 256;")],
+        None, True),
+    "S1 left suffix minima in shared memory": (
+        "S1", "sketch.cu",
+        [("struct Best {",
+          "template <class T>\nstruct Column {  // part u of thread t at [u][t]\n"
+          "  T (*a)[kThreads];\n  int t;\n"
+          "  __device__ __forceinline__ T& operator[](int u) const {\n"
+          "    return a[u][t];\n  }\n};\n\nstruct Best {"),
+         ("  unsigned long long lk[R];\n  int lp[R];\n",
+          "  __shared__ unsigned long long lk_s[R][kThreads];\n"
+          "  __shared__ int lp_s[R][kThreads];\n"
+          "  const Column<unsigned long long> lk{lk_s, t};\n"
+          "  const Column<int> lp{lp_s, t};\n")], None, True),
+    "S1 stage slots unpadded (bank conflicts)": (
+        "S1", "sketch.cu",
+        [("return R > 1 ? s + s / R : s;", "return s;")], None, True),
 }
 TURNS = 20  # rounds of timings in turns
 P2A_BIG_ROWS = 1 << 16  # P2a's 64 stages over 16 row bits
@@ -190,7 +222,7 @@ def using(lib: ctypes.CDLL, fn):
     return call
 
 
-def ptxas_report(sources=("encode.cu", "probes.cu")) -> list[str]:
+def ptxas_report(sources=("encode.cu", "probes.cu", "sketch.cu")) -> list[str]:
     """ptxas's registers line of every kernel of the sources as built."""
     out = _kernels.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -297,7 +329,7 @@ def workloads(dev, rng) -> dict:
     """kernel -> its Workloads."""
     from . import probes as entry
     from .models.count import pack_bases_2bit
-    from .ops import encode, probes
+    from .ops import encode, nthash, probes, sketch
 
     x1, blk = entry.probe_inputs(dev)
     n = (1 << 25) + 3
@@ -305,6 +337,18 @@ def workloads(dev, rng) -> dict:
     bases[rng.random(n) < 0.02] = 255
     p2, vm = (torch.from_numpy(a).to(dev) for a in pack_bases_2bit(bases))
     big = _u32(rng, (P2A_BIG_ROWS, 128), dev)
+    kk, kv = nthash.encode_nthash(p2, vm, n, 31, True)
+    sk, _ = nthash.encode_nthash(p2, vm, n, 16, True)
+    mh = nthash.scaled_max_hash(15)
+    s1 = {  # workload: (mode, the arguments after mode)
+        "minimizer w=15 (-k 31 -W 15)": ("minimizer", (kk, 15, kv)),
+        "syncmer s=16 (-k 31 -S 16)": ("syncmer", (sk, 16, kv, kk)),
+        "argmin W=30 (compat -k 31 -S 16)": ("argmin", (sk, 30))}
+    s1_holds = [  # (mode, keys, w, valid, khash, max_hash) at lengths m
+        args for m in (1, 4099, 70001) for w in (1, 2, 15, 16, 30, 100)
+        for args in (("minimizer", kk[:m], w, kv[:m], None, mh),
+                     ("syncmer", sk[:m], w, kv[:m], kk[:m], mh),
+                     ("argmin", sk[:m], w))]
     rows = {"p1b": (blk, probes.p1b_distances(entry.ROWS)),
             **{f"p2a_{s}": (blk, probes.p2a_distances(s, entry.ROWS))
                for s in entry.P2A_STAGES},
@@ -328,7 +372,11 @@ def workloads(dev, rng) -> dict:
         "P1c": [Workload(
             "probe", lambda f: f(blk), probes.transpose128_u32,
             probes.transpose128_u32_plain, "transpose128",
-            [(blk,), (_u32(rng, (3 * 128, 128), dev),)])]}
+            [(blk,), (_u32(rng, (3 * 128, 128), dev),)])],
+        "S1": [Workload(
+            f"n=2^25+3 {name}", lambda f, m=m, a=a: f(m, *a),
+            sketch.sketch_select, sketch.sketch_select_plain, "sketch_select",
+            s1_holds) for name, (m, a) in s1.items()]}
 
 
 def smi(when: str) -> None:
@@ -350,7 +398,7 @@ def main(argv=None) -> int:
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 2
     kernels = list(argv if argv is not None else sys.argv[1:]) or [
-        "K1", "P1a", "P1b", "P1c"]
+        "K1", "P1a", "P1b", "P1c", "S1"]
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(20261016)
     _kernels.load()

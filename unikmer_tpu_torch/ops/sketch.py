@@ -22,7 +22,9 @@ left operand kept on ties), so the functions equal the JAX ones
 element for element; they are the tests' reference and the CPU route.
 
 S1 (:func:`sketch_select`, csrc/sketch.cu) is the card's window select
-for the count pipeline.  It takes H1's keyed hashes and validity
+for the count pipeline: a run of windows a thread, each window's minimum
+from a left suffix, a shared core and a right prefix (a few compares at
+any w).  It takes H1's keyed hashes and validity
 (ops/nthash.py:encode_nthash) and writes what the encode of a piece
 returns: (keyed int64 [n], valid uint8 [n]), non-emitted slots keyed to
 the sentinel, the scaled threshold applied to the selected code.  Its
@@ -294,6 +296,9 @@ def sketch_select(mode: str, keys: torch.Tensor, w: int,
         return sketch_select_plain(mode, keys, w, valid, khash, max_hash)
     if dev.type != "cuda":
         raise ValueError(f"sketch_select: unsupported device {dev}")
+    # the kernel reads 16-byte words: a view off one is cloned
+    keys, valid, khash = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (keys, valid, khash))
     n = keys.shape[0]
     out = torch.empty(n, dtype=torch.int64, device=dev)
     out_valid = (None if mode == "argmin"
