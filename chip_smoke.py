@@ -6,32 +6,55 @@ Builds the hand-written kernels (K1 encode, H1 ntHash encode, S1 sketch
 window select, K2 radix sort, K3 key+value radix sort, and the four P1/P2
 probe kernels) from unikmer_tpu_torch/csrc, holds each against its plain
 PyTorch version on the card (exact equality), then drives the port's
-paths and holds their results against oracles:
+paths (count and the set operations) and holds their results against
+oracles:
 
   count     ``count -k 23 -K -s -C`` over a 134 Mbp FASTA of 4 records,
             and over the same FASTA bench.py's two ntHash configurations,
             ``count -k 31 -K -H -s -C`` and ``count -k 31 -K -D 15 -s -C``,
             and its two sketch configurations, ``count -k 31 -W 15 -s -C``
             and ``count -k 31 -S 16 -s -C`` (and -u, -d, k = 32 and
-            k = 64 -H -u over one 50 Mbp record);
+            k = 64 -H -u over one 37.7 Mbp record, 2 pieces);
   count -T  over a synthetic 100,000-node taxonomy written as nodes.dmp:
             T1, 8,192 records of 4,000 bases, each with its own taxid,
             one piece of ~2^25 windows on the 'paths' LCA tier, 2-bit,
             hashed (T1H, k = 31 -H) and sketched (T1W, k = 31 -W 15);
-            T2, 1,024 records of 98,304 bases with 512 taxids, streamed
+            T2, 1,024 records of 49,152 bases with 512 taxids, streamed
             in pieces on the 'table' tier; T3, k = 32 -u over two 1 Mbp records, keeping a real
             2^64-1 code with its taxid;
   count -l  ``count -k 27 -K -l -H -C`` and ``count -k 23 -W 5 -l -C``
             over two 1 Mbp records;
   compat    ``count -k 31 -S 16 --syncmer-impl compat -s -C`` over 1,200
             records of 1 to 7,000 bases;
+  sets      ``KmerSet.from_fasta(k=23, canonical=True)`` of the 134 Mbp
+            FASTA (4 pieces merged by union_all) and of three seeded
+            2^25-base records A, B and C that share large parts; then
+            ``A | B``, ``A & B``, ``A - B``, ``union_all``, ``common``
+            (2 of 3), ``contains`` and ``DeviceMembership`` over 2^24
+            queries, ``head``, ``sample`` and ``filter_low_complexity``;
+            the taxid set operations of A and B with per-code taxids of
+            the -T path's tree (the tree-walk union, the one-sided union
+            of A with taxids and B without, the intersection, the
+            one-sided intersection, the difference); and the CLI's
+            ``union`` (table and paths tiers), ``inter``, ``diff`` and
+            ``common -n 2`` over ``count -t`` outputs of A, B and C.
+            Every result and every saved ``.unik`` is held exactly to
+            numpy (one stable sort merges the sorted sets with a bit a
+            set, ``merge_sets``, from which union, intersection,
+            difference and the codes held by 2 of 3 are read; queries of
+            known membership; the LCA by the port's host Taxonomy), and
+            each operation is timed (CUDA events, 5 runs) beside the
+            host engine (ops/sets, native and numpy) in the ``sets`` line;
   probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
             of scripts/exp_pallas_dma*.py, each kernel held to its plain
             version inside the entry point.
 
-The launch counters, zeroed before each path's run and read after it,
-show that the run went through the kernels of its path (and that a
-hashed run launched H1 and no K1).  P1a and P1c are timed in turns with
+The launch counters, zeroed before each path's run (and before each set
+operation) and read after it, show that the run went through the kernels
+of its path (and that a hashed run launched H1 and no K1; that ``|``
+(the one-sided taxid union too), ``union_all`` and ``common`` launched
+K2 once, ``&``, ``-`` and the per-set transforms no sort,
+and the CLI's taxid union K3 and no host reduction).  P1a and P1c are timed in turns with
 their library calls (library, kernel, kernel, library; TURNS rounds), S1
 with torch.argmin over an unfold view of its keys (``unfold_argmin``); K1
 and P1b/P2a in turns with their earlier designs (csrc/earlier/, built by
@@ -97,9 +120,10 @@ TAX_NODES = 100_000
 TAX_CHAIN = 40  # grafted chain: the deepest closure paths
 RE_TAXID = r"taxid\|(\d+)"
 T1_RECORDS, T1_BASES = 8192, 4000  # one taxid each: the paths tier
-T2_TAXIDS, T2_BASES = 512, 98304  # two records each: the table tier
+T2_TAXIDS, T2_BASES = 512, 49152  # two records each: the table tier
 T3_BASES = 1 << 20
 RECORD_BASES = 1 << 25
+SETS_BASES = 1 << 25  # each of the sets path's records A, B and C
 LINEAR_BASES = 1 << 20  # the -l -H and -l -W runs' two records
 SKETCH_K, SKETCH_W, SKETCH_S = 31, 15, 16  # bench.py's sketch cells
 COMPAT_RECORDS, COMPAT_MAX_BASES = 1200, 7000  # the compat run's input
@@ -667,36 +691,42 @@ def write_fasta(path: str, rng, n_records: int, record_bases: int) -> None:
             f.write(b"\n")
 
 
-def canonical_np(codes: np.ndarray, k: int) -> np.ndarray:
-    """min(code, reverse complement) of 2-bit codes of k bases: the
-    complement is ~code on each 2-bit group, and the 32 groups of the
-    64-bit word are reversed by five swaps, which moves the k real groups
-    to the top 2k bits."""
-    x = ~codes
-    for shift, mask in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
-                        (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF),
-                        (32, 0x00000000FFFFFFFF)):
-        s, m = np.uint64(shift), np.uint64(mask)
-        x = ((x >> s) & m) | ((x & m) << s)
-    return np.minimum(codes, x >> np.uint64(64 - 2 * k))
-
-
 def numpy_windows(bases: np.ndarray, k: int, canonical: bool):
     """(codes, positions) of every valid 2-bit window, straight numpy
-    (independent of the port)."""
-    m = len(bases) - k + 1
+    (independent of the port).  The code of window i is built from
+    8-base blocks: fwd[i] holds bases i..i+7 first base highest, so the
+    window is fwd[i] << 2(k-8), fwd[i+8] << 2(k-16), ... and the top r =
+    k % 8 bases of the last block; its reverse complement comes the same
+    way from rev[i], the complements of bases i..i+7 first base lowest."""
+    n = len(bases)
+    m = n - k + 1
     if m <= 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    b = np.zeros(n + 8, np.uint16)
+    b[:n] = bases & 3
+    fwd = np.zeros(n, np.uint16)
+    rev = np.zeros(n, np.uint16)
+    for j in range(8):
+        x = b[j:j + n]
+        fwd = (fwd << 2) | x
+        rev |= (3 - x) << (2 * j)
+    nb, r = divmod(k, 8)
     codes = np.zeros(m, np.uint64)
-    two = np.uint64(2)
-    for j in range(k):
-        codes <<= two
-        codes |= (bases[j:j + m] & 3).astype(np.uint64)
+    rc = np.zeros(m, np.uint64)
+    for q in range(nb):
+        codes |= fwd[8 * q:8 * q + m].astype(np.uint64) << np.uint64(
+            2 * (k - 8 * (q + 1)))
+        rc |= rev[8 * q:8 * q + m].astype(np.uint64) << np.uint64(16 * q)
+    if r:
+        codes |= (fwd[8 * nb:8 * nb + m] >> (16 - 2 * r)).astype(np.uint64)
+        rc |= (rev[8 * nb:8 * nb + m] & ((1 << 2 * r) - 1)).astype(
+            np.uint64) << np.uint64(16 * nb)
     bad = np.concatenate([[0], np.cumsum(bases >= 4, dtype=np.int64)])
     pos = np.flatnonzero(bad[k:] - bad[:m] == 0)
-    codes = codes[pos]
+    if len(pos) < m:
+        codes, rc = codes[pos], rc[pos]
     if canonical:
-        codes = canonical_np(codes, k)
+        codes = np.minimum(codes, rc)
     return codes, pos
 
 
@@ -903,17 +933,19 @@ def numpy_count(bases: np.ndarray, k: int, canonical: bool, mode: str,
 
 
 def write_oracle(out: str, k: int, flag: int, codes, taxids=None,
-                 scale: int = 1, number: int | None = None) -> None:
+                 scale: int = 1, number: int | None = None,
+                 max_taxid: int = (1 << 32) - 1) -> None:
     """The oracle's codes through the port's UnikWriter, with the CLI's
     writer settings for -C (``number`` -1 for -l, which leaves the count
-    out of the header)."""
+    out of the header; ``max_taxid`` the taxids' largest for a
+    KmerSet.save)."""
     from unikmer_tpu_torch.io import unik
 
     with open(out, "wb") as fh, unik.UnikWriter(
             fh, k=k, flag=flag,
             number=len(codes) if number is None else number, compress=False,
             compression_level=5, threads=min(os.cpu_count() or 4, 4),
-            global_taxid=0, scale=scale, max_taxid=(1 << 32) - 1) as w:
+            global_taxid=0, scale=scale, max_taxid=max_taxid) as w:
         w.write_codes(codes, taxids)
 
 
@@ -1020,10 +1052,11 @@ def check_against_oracle(tmp, fa, name, k, canonical, mode, extra,
         f"equal to the {which} oracle; CLI {secs:.3f} s, launches {launches}")
 
 
-def main_path(tmp, rng):
-    """The 134 Mbp CLI count, 2-bit, then hashed (bench.py's two ntHash
+def main_path(tmp, rng, report):
+    """The 134 Mbp CLI count, 2-bit, then KmerSet.from_fasta of the same
+    FASTA (into ``report``), hashed (bench.py's two ntHash
     configurations) and sketched (its two sketch configurations), then
-    -u, -d, k = 32 and k = 64 -H -u over one 50 Mbp record; returns the
+    -u, -d, k = 32 and k = 64 -H -u over one 37.7 Mbp record; returns the
     launches of the 2-bit, the -K -H and the -W 15 run."""
     fa = os.path.join(tmp, "in.fa")
     t0 = time.perf_counter()
@@ -1044,12 +1077,13 @@ def main_path(tmp, rng):
         raise SystemExit(f"main path .unik differs from the {which} oracle")
     say(f"main path .unik ({os.path.getsize(out + '.unik')} bytes) equal to "
         f"the {which} oracle")
+    fasta_set_check(tmp, fa, out + ".oracle.unik", report)
     hashed, bases, keyed, valid = hashed_main_path(tmp, fa)
     sketched = sketch_main_path(tmp, fa, bases, keyed, valid)
     del bases, keyed, valid
     os.remove(fa)
     one = os.path.join(tmp, "one.fa")
-    write_fasta(one, rng, 1, RECORD_BASES + (RECORD_BASES >> 1))
+    write_fasta(one, rng, 1, RECORD_BASES + (RECORD_BASES >> 3))
     check_against_oracle(tmp, one, "u", 23, True, "unique", ["-u"])
     check_against_oracle(tmp, one, "d", 23, True, "repeated", ["-d"])
     check_against_oracle(tmp, one, "k32", 32, False, "distinct", [])
@@ -1425,6 +1459,483 @@ def taxid_path(tmp, rng):
         raise SystemExit(f"T3: the 2^64-1 code was not kept with taxid "
                          f"{t3[0]}: {codes[-3:]}, {got_taxids[-3:]}")
     return k3
+
+
+# ---------------------------------------------------------------------------
+# sets: KmerSet, ops/device_sets and the set-operation subcommands
+
+
+def set_bases(rng, n: int | None = None):
+    """The bases (0-3) of the sets path's records A, B and C: A random; B
+    A's first half with a substitution about every 1,000 bases, then new
+    bases; C A's third quarter, B's second and fourth quarters (each with
+    substitutions) and a new quarter.  So every pair shares a large part
+    and each record has a part of its own."""
+    n = n or SETS_BASES
+    h, q = n // 2, n // 4
+
+    def subst(x):
+        x = x.copy()
+        m = rng.random(len(x)) < 1e-3
+        x[m] = (x[m] + rng.integers(1, 4, size=int(m.sum()),
+                                    dtype=np.uint8)) % 4
+        return x
+
+    a = rng.integers(0, 4, size=n, dtype=np.uint8)
+    b = np.concatenate([subst(a[:h]), rng.integers(0, 4, size=h,
+                                                   dtype=np.uint8)])
+    c = np.concatenate([subst(a[2 * q:3 * q]), subst(b[q:2 * q]),
+                        subst(b[3 * q:]),
+                        rng.integers(0, 4, size=q, dtype=np.uint8)])
+    return a, b, c
+
+
+def write_one_record(path: str, name: str, bases: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(b">%s\n" % name.encode())
+        f.write(np.frombuffer(b"ACGT", np.uint8)[bases].tobytes())
+        f.write(b"\n")
+
+
+def member_np(ref: np.ndarray, q: np.ndarray):
+    """(index, hit) of each query in the sorted ``ref`` by np.searchsorted."""
+    if len(ref) == 0:
+        return np.zeros(len(q), np.int64), np.zeros(len(q), bool)
+    idx = np.minimum(np.searchsorted(ref, q), len(ref) - 1)
+    return idx, ref[idx] == q
+
+
+def merge_sets(sets):
+    """(u, bits): the distinct codes of sorted arrays (at most 8) and for
+    each a bit per array that holds it, from one stable numpy sort of
+    their concatenation (it merges the sorted runs in linear time; a
+    quicksort of 10^8 codes took minutes on the card's host)."""
+    codes = np.concatenate(sets)
+    tags = np.concatenate([np.full(len(x), 1 << i, np.uint8)
+                           for i, x in enumerate(sets)])
+    if len(codes) == 0:
+        return codes, tags
+    order = np.argsort(codes, kind="stable")
+    codes, tags = codes[order], tags[order]
+    del order
+    first = np.flatnonzero(np.concatenate([[True], codes[1:] != codes[:-1]]))
+    return codes[first], np.bitwise_or.reduceat(tags, first)
+
+
+def set_oracles(merged) -> dict:
+    """The library phase's results from the merge of A, B and C: the
+    union, intersection and difference of A and B, the union of all and
+    the codes of at least 2 of 3."""
+    u, bits = merged
+    ab = bits & 3
+    held = (bits & 1) + (bits >> 1 & 1) + (bits >> 2 & 1)
+    return {"A | B": u[ab != 0], "A & B": u[ab == 3], "A - B": u[ab == 1],
+            "union_all": u, "common 2": u[held >= 2]}
+
+
+def low_complexity_oracle(codes: np.ndarray, k: int, penalty_s: int = 3,
+                          penalty_d: int = 1, threshold: int = 15,
+                          window: int = 7) -> np.ndarray:
+    """True where a 2-bit k-mer is low-complexity, from the filter's
+    definition: walk the bases from the last one back, score the first
+    penalty_d and each next one penalty_s where it equals the base walked
+    before it, else penalty_d; the k-mer is low when a window of scores
+    starting at 0 .. max(k - window - 1, 0) sums to >= threshold.  Base j
+    of the walk is bits 2j of the code, read from its byte j // 4."""
+    window = min(window, k)
+    out = np.zeros(len(codes), bool)
+    step = 1 << 22
+    for lo in range(0, len(codes), step):
+        by = np.ascontiguousarray(codes[lo:lo + step], "<u8").view(
+            np.uint8).reshape(-1, 8)
+        walked = [(by[:, j >> 2] >> (2 * (j & 3))) & 3 for j in range(k)]
+        csum = [np.zeros(len(by), np.int16), np.full(len(by), penalty_d,
+                                                     np.int16)]
+        for j in range(1, k):
+            csum.append(csum[-1] + np.where(walked[j] == walked[j - 1],
+                                            penalty_s, penalty_d).astype(
+                                                np.int16))
+        for s in range(max(k - window - 1, 0) + 1):
+            out[lo:lo + len(by)] |= (csum[min(s + window, k)] - csum[s]
+                                     >= threshold)
+    return out
+
+
+def taxid_set_oracles(a, ta, b, tb, taxdb) -> dict:
+    """(codes, taxids) of the taxid set operations of A and B: a code in
+    both takes lca_pairs of its two taxids (unknown -> 0, 0 the
+    identity; each distinct pair walked once), a code in one keeps its
+    own.  In the one-sided union B's taxids are 0, so a shared code
+    takes lca_pairs(its A taxid, 0)."""
+    _, in_a = member_np(a, b)  # b's codes found in a
+    ib, in_b = member_np(b, a)
+    shared = a[in_b]
+    pairs = (ta[in_b].astype(np.uint64) << np.uint64(32)) | tb[ib[in_b]]
+    uniq, inv = np.unique(pairs, return_inverse=True)
+    lca = taxdb.lca_pairs(uniq >> np.uint64(32),
+                          uniq & np.uint64(0xFFFFFFFF))[inv.reshape(-1)]
+    u = merge_sets([a, b])[0]
+    tu = np.zeros(len(u), np.uint32)
+    tu[np.searchsorted(u, a)] = ta
+    tu[np.searchsorted(u, b[~in_a])] = tb[~in_a]
+    tu[np.searchsorted(u, shared)] = lca
+    t1 = np.zeros(len(u), np.uint32)
+    t1[np.searchsorted(u, a)] = ta
+    t1[np.searchsorted(u, shared)] = taxdb.lca_pairs(
+        ta[in_b], np.zeros(len(shared), np.uint32))
+    return {"A | B (taxids)": (u, tu), "A | B (one-sided)": (u, t1),
+            "A & B (taxids)": (shared, lca),
+            "A & B (one-sided)": (shared, ta[in_b]),
+            "A - B (taxids)": (a[~in_b], ta[~in_b])}
+
+
+def cli_setop_oracles(merged, gtaxids, taxdb) -> dict:
+    """(codes, taxids) of ``union``, ``inter``, ``diff`` and ``common -n
+    2`` over the three sets written by ``count -t`` with the global
+    taxids ``gtaxids``, from their merge: a code's taxid is the LCA of
+    the taxids of the files that hold it (the query's for diff)."""
+    u, bits = merged
+    lca = np.zeros(8, np.uint32)
+    for p in range(1, 8):
+        members = [gtaxids[i] for i in range(3) if p >> i & 1]
+        acc = np.array([members[0]], np.uint32)
+        for m in members[1:]:
+            acc = taxdb.lca_pairs(acc, np.array([m], np.uint32))
+        lca[p] = acc[0]
+    tax = lca[bits]
+    nfiles = (bits & 1) + (bits >> 1 & 1) + (bits >> 2 & 1)
+    diff = bits == 1
+    return {"union": (u, tax), "inter": (u[bits == 7], tax[bits == 7]),
+            "diff": (u[diff], np.full(int(diff.sum()), gtaxids[0],
+                                      np.uint32)),
+            "common": (u[nfiles >= 2], tax[nfiles >= 2])}
+
+
+def counted(fn, need: dict, what: str):
+    """fn() once with the K1/K2/K3 counters zeroed just before and read
+    just after, and the peak device memory over it; raises unless the
+    launches equal ``need``.  Returns (result, seconds, launches, peak)."""
+    wrappers = {key: w for key, w in encode_wrappers().items()
+                if key in ("k1", "k2", "k3")}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {key: w.launches for key, w in wrappers.items()}
+    if any(launches[key] != n for key, n in need.items()):
+        raise SystemExit(f"sets {what}: launches {launches}, expected {need}")
+    return out, secs, launches, peak
+
+
+HOST_BRANCHES = {"native": contextlib.nullcontext, "numpy": numpy_host}
+
+
+def host_seconds(fn, branches=("native", "numpy")) -> dict:
+    """Seconds of one call of a host-engine function on each of
+    ``branches``: the native library, then its numpy branches."""
+    out = {}
+    for branch in branches:
+        with HOST_BRANCHES[branch]():
+            t0 = time.perf_counter()
+            fn()
+            out[f"host_{branch}_s"] = round(time.perf_counter() - t0, 4)
+    return out
+
+
+def check_saved(tmp, name, kset, codes, taxids=None) -> None:
+    """kset.save() against the oracle's .unik, byte for byte."""
+    from unikmer_tpu_torch.io import unik
+
+    got = os.path.join(tmp, "set.unik")
+    want = os.path.join(tmp, "set.oracle.unik")
+    kset.save(got, compress=False)
+    flag = unik.SORTED | unik.CANONICAL
+    with numpy_host():
+        if taxids is None:
+            write_oracle(want, kset.k, flag, codes)
+        else:
+            write_oracle(want, kset.k, flag | unik.INCLUDE_TAXID, codes,
+                         taxids, max_taxid=int(taxids.max(initial=0)))
+    if not same_bytes(got, want):
+        raise SystemExit(f"sets {name}: the saved .unik differs from the "
+                         f"oracle's")
+    os.remove(got)
+    os.remove(want)
+
+
+class SetsReport:
+    """The rows of the ``sets`` JSON line and the K2/K3 launches of the
+    sets path."""
+
+    def __init__(self):
+        self.rows = []
+        self.launches = {"k1": 0, "k2": 0, "k3": 0}
+
+    def op(self, name, fn, need, check, host=None,
+           branches=("native", "numpy")):
+        """Run a set operation once counted and checked, then time it
+        (the median of 5 runs; of 1 where the first took over a second:
+        the host-bound transforms); returns its result."""
+        out, secs, launches, peak = counted(fn, need, name)
+        check(out)
+        for key in self.launches:
+            self.launches[key] += launches[key]
+        reps = 5 if secs < 1 else 1
+        row = {"op": name, "ms": round(cuda_ms(fn, reps), 4), "runs": reps,
+               "first_s": round(secs, 4), "peak_bytes": peak,
+               "launches": {k: v for k, v in launches.items() if v}}
+        if host is not None:
+            row.update(host_seconds(host, branches))
+        self.rows.append(row)
+        say(f"sets {name}: " + json.dumps(row))
+        return out
+
+
+def same_set(name, got_codes, want_codes, got_tax=None, want_tax=None):
+    if not np.array_equal(got_codes, want_codes):
+        raise SystemExit(f"sets {name}: {len(got_codes)} codes against the "
+                         f"oracle's {len(want_codes)}, not equal")
+    if want_tax is not None and not np.array_equal(got_tax, want_tax):
+        raise SystemExit(f"sets {name}: taxids differ from the oracle's")
+
+
+def fasta_set_check(tmp, fa, oracle_path, report: SetsReport,
+                    dev=None) -> None:
+    """KmerSet.from_fasta(k=23, canonical=True) of the main path's 134 Mbp
+    FASTA: a device set a record (K1, K2 each), merged by union_all (one
+    more K2), saved byte-equal to the main path's oracle .unik."""
+    from unikmer_tpu_torch import KmerSet
+
+    dev = dev or torch.device("cuda", 0)
+    got = os.path.join(tmp, "fasta_set.unik")
+
+    def check(kset):
+        kset.save(got, compress=False)
+        if not same_bytes(got, oracle_path):
+            raise SystemExit("sets from_fasta 134 Mbp: .unik differs from "
+                             "the main path's oracle")
+        os.remove(got)
+
+    report.op("from_fasta 134 Mbp (4 pieces)",
+              lambda: KmerSet.from_fasta(fa, 23, canonical=True, device=dev),
+              {"k1": 4, "k2": 5, "k3": 0}, check)
+
+
+def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
+    """The library phase, the taxid phase and the CLI phase (module
+    docstring), every result held exactly to its numpy oracle; the
+    -T path's taxonomy is read from ``tmp``/taxdump."""
+    from unikmer_tpu_torch import KmerSet
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.ops import device_sets
+    from unikmer_tpu_torch.ops import sets as host_sets
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
+
+    dev = dev or torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    bases = set_bases(rng)
+    fas = [os.path.join(tmp, f"set{n}.fa") for n in "ABC"]
+    for fa, name, x in zip(fas, "ABC", bases):
+        write_one_record(fa, name, x)
+    t = [t0, time.perf_counter()]
+    oracle = {}
+    for name, x in zip("ABC", bases):
+        oracle[name] = numpy_count(x, 23, True, "distinct")
+    t.append(time.perf_counter())
+    merged = merge_sets([oracle["A"], oracle["B"], oracle["C"]])
+    oracle.update(set_oracles(merged))
+    t.append(time.perf_counter())
+    say(f"sets inputs: 3 x {len(bases[0])} bases, {len(oracle['A'])} / "
+        f"{len(oracle['B'])} / {len(oracle['C'])} distinct 23-mers; made and "
+        f"written {t[1] - t[0]:.3f} s, counted {t[2] - t[1]:.3f} s, set "
+        f"oracles {t[3] - t[2]:.3f} s: " + json.dumps(
+            {k: len(v) for k, v in oracle.items()}))
+    del bases
+    no_sort = {"k1": 0, "k2": 0, "k3": 0}
+    one_k2 = {"k1": 0, "k2": 1, "k3": 0}
+
+    def holds(name):
+        def check(kset):
+            want = oracle[name]
+            if isinstance(want, tuple):
+                want, taxids_want = want
+            else:
+                taxids_want = None
+            same_set(name, kset.to_numpy(), want, kset.taxids_to_numpy(),
+                     taxids_want)
+            if kset.device != dev:
+                raise SystemExit(f"sets {name}: result on {kset.device}")
+            check_saved(tmp, name, kset, want, taxids_want)
+        return check
+
+    sets = {}
+    for name, fa in zip("ABC", fas):
+        sets[name] = report.op(
+            f"from_fasta {name}",
+            lambda fa=fa: KmerSet.from_fasta(fa, 23, canonical=True,
+                                             device=dev),
+            {"k1": 1, "k2": 1, "k3": 0}, holds(name))
+    a, b, c = sets["A"], sets["B"], sets["C"]
+    an, bn, cn = oracle["A"], oracle["B"], oracle["C"]
+    report.op("A | B", lambda: a | b, one_k2, holds("A | B"),
+              lambda: host_sets.union([an, bn]))
+    report.op("A & B", lambda: a & b, no_sort, holds("A & B"),
+              lambda: host_sets.intersect([an, bn]))
+    report.op("A - B", lambda: a - b, no_sort, holds("A - B"),
+              lambda: host_sets.subtract(an, None, [bn]))
+    report.op("union_all", lambda: KmerSet.union_all([a, b, c]), one_k2,
+              holds("union_all"), lambda: host_sets.union([an, bn, cn]))
+    report.op("common 2", lambda: KmerSet.common([a, b, c], 2), one_k2,
+              holds("common 2"), lambda: host_sets.common([an, bn, cn],
+                                                          None, 2))
+    # queries of known membership: 2^23 members of A, 2^22 members plus
+    # one (searched in A), 2^22 codes past any 23-mer's; shuffled
+    near = an[np.sort(rng.integers(0, len(an), size=1 << 22))] + np.uint64(1)
+    q = np.concatenate([an[rng.integers(0, len(an), size=1 << 23)], near,
+                        rng.integers(1 << 46, 1 << 47, size=1 << 22,
+                                     dtype=np.uint64)])
+    want_hits = np.concatenate([np.ones(1 << 23, bool), member_np(an, near)[1],
+                                np.zeros(1 << 22, bool)])
+    perm = rng.permutation(len(q))
+    q, want_hits = q[perm], want_hits[perm]
+    del near, perm
+
+    def hits(name):
+        def check(got):
+            if not np.array_equal(got, want_hits):
+                raise SystemExit(f"sets {name}: {int(got.sum())} hits "
+                                 f"against the oracle's {int(want_hits.sum())}")
+        return check
+
+    # the host engine's membership of unsorted queries is numpy's
+    # searchsorted on either branch (40 s for all 2^24 queries on the
+    # card's host): timed over the first 2^20; DeviceMembership answers
+    # the same
+    report.op("contains 2^24", lambda: a.contains(q), no_sort,
+              hits("contains"), lambda: host_sets.member_mask(an, q[:1 << 20]),
+              ("numpy",))
+    report.rows[-1]["host_queries"] = 1 << 20
+    member = device_sets.DeviceMembership(an, device=dev)
+    report.op("DeviceMembership 2^24", lambda: member.lookup(q), no_sort,
+              hits("DeviceMembership"))
+    report.rows[-1]["host_as"] = "contains 2^24"
+    del member, q
+    idx = np.arange(len(an))
+    oracle["head"] = an[:1000]
+    oracle["sample"] = an[(idx >= 3) & ((idx - 3) % 7 == 0)]
+    oracle["filter"] = an[~low_complexity_oracle(an, 23)]
+    report.op("head 1000", lambda: a.head(1000), no_sort, holds("head"))
+    report.op("sample 3 7", lambda: a.sample(3, 7), no_sort, holds("sample"))
+    report.op("filter_low_complexity", lambda: a.filter_low_complexity(),
+              no_sort, holds("filter"))
+    del c, sets
+
+    # the taxid phase: per-code taxids from 512 nodes of the -T path's
+    # tree, one unknown nonzero taxid in A
+    d = os.path.join(tmp, "taxdump")
+    taxdb = load_taxonomy(d)
+    known = np.flatnonzero(taxdb.depth >= 0)
+    pool = rng.choice(known[known > 0], 512, replace=False).astype(np.uint32)
+    ta = rng.choice(pool, len(an)).astype(np.uint32)
+    ta[len(ta) // 3] = TAX_NODES + 7  # unknown to the taxonomy
+    tb = rng.choice(pool, len(bn)).astype(np.uint32)
+    t0 = time.perf_counter()
+    with numpy_host():
+        oracle.update(taxid_set_oracles(an, ta, bn, tb, taxdb))
+    say(f"sets taxid oracles: {time.perf_counter() - t0:.3f} s")
+    at = KmerSet.from_codes(an, 23, canonical=True, taxids=ta, taxdb=taxdb,
+                            assume_sorted_unique=True, device=dev)
+    bt = KmerSet.from_codes(bn, 23, canonical=True, taxids=tb, taxdb=taxdb,
+                            assume_sorted_unique=True, device=dev)
+    report.op("A | B (taxids)", lambda: at | bt, {"k1": 0, "k2": 0, "k3": 1},
+              holds("A | B (taxids)"),
+              lambda: host_sets.union([an, bn], [ta, tb], taxdb), ("native",))
+    report.op("A | B (one-sided)", lambda: at | b, one_k2,
+              holds("A | B (one-sided)"),
+              lambda: host_sets.union([an, bn],
+                                      [ta, np.zeros(len(bn), np.uint32)],
+                                      taxdb), ("native",))
+    report.op("A & B (taxids)", lambda: at & bt, no_sort,
+              holds("A & B (taxids)"),
+              lambda: host_sets.intersect([an, bn], [ta, tb], taxdb),
+              ("native",))
+    report.op("A & B (one-sided)", lambda: at & b, no_sort,
+              holds("A & B (one-sided)"),
+              lambda: host_sets.intersect([an, bn], [ta, None], taxdb),
+              ("native",))
+    report.op("A - B (taxids)", lambda: at - bt, no_sort,
+              holds("A - B (taxids)"),
+              lambda: host_sets.subtract(an, ta, [bn]), ("native",))
+    del a, b, at, bt
+
+    # the CLI phase
+    gtax = [int(t) for t in rng.choice(known[known > 2], 3, replace=False)]
+    uniks = []
+    for fa, name, t in zip(fas, "ABC", gtax):
+        out = os.path.join(tmp, f"cli{name}")
+        counted_cli(["count", "-k", "23", "-K", "-s", "-C", "-t", str(t), fa,
+                     "-o", out], {"k1": True, "k2": True, "h1": False,
+                                  "s1": False})
+        uniks.append(out + ".unik")
+        os.remove(fa)
+    t0 = time.perf_counter()
+    with numpy_host():
+        cli_oracle = cli_setop_oracles(merged, gtax, taxdb)
+    del an, bn, cn, oracle, merged
+    written = {}
+    for key, (codes, taxids) in cli_oracle.items():
+        written[key] = os.path.join(tmp, f"cli_{key}.oracle.unik")
+        with numpy_host():
+            write_oracle(written[key], 23, unik.SORTED | unik.CANONICAL
+                         | unik.INCLUDE_TAXID, codes, taxids)
+    say(f"sets CLI oracles: {time.perf_counter() - t0:.3f} s")
+    host_union_calls = []
+    real_union = host_sets.union
+
+    def spy(*args, **kw):
+        host_union_calls.append(1)
+        return real_union(*args, **kw)
+
+    runs = (("union (table tier)", ["union", "-s"], "union", None),
+            ("union (paths tier)", ["union", "-s"], "union", "0"),
+            ("inter", ["inter"], "inter", None),
+            ("diff", ["diff", "-s"], "diff", None),
+            ("common -n 2", ["common", "-n", "2"], "common", None))
+    for name, cmd, key, vocab_max in runs:
+        out = os.path.join(tmp, "cliout")
+        argv = [*cmd, "-C", "--data-dir", d, *uniks, "-o", out]
+        if vocab_max is not None:
+            os.environ["UNIKMER_TPU_TAXID_VOCAB_MAX"] = vocab_max
+        host_sets.union = spy
+        host_union_calls.clear()
+        try:
+            _, secs, launches, peak = counted(
+                lambda: run_cli(argv),
+                {"k1": 0, "k2": 0, "k3": 1 if key == "union" else 0}, name)
+        finally:
+            host_sets.union = real_union
+            os.environ.pop("UNIKMER_TPU_TAXID_VOCAB_MAX", None)
+        if key == "union" and host_union_calls:
+            raise SystemExit(f"sets CLI {name}: the host engine ran")
+        if not same_bytes(out + ".unik", written[key]):
+            raise SystemExit(f"sets CLI {' '.join(argv)}: .unik differs from "
+                             f"the oracle")
+        for key_ in report.launches:
+            report.launches[key_] += launches[key_]
+        row = {"op": f"CLI {name}", "s": round(secs, 4), "peak_bytes": peak,
+               "codes": len(cli_oracle[key][0]),
+               "launches": {k: v for k, v in launches.items() if v}}
+        report.rows.append(row)
+        say(f"sets CLI {name}: {os.path.getsize(out + '.unik')} bytes equal "
+            f"to the oracle; " + json.dumps(row))
+        os.remove(out + ".unik")
+    for u in uniks + list(written.values()):
+        os.remove(u)
 
 
 # ---------------------------------------------------------------------------
@@ -1863,11 +2374,23 @@ def main() -> int:
     launch_breakdown(entry.probe_inputs(dev)[1])
     for key, us in host_costs(dev, rng).items():
         results[key]["host_us"] = us
+    report = SetsReport()
     with tempfile.TemporaryDirectory(prefix="unikmer-torch-smoke-") as tmp:
-        launches = main_path(tmp, rng)
+        t0 = time.perf_counter()
+        launches = main_path(tmp, rng, report)
+        t = [time.perf_counter()]
         launches["k3"] = taxid_path(tmp, rng)
+        t.append(time.perf_counter())
         linear_hashed_path(tmp, rng)
         compat_path(tmp, rng)
+        t.append(time.perf_counter())
+        sets_path(tmp, rng, report)
+        t.append(time.perf_counter())
+    say(f"path seconds: main {t[0] - t0:.3f}, count -T {t[1] - t[0]:.3f}, "
+        f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}")
+    say(json.dumps({"sets": report.rows}))
+    launches["k2"] += report.launches["k2"]
+    launches["k3"] += report.launches["k3"]
     launches.update(probe_path())
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

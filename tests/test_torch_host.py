@@ -24,12 +24,15 @@ from unikmer_tpu.ops.codec import canonical_np as jax_canonical_np
 from unikmer_tpu.ops.codec import window_valid as jax_window_valid
 from unikmer_tpu.ops.nthash import nthash_windows_np as jax_nthash_windows_np
 from unikmer_tpu.ops.nthash import scaled_max_hash as jax_scaled_max_hash
+from unikmer_tpu.ops import filter as jax_filter
+from unikmer_tpu.ops import sets as jax_sets
 from unikmer_tpu.ops import sketch as jax_sketch
 from unikmer_tpu.taxonomy import taxdump as jax_taxdump
 from unikmer_tpu_torch import native
 from unikmer_tpu_torch.cli.main import main as port_main
 from unikmer_tpu_torch.io import fastx, unik
 from unikmer_tpu_torch.models import count as port_count
+from unikmer_tpu_torch.ops import filter as port_filter
 from unikmer_tpu_torch.ops import sets
 from unikmer_tpu_torch.pipeline import extsort
 from unikmer_tpu_torch.taxonomy import taxdump
@@ -226,6 +229,226 @@ def test_extsort_spill_merges_like_in_ram(tmp_path, mode):
 
 
 # ---------------------------------------------------------------------
+# the set operations' host layers: the .unik reader, ops/sets, filter
+
+HEADER_PROPS = ("is_compact", "is_canonical", "is_sorted",
+                "is_include_taxid", "is_hashed", "is_scaled",
+                "has_global_taxid", "has_taxid_info")
+
+
+@pytest.mark.parametrize("flag,max_taxid,gt,scale", [
+    (jax_unik.SORTED, 0, 0, 1),
+    (jax_unik.SORTED | jax_unik.INCLUDE_TAXID | jax_unik.CANONICAL,
+     (1 << 32) - 1, 0, 1),
+    (jax_unik.SORTED | jax_unik.INCLUDE_TAXID, 600000, 0, 1),
+    (jax_unik.INCLUDE_TAXID | jax_unik.HASHED, 255, 0, 7),
+    (jax_unik.COMPACT | jax_unik.CANONICAL, 0, 9606, 1),
+    (0, 0, 0, 1),
+])
+@pytest.mark.parametrize("compress", [False, True])
+def test_read_all_and_header_match_jax(flag, max_taxid, gt, scale, compress,
+                                       no_native):
+    """read_all (the native block decoder, then the numpy branch) and the
+    header properties on the bytes the JAX writer made."""
+    codes = sorted_codes(21, 30000)
+    if not flag & jax_unik.SORTED:
+        codes = np.random.default_rng(22).permutation(codes)
+    taxids = None
+    if flag & jax_unik.INCLUDE_TAXID:
+        taxids = np.random.default_rng(23).choice(TAXIDS, size=len(codes))
+        taxids = np.minimum(taxids, max_taxid).astype(np.uint32)
+    buf = io.BytesIO()
+    with jax_unik.UnikWriter(buf, k=23, flag=flag, number=len(codes),
+                             max_taxid=max_taxid, compress=compress,
+                             block_size=7000, global_taxid=gt,
+                             scale=scale) as w:
+        w.write_codes(codes, taxids)
+    data = buf.getvalue()
+    with jax_unik.UnikReader(io.BytesIO(data)) as r:
+        want_h, want = r.header, r.read_all()
+    for branch in ("native", "numpy"):
+        if branch == "numpy":
+            no_native()
+        with unik.UnikReader(io.BytesIO(data)) as r:
+            got_h, got = r.header, r.read_all()
+        for prop in HEADER_PROPS:
+            assert getattr(got_h, prop) == getattr(want_h, prop), prop
+        np.testing.assert_array_equal(got[0], want[0])
+        assert (got[1] is None) == (want[1] is None)
+        if want[1] is not None:
+            np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_read_all_of_an_empty_set_matches_jax():
+    for flag in (jax_unik.SORTED, jax_unik.SORTED | jax_unik.INCLUDE_TAXID):
+        j, p = write_both(np.zeros(0, np.uint64),
+                          np.zeros(0, np.uint32) if flag > 4 else None,
+                          k=21, flag=flag, compress=False)
+        assert j == p
+        with unik.UnikReader(io.BytesIO(p)) as r:
+            codes, taxids = r.read_all()
+        assert len(codes) == 0 and (taxids is None) == (flag == 4)
+
+
+def test_reader_takes_a_stream_without_peek():
+    """A raw stream (stdin's kind) is sniffed through _Concat."""
+    codes = sorted_codes(24, 5000)
+    data = write_both(codes, k=23, flag=unik.SORTED, compress=True)[1]
+
+    class Raw(io.RawIOBase):
+        def __init__(self, b):
+            self.b = io.BytesIO(b)
+
+        def readable(self):
+            return True
+
+        def readinto(self, out):
+            chunk = self.b.read(len(out))
+            out[: len(chunk)] = chunk
+            return len(chunk)
+
+    with unik.UnikReader(Raw(data)) as r:
+        np.testing.assert_array_equal(r.read_all()[0], codes)
+
+
+@pytest.mark.parametrize("change", [
+    {}, {"k": 25}, {"flag": unik.SORTED | unik.CANONICAL},
+    {"flag": unik.SORTED | unik.HASHED}, {"scale": 3},
+    {"k": 25, "flag": unik.SORTED | unik.HASHED, "scale": 2}])
+def test_check_compatibility_matches_jax(change):
+    base = dict(k=23, flag=unik.SORTED, scale=1)
+    h = {**base, **change}
+    results = []
+    for mod in (jax_unik, unik):
+        try:
+            mod.check_compatibility(mod.UnikHeader(**base),
+                                    mod.UnikHeader(**h), "f.unik")
+            results.append(None)
+        except ValueError as e:
+            results.append(str(e))
+    assert results[0] == results[1]
+    assert (results[1] is None) == (not change)
+
+
+def test_cli_common_helpers_match_jax(tmp_path):
+    """effective_taxids makes a global taxid a column (None under -I, the
+    file's own column where it has one), and open_reader reads a path and
+    stdin ("-") alike, as the JAX helpers do."""
+    from unikmer_tpu.cli.commands import _common as jax_common
+    from unikmer_tpu_torch.cli.commands import _common as port_common
+
+    codes = sorted_codes(28, 3000)
+    taxids = np.random.default_rng(29).choice(TAXIDS, size=len(codes))
+    src = str(tmp_path / "src.unik")
+    with unik.UnikWriter(src, k=23, flag=unik.SORTED | unik.INCLUDE_TAXID,
+                         max_taxid=600000, compress=False) as w:
+        w.write_codes(codes, taxids)
+    glob = str(tmp_path / "glob.unik")
+    with unik.UnikWriter(glob, k=23, flag=unik.SORTED, global_taxid=562,
+                         compress=False) as w:
+        w.write_codes(codes)
+    for mod in (jax_common, port_common):
+        with mod.open_reader(glob) as r:
+            t = mod.effective_taxids(r, 5, None, False)
+            assert t.tolist() == [562] * 5
+            assert mod.effective_taxids(r, 5, None, True) is None
+        with mod.open_reader(src) as r:
+            c, t = r.read_all()
+            got = mod.effective_taxids(r, len(c), t, False)
+        np.testing.assert_array_equal(c, codes)
+        np.testing.assert_array_equal(got, taxids)
+    with open(src, "rb") as f:
+        data = f.read()
+    old = sys.stdin
+    try:
+        sys.stdin = io.TextIOWrapper(io.BufferedReader(io.BytesIO(data)))
+        with port_common.open_reader("-") as r:
+            c, t = r.read_all()
+    finally:
+        sys.stdin = old
+    np.testing.assert_array_equal(c, codes)
+    np.testing.assert_array_equal(t, taxids)
+
+
+@pytest.fixture(scope="module")
+def set_inputs():
+    """Five sorted code arrays sharing members, with taxid columns (an
+    unknown taxid and 0s among them) and constant ones."""
+    rng = np.random.default_rng(25)
+    base = rng.integers(0, 1 << 40, size=40000, dtype=np.uint64)
+    codes = [np.unique(np.concatenate([base[rng.random(40000) < 0.4],
+                                       rng.integers(0, 1 << 40, size=3000,
+                                                    dtype=np.uint64)]))
+             for _ in range(5)]
+    pool = np.append(TAXIDS, 999999).astype(np.uint32)
+    taxids = [rng.choice(pool, len(c)).astype(np.uint32) for c in codes]
+    consts = [np.full(len(c), t, np.uint32)
+              for c, t in zip(codes, (511145, 585057, 562, 0, 2))]
+    return codes, taxids, consts
+
+
+def assert_pair(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("engine", ["native", "numpy"])
+def test_host_set_engine_matches_jax(taxdbs, set_inputs, no_native, engine):
+    """ops/sets: union (the native tree, the constant-taxid patterns and
+    the generic LCA reduce), intersect, subtract (with --compare-taxid)
+    and common, with and without a taxonomy."""
+    jdb, pdb = taxdbs
+    if engine == "numpy":
+        no_native()
+    codes, taxids, consts = set_inputs
+    unsorted = np.random.default_rng(26).permutation(codes[2])
+    for tax in (None, taxids, consts):
+        for db in ((jdb, pdb), (None, None)):
+            assert_pair(sets.union(codes[:4], tax and tax[:4], db[1]),
+                        jax_sets.union(codes[:4], tax and tax[:4], db[0]))
+            assert_pair(sets.intersect(codes[:3], tax and tax[:3], db[1]),
+                        jax_sets.intersect(codes[:3], tax and tax[:3], db[0]))
+            for th in (0, 1, 2, 5, 6):
+                assert_pair(sets.common(codes, tax, th, db[1]),
+                            jax_sets.common(codes, tax, th, db[0]))
+    others = [codes[1], unsorted, codes[3][:0]]
+    for cmp in (False, True):
+        for ot in (None, [taxids[1], taxids[2], taxids[3][:0]]):
+            qt = None if ot is None else taxids[0]
+            assert_pair(
+                sets.subtract(codes[0], qt, others, ot, cmp, pdb),
+                jax_sets.subtract(codes[0], qt, others, ot, cmp, jdb))
+    assert_pair(sets.union([unsorted, codes[1]]),
+                jax_sets.union([unsorted, codes[1]]))
+    q = np.sort(np.concatenate([codes[0][::5], codes[4][:500]]))
+    assert_pair(sets.member_mask(codes[1], q, sorted_queries=True),
+                jax_sets.member_mask(codes[1], q, sorted_queries=True))
+    dup = np.sort(np.concatenate([codes[0], codes[0][::3]]))
+    dt = np.random.default_rng(27).choice(TAXIDS, len(dup)).astype(np.uint32)
+    for t, db in ((None, None), (dt, None), (dt, pdb)):
+        assert_pair(sets.dedup_sorted(dup, t, db),
+                    jax_sets.dedup_sorted(dup, t, db and jdb))
+
+
+@pytest.mark.parametrize("k,window", [(1, 7), (5, 7), (21, 7), (31, 4),
+                                      (32, 32)])
+@pytest.mark.parametrize("penalty", [(3, 1, 15), (2, 2, 5)])
+def test_low_complexity_mask_matches_jax(k, window, penalty):
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 1 << (2 * k), size=5000, dtype=np.uint64)
+    codes[:4] = [0, (1 << (2 * k)) - 1, 0x5555555555555555 >> (64 - 2 * k),
+                 0x1B1B1B1B1B1B1B1B >> (64 - 2 * k)]
+    got = port_filter.low_complexity_mask(
+        torch.from_numpy(codes.view(np.int64)), k, *penalty, window)
+    want = jax_filter.low_complexity_mask(codes, k, *penalty, window)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------
 # the native library against the numpy branches
 
 
@@ -271,8 +494,46 @@ def test_native_sorts_and_sets_match_numpy():
     # sorted inputs with duplicates inside each, as the piece merge sees
     np.testing.assert_array_equal(native.set2_union(np.sort(keys), b),
                                   np.union1d(keys, b))
-    np.testing.assert_array_equal(sets.union([b, a, b[:7]]),
+    np.testing.assert_array_equal(sets.union([b, a, b[:7]])[0],
                                   np.union1d(a, b))
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 16) + 3, 300000])
+def test_native_set_functions_match_numpy(n):
+    """set2_sorted (union, inter, diff), member_mask_sorted and
+    host_argsort against numpy: both sides with duplicates."""
+    rng = np.random.default_rng(n + 30)
+    a = np.sort(rng.integers(0, max(n, 1) * 2, size=n, dtype=np.uint64))
+    b = np.sort(rng.integers(0, max(n, 1) * 2, size=n // 2 + 1,
+                             dtype=np.uint64))
+    for op, want in (("union", np.union1d), ("inter", np.intersect1d),
+                     ("diff", np.setdiff1d)):
+        np.testing.assert_array_equal(native.set2_sorted(op, a, b),
+                                      want(a, b))
+        assert native.set2_sorted(op, a, b, trim=False).base is not None
+    np.testing.assert_array_equal(native.set2_union(b, a), np.union1d(a, b))
+    ua = np.unique(a)
+    mask, idx = native.member_mask_sorted(ua, b)
+    np.testing.assert_array_equal(mask, np.isin(b, ua))
+    np.testing.assert_array_equal(ua[idx[mask]], b[mask])
+    assert native.member_mask_sorted(ua, b, want_idx=False)[1] is None
+    keys = rng.integers(0, 50, size=n, dtype=np.uint64)
+    sk, perm = native.host_argsort(keys)
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(sk, keys[order])
+    np.testing.assert_array_equal(np.asarray(perm, np.int64), order)
+
+
+def test_native_set_functions_fall_back_to_numpy(no_native):
+    a = sorted_codes(31, 100)
+    no_native()
+    assert native.set2_sorted("inter", a, a) is None
+    assert native.set2_union(a, a) is None
+    assert native.member_mask_sorted(a, a) is None
+    assert native.decode_sorted_blocks(b"", 0) is None
+    sk, perm = native.host_argsort(a[::-1].copy())
+    np.testing.assert_array_equal(sk, a)
+    assert perm.dtype == np.int64
 
 
 def test_native_delta_encode_matches_numpy(no_native):
@@ -309,13 +570,25 @@ def test_native_fastx_load_falls_back_past_the_cap(tmp_path):
 # chip_smoke's oracle
 
 
-@pytest.mark.parametrize("k", [1, 5, 23, 31, 32])
+@pytest.mark.parametrize("k", [1, 5, 8, 9, 23, 31, 32])
 def test_chip_smoke_canonical_matches_jax(k):
+    """chip_smoke's windows from 8-base blocks: the forward codes against
+    a base-by-base roll, the canonical ones against the JAX package's
+    canonical_np of them (all-A and all-T windows among them)."""
     rng = np.random.default_rng(k)
-    codes = rng.integers(0, 1 << (2 * k), size=5000, dtype=np.uint64)
-    codes[:2] = [0, (1 << (2 * k)) - 1]
-    np.testing.assert_array_equal(chip_smoke.canonical_np(codes, k),
-                                  jax_canonical_np(codes, k))
+    bases = rng.integers(0, 4, size=5000, dtype=np.uint8)
+    bases[rng.random(5000) < 0.01] = 255
+    bases[100:140], bases[200:240] = 0, 3
+    fwd, pos = chip_smoke.numpy_windows(bases, k, False)
+    canon, pos2 = chip_smoke.numpy_windows(bases, k, True)
+    want = np.zeros(len(bases) - k + 1, np.uint64)
+    for j in range(k):
+        want = (want << np.uint64(2)) | (bases[j:j + len(want)] & 3).astype(
+            np.uint64)
+    np.testing.assert_array_equal(pos, pos2)
+    np.testing.assert_array_equal(fwd, want[pos])
+    np.testing.assert_array_equal(canon, jax_canonical_np(fwd, k))
+    assert len(pos) > 3000 and {0, (1 << (2 * k)) - 1} <= set(fwd.tolist())
 
 
 def test_chip_smoke_oracles_match_the_port_cli(tmp_path, monkeypatch):
@@ -496,6 +769,111 @@ def test_chip_smoke_sketch_oracles_match_the_port_cli(tmp_path, monkeypatch):
     chip_smoke.oracle_taxid_unik(str(tfa), out + ".oracle.unik", 31, False,
                                  "distinct", TAXDUMP, minimizer_w=15)
     assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 23, 32])
+def test_chip_smoke_low_complexity_oracle_matches_jax(k):
+    """chip_smoke's filter oracle, written from the definition, against
+    the JAX package's bit-trick form."""
+    rng = np.random.default_rng(k + 40)
+    codes = rng.integers(0, 1 << (2 * k), size=6000, dtype=np.uint64)
+    codes[:3] = [0, (1 << (2 * k)) - 1, 0x1B1B1B1B1B1B1B1B >> (64 - 2 * k)]
+    for args in ((3, 1, 15, 7), (2, 1, 6, 3), (1, 1, 1, 40)):
+        np.testing.assert_array_equal(
+            chip_smoke.low_complexity_oracle(codes, k, *args),
+            jax_filter.low_complexity_mask(codes, k, *args))
+
+
+@pytest.mark.parametrize("sizes", [(0, 0, 0), (5, 0, 9), (3000, 2000, 4000)])
+def test_chip_smoke_merge_sets_matches_numpy_set_functions(sizes):
+    rng = np.random.default_rng(sum(sizes))
+    sets = [np.unique(rng.integers(0, 5000, size=n, dtype=np.uint64))
+            for n in sizes]
+    u, bits = chip_smoke.merge_sets(sets)
+    np.testing.assert_array_equal(u, np.unique(np.concatenate(sets)))
+    for i, x in enumerate(sets):
+        np.testing.assert_array_equal(u[(bits >> i & 1) == 1], x)
+    want = chip_smoke.set_oracles((u, bits))
+    a, b, c = sets
+    np.testing.assert_array_equal(want["A | B"], np.union1d(a, b))
+    np.testing.assert_array_equal(want["A & B"], np.intersect1d(a, b))
+    np.testing.assert_array_equal(want["A - B"], np.setdiff1d(a, b))
+    vals, counts = np.unique(np.concatenate(sets), return_counts=True)
+    np.testing.assert_array_equal(want["common 2"], vals[counts >= 2])
+
+
+def test_chip_smoke_set_oracles_match_the_port(taxdbs, tmp_path):
+    """The sets path's library and taxid oracles against the port's
+    KmerSet on the CPU, over small records made as the path makes A, B
+    and C."""
+    from unikmer_tpu_torch.api import KmerSet
+
+    rng = np.random.default_rng(41)
+    abc = chip_smoke.set_bases(rng, 1 << 14)
+    codes = [chip_smoke.numpy_count(x, 23, True, "distinct") for x in abc]
+    want = chip_smoke.set_oracles(chip_smoke.merge_sets(codes))
+    fas = [str(tmp_path / f"{n}.fa") for n in "ABC"]
+    for fa, name, x in zip(fas, "ABC", abc):
+        chip_smoke.write_one_record(fa, name, x)
+    a, b, c = [KmerSet.from_fasta(fa, 23, canonical=True, device="cpu")
+               for fa in fas]
+    for got, w in zip((a, b, c), codes):
+        np.testing.assert_array_equal(got.to_numpy(), w)
+    for name, got in (("A | B", a | b), ("A & B", a & b), ("A - B", a - b),
+                      ("union_all", KmerSet.union_all([a, b, c])),
+                      ("common 2", KmerSet.common([a, b, c], 2))):
+        np.testing.assert_array_equal(got.to_numpy(), want[name])
+        assert len(want[name]) > 1000, name
+    _, pdb = taxdbs
+    ta = rng.choice(TAXIDS, len(codes[0])).astype(np.uint32)
+    ta[7] = 999999
+    tb = rng.choice(TAXIDS, len(codes[1])).astype(np.uint32)
+    want = chip_smoke.taxid_set_oracles(codes[0], ta, codes[1], tb, pdb)
+    at, bt = [KmerSet.from_codes(x, 23, canonical=True, taxids=t, taxdb=pdb,
+                                 assume_sorted_unique=True, device="cpu")
+              for x, t in ((codes[0], ta), (codes[1], tb))]
+    for name, got in (("A | B (taxids)", at | bt), ("A & B (taxids)", at & bt),
+                      ("A | B (one-sided)", at | b),
+                      ("A & B (one-sided)", at & b),
+                      ("A - B (taxids)", at - bt)):
+        np.testing.assert_array_equal(got.to_numpy(), want[name][0])
+        np.testing.assert_array_equal(got.taxids_to_numpy(), want[name][1])
+        chip_smoke.check_saved(str(tmp_path), name, got, *want[name])
+
+
+def test_chip_smoke_cli_setop_oracles_match_the_port_cli(tmp_path,
+                                                         monkeypatch):
+    """The sets path's CLI oracles against the port's union (both LCA
+    tiers), inter, diff -s and common -n 2 over count -t outputs."""
+    monkeypatch.setenv("UNIKMER_TPU_TORCH_DEVICE", "cpu")
+    rng = np.random.default_rng(42)
+    abc = chip_smoke.set_bases(rng, 1 << 14)
+    gtax = [511145, 585057, 562]
+    uniks = []
+    for name, x, t in zip("ABC", abc, gtax):
+        fa = str(tmp_path / f"{name}.fa")
+        chip_smoke.write_one_record(fa, name, x)
+        assert port_main(["count", "-k", "23", "-K", "-s", "-C", "-t",
+                          str(t), fa, "-o", str(tmp_path / name)]) == 0
+        uniks.append(str(tmp_path / f"{name}.unik"))
+    codes = [chip_smoke.numpy_count(x, 23, True, "distinct") for x in abc]
+    want = chip_smoke.cli_setop_oracles(chip_smoke.merge_sets(codes), gtax,
+                                        taxdump.load_taxonomy(TAXDUMP))
+    flag = unik.SORTED | unik.CANONICAL | unik.INCLUDE_TAXID
+    for key, cmd, vocab_max in (("union", ["union", "-s"], None),
+                                ("union", ["union", "-s"], "0"),
+                                ("inter", ["inter"], None),
+                                ("diff", ["diff", "-s"], None),
+                                ("common", ["common", "-n", "2"], None)):
+        if vocab_max is not None:
+            monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", vocab_max)
+        out = str(tmp_path / "out")
+        assert port_main([*cmd, "-C", "--data-dir", TAXDUMP, *uniks, "-o",
+                          out]) == 0
+        monkeypatch.delenv("UNIKMER_TPU_TAXID_VOCAB_MAX", raising=False)
+        chip_smoke.write_oracle(out + ".oracle.unik", 23, flag, *want[key])
+        assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik"), key
+        assert len(want[key][0]) > 500, key
 
 
 # ---------------------------------------------------------------------

@@ -1,26 +1,32 @@
 """unikmer_tpu_torch — the k-mer engine on PyTorch and CUDA (NVIDIA Hopper).
 
-The second package beside ``unikmer_tpu``: the same ``count`` outputs
-and the same ``.unik`` bytes, with the device layer written in PyTorch
-and the hot kernels written by hand in CUDA C++ for ``sm_90a``.
+The second package beside ``unikmer_tpu``: the same ``count``, ``union``,
+``inter``, ``diff`` and ``common`` outputs, the same ``.unik`` bytes and
+the same ``KmerSet`` library API, with the device layer written in
+PyTorch and the hot kernels written by hand in CUDA C++ for ``sm_90a``.
 
 It imports ``torch`` and never ``jax``, and nothing of ``unikmer_tpu``:
 the host layers it needs (FASTA ingest, the native host library, the
-``.unik`` writer, host set merges, the external-sort spill, the
-taxdump, the CLI options) are its own copies.
+``.unik`` writer and reader, the host set engine, the low-complexity
+filter, the external-sort spill, the taxdump, the CLI options) are its
+own copies.
 
 Layer map (bottom-up, mirroring ``unikmer_tpu``):
   _device.py   device choice (UNIKMER_TPU_TORCH_DEVICE)
-  csrc/        hand-written CUDA kernels (K1 encode, K2/K3 radix sorts,
-               the P1/P2 probe kernels)
+  csrc/        hand-written CUDA kernels (K1 encode, H1 ntHash encode,
+               S1 sketch select, K2/K3 radix sorts, the P1/P2 probes)
   native/      the host C++ library (g++, ctypes; numpy branches)
   io/          FASTA/Q ingest, .unik writer/reader, varint-GB, gzip
-  ops/         codec, encode (K1), radix_sort (K2, K3), sort and
-               collapse, host set merges, probes (P1/P2)
-  taxonomy/    taxdump (host LCA) and the device LCA planner/collapse
+  ops/         codec, encode (K1), nthash (H1), sketch (S1), radix_sort
+               (K2, K3), sort and collapse, device_sets (set algebra on
+               the device), sets (the host set engine), filter, probes
+  taxonomy/    taxdump (host LCA), the device LCA planner and collapse,
+               the tree-walk LCA
   pipeline/    external-sort spill
-  models/      the count pipeline: pack, H2D, K1, sort, collapse, D2H
-  cli/         the ``count`` subcommand
+  models/      the count pipeline: pack, H2D, encode, sort, collapse, D2H
+  api.py       KmerSet: device-resident sets and their algebra
+  cli/         the ``count``, ``union``, ``inter``, ``diff`` and
+               ``common`` subcommands
   probes.py    the P1/P2 probe sequence (python -m unikmer_tpu_torch.probes)
   utils/       logging, per-stage timing
 """
@@ -62,5 +68,16 @@ except (OSError, AttributeError):  # non-glibc platforms: best-effort
     pass
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # KmerSet loads lazily, so importing the package stays cheap
+    if name == "KmerSet":
+        from .api import KmerSet
+
+        return KmerSet
+    raise AttributeError(name)
+
+
 # Version of the reference toolkit whose behavior is reproduced.
 REFERENCE_VERSION = "0.21.0"

@@ -35,14 +35,11 @@ from ...taxonomy.taxdump import load_taxonomy
 from ...utils.log import die, log
 from ...utils.stages import stage
 from ..opts import (
-    ensure_unik_suffix, get_file_list, get_options, out_binary_stream,
+    MESH_NOT_PORTED, ensure_unik_suffix, get_file_list, get_options,
+    out_binary_stream,
 )
 from ._common import log_saved, new_command
 
-# unported flag -> the ROADMAP queue-1 item that brings it
-_NOT_PORTED = {
-    "mesh": "--mesh (multi-GPU over NCCL): ROADMAP queue 1 item 9",
-}
 
 
 def register(subparsers):
@@ -79,7 +76,7 @@ def register(subparsers):
 
 def _not_ported(args, opt) -> str | None:
     if opt.mesh >= 1 and not args.linear:  # -l runs on one device anyway
-        return _NOT_PORTED["mesh"]
+        return MESH_NOT_PORTED
     return None
 
 

@@ -1,10 +1,12 @@
-"""unikmer-tpu-torch CLI: the ``count`` subcommand on the PyTorch/CUDA port.
+"""unikmer-tpu-torch CLI: the ``count``, ``union``, ``inter``, ``diff``
+and ``common`` subcommands on the PyTorch/CUDA port.
 
 Same global flags (cli/opts.py, the port's copy of unikmer_tpu/cli/opts.py)
 and exit-code conventions as ``python -m unikmer_tpu.cli.main``; the
-other subcommands are not ported yet (ROADMAP queue 1).
+other subcommands are not ported yet (ROADMAP.md queue 1 item 12).
 
-    python -m unikmer_tpu_torch.cli.main count -k 23 -K -s in.fa -o out
+    python -m unikmer_tpu_torch.cli.main count -k 23 -K -s in.fa -o a
+    python -m unikmer_tpu_torch.cli.main union -s a.unik b.unik -o u
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import sys
 import zlib
 
 from .. import REFERENCE_VERSION, __version__
-from .commands import count
+from .commands import common, count, diff, inter, union
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -23,14 +25,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="unikmer-tpu-torch",
         description=(
             "unikmer-tpu-torch - the k-mer toolkit on PyTorch and CUDA "
-            "(unikmer-compatible count)\n\n"
+            "(unikmer-compatible count and set operations)\n\n"
             f"Version: v{__version__} (reference parity: unikmer "
             f"v{REFERENCE_VERSION})"
         ),
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = p.add_subparsers(dest="command", metavar="command")
-    count.register(sub)
+    for cmd in (count, union, inter, diff, common):
+        cmd.register(sub)
     return p
 
 

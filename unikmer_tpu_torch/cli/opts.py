@@ -1,6 +1,6 @@
 """Global options and CLI helpers of the port (the parts of
-unikmer_tpu/cli/opts.py that ``count`` uses): the same global flags,
-defaults, environment names and file-list rules."""
+unikmer_tpu/cli/opts.py that its subcommands use): the same global
+flags, defaults, environment names and file-list rules."""
 
 from __future__ import annotations
 
@@ -24,9 +24,15 @@ class Options:
     compact: bool = False
     compression_level: int = 5
     max_taxid: int = (1 << 32) - 1
+    ignore_taxid: bool = False
     data_dir: str = DEFAULT_DATA_DIR
+    skip_flag_check: bool = False
     skip_file_check: bool = False
     mesh: int = 0
+
+
+# --mesh is parsed but not ported: the subcommands exit with this
+MESH_NOT_PORTED = "--mesh (multi-GPU over NCCL): ROADMAP.md queue 1 item 9"
 
 
 def add_global_flags(p: argparse.ArgumentParser) -> None:
@@ -73,7 +79,9 @@ def get_options(args: argparse.Namespace) -> Options:
         compact=args.compact,
         compression_level=args.compression_level,
         max_taxid=args.max_taxid,
+        ignore_taxid=args.ignore_taxid,
         data_dir=data_dir,
+        skip_flag_check=args.skip_flag_check,
         skip_file_check=args.skip_file_check,
         mesh=args.mesh,
     )
@@ -101,6 +109,15 @@ def get_file_list(args: argparse.Namespace, check_exists: bool = True) -> list[s
             if f != "-" and not os.path.exists(f):
                 die(f"file not found: {f}")
     return files
+
+
+def check_file_suffix(files: list[str], skip: bool = False) -> None:
+    """Inputs must be stdin or end in .unik."""
+    if skip:
+        return
+    for f in files:
+        if f != "-" and not f.endswith(EXT):
+            die(f"input should be stdin or file with suffix {EXT}: {f}")
 
 
 def ensure_unik_suffix(path: str) -> str:

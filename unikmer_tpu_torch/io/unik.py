@@ -23,9 +23,10 @@ Layout (all little-endian), after optional gzip:
                      block's delta chain restarting at 0,
                      ++ n * taxid_bytes
 
-The reader is the streaming one the external-sort spill needs
-(pipeline/extsort.py): gzip through Python's gzip module, varint-GB
-through numpy.
+The reader streams blocks for the external-sort spill
+(pipeline/extsort.py) and reads whole sets for the set operations
+(``read_all``: the native block decoder, or numpy's varint-GB); gzip,
+UK-indexed or not, streams through Python's GzipFile.
 """
 
 from __future__ import annotations
@@ -93,6 +94,15 @@ class UnikHeader:
     main_version: int = MAIN_VERSION
     minor_version: int = MINOR_VERSION
 
+    # predicates (names per reference unik.Reader)
+    @property
+    def is_compact(self) -> bool:
+        return bool(self.flag & COMPACT)
+
+    @property
+    def is_canonical(self) -> bool:
+        return bool(self.flag & CANONICAL)
+
     @property
     def is_sorted(self) -> bool:
         return bool(self.flag & SORTED)
@@ -100,6 +110,24 @@ class UnikHeader:
     @property
     def is_include_taxid(self) -> bool:
         return bool(self.flag & INCLUDE_TAXID)
+
+    @property
+    def is_hashed(self) -> bool:
+        return bool(self.flag & HASHED)
+
+    @property
+    def is_scaled(self) -> bool:
+        return self.scale > 1
+
+    @property
+    def has_global_taxid(self) -> bool:
+        return self.global_taxid > 0
+
+    @property
+    def has_taxid_info(self) -> bool:
+        # readers treat either per-record or global taxids as "has taxid
+        # info"
+        return self.is_include_taxid or self.has_global_taxid
 
 
 class UnikWriter:
@@ -254,10 +282,12 @@ class UnikWriter:
 
 
 class UnikReader:
-    """Streaming reader: iter_blocks() yields (codes, taxids|None) block
-    arrays, one block resident at a time."""
+    """Reader: iter_blocks() yields (codes, taxids|None) block arrays, one
+    block resident at a time; read_all() returns the whole set."""
 
     def __init__(self, path_or_file):
+        # never a whole-file inflate (the JAX package's default for large
+        # files): gzip streams, so memory stays at a buffer and one block
         if isinstance(path_or_file, (str, bytes, os.PathLike)):
             f = open(path_or_file, "rb")
             self._owns = True
@@ -265,10 +295,15 @@ class UnikReader:
             f = path_or_file
             self._owns = False
         self._raw = f
-        if not isinstance(f, io.BufferedReader):
-            f = io.BufferedReader(f)
-        if f.peek(2)[:2] == b"\x1f\x8b":
+        magic2 = f.peek(2)[:2] if hasattr(f, "peek") else None
+        if magic2 is None:
+            head = f.read(2)
+            f = io.BufferedReader(_Concat(head, f))
+            magic2 = head
+        if magic2 == b"\x1f\x8b":
             f = io.BufferedReader(gzip.GzipFile(fileobj=f), 1 << 20)
+        elif not isinstance(f, io.BufferedReader):
+            f = io.BufferedReader(f)
         self._file = f
         hdr = f.read(_HEADER_SIZE)
         if len(hdr) < _HEADER_SIZE:
@@ -339,6 +374,31 @@ class UnikReader:
                 taxids = full.view("<u4").reshape(n).astype(np.uint32)
         return codes, taxids
 
+    def read_all(self):
+        """(codes, taxids or None) of every remaining block: the native
+        concurrent decoder for sorted minor-1 files, else the block loop."""
+        h = self.header
+        if h.is_sorted and h.minor_version >= 1:
+            rest = self._file.read()
+            res = native.decode_sorted_blocks(
+                rest, h.taxid_bytes if h.is_include_taxid else 0)
+            if res is not None:
+                return res
+            # no native library: the block loop over ``rest``
+            self._file = io.BufferedReader(io.BytesIO(rest))
+        codes_list, tax_list = [], []
+        for codes, taxids in self.iter_blocks():
+            codes_list.append(codes)
+            if taxids is not None:
+                tax_list.append(taxids)
+        if not codes_list:
+            return np.zeros(0, np.uint64), (
+                np.zeros(0, np.uint32) if h.is_include_taxid else None
+            )
+        codes = np.concatenate(codes_list)
+        taxids = np.concatenate(tax_list) if tax_list else None
+        return codes, taxids
+
     def close(self) -> None:
         self._file.close()
         if self._owns and self._raw is not self._file:
@@ -349,3 +409,43 @@ class UnikReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class _Concat(io.RawIOBase):
+    """Prepend consumed sniff bytes back onto a raw stream."""
+
+    def __init__(self, head: bytes, rest):
+        self._head = head
+        self._rest = rest
+
+    def readable(self):
+        return True
+
+    def readinto(self, b):
+        if self._head:
+            n = min(len(b), len(self._head))
+            b[:n] = self._head[:n]
+            self._head = self._head[n:]
+            return n
+        data = self._rest.read(len(b))
+        if not data:
+            return 0
+        b[: len(data)] = data
+        return len(data)
+
+
+def check_compatibility(h0: UnikHeader, h: UnikHeader, file: str = "") -> None:
+    """Equal k / canonical / hashed / scaled across multi-file inputs."""
+    problems = []
+    if h.k != h0.k:
+        problems.append(f"k mismatch ({h.k} vs {h0.k})")
+    if h.is_canonical != h0.is_canonical:
+        problems.append("canonical flag mismatch")
+    if h.is_hashed != h0.is_hashed:
+        problems.append("hashed flag mismatch")
+    if h.is_scaled != h0.is_scaled or (
+        h.is_scaled and h.scale != h0.scale
+    ):
+        problems.append("scale mismatch")
+    if problems:
+        raise ValueError(f"incompatible .unik file {file}: " + "; ".join(problems))

@@ -283,6 +283,19 @@ def _stream_chunk_bases(device: torch.device) -> int:
     return (1 << 25) if device.type == "cuda" else (7 << 16)
 
 
+_PAD_QUANTUM = 1 << 20
+
+
+def _padded_len(n: int) -> int:
+    """The smallest power-of-two multiple of 2^20 holding n: a KmerSet's
+    capacity (the JAX package's quantum off the TPU, on every device,
+    so capacities agree with it)."""
+    q = _PAD_QUANTUM
+    while q < n:
+        q *= 2
+    return q
+
+
 def _capped_cfgs(cfg: CountConfig):
     """(distinct_cfg, repeated_cfg-or-None) for the capped-multiplicity
     piece merge of the streams."""
@@ -387,7 +400,7 @@ def _merge_partials(partial, cfg: CountConfig) -> np.ndarray:
     if not partial:
         return np.zeros(0, np.uint64)
     if cfg.mode not in ("unique", "repeated"):
-        return host_sets.union(partial)
+        return host_sets.union(partial)[0]
     merged = np.concatenate(partial)
     merged.sort()
     first = np.ones(len(merged), bool)

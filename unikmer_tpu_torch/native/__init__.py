@@ -116,8 +116,18 @@ def _bind(lib) -> None:
     lib.pack_bases_2bit_native.argtypes = [
         u8p, ctypes.c_size_t, u8p, u8p, ctypes.c_int,
     ]
-    lib.set2_union_u64.restype = i64
-    lib.set2_union_u64.argtypes = [u64p, i64, u64p, i64, u64p, i32]
+    for op in ("union", "inter", "diff"):
+        fn = getattr(lib, f"set2_{op}_u64")
+        fn.restype = i64
+        fn.argtypes = [u64p, i64, u64p, i64, u64p, i32]
+    lib.member_mask_sorted_u64.restype = None
+    lib.member_mask_sorted_u64.argtypes = [u64p, i64, u64p, i64, u8p, i64p,
+                                           i32]
+    lib.unik_scan_blocks.restype = i64
+    lib.unik_scan_blocks.argtypes = [u8p, i64]
+    lib.unik_decode_sorted_blocks.restype = i64
+    lib.unik_decode_sorted_blocks.argtypes = [u8p, i64, i32, u64p, u32p, i64,
+                                              i32]
     lib.msd_partition_u64.restype = i32
     lib.msd_partition_u64.argtypes = [u64p, i64, i32, i64p, i32]
     lib.radix_sort_u64.restype = i32
@@ -243,22 +253,69 @@ def pack_bases_2bit(bases: np.ndarray, threads: int = 4):
     return packed2, validmask
 
 
-def set2_union(a: np.ndarray, b: np.ndarray,
-               trim: bool = True) -> np.ndarray | None:
-    """Union of two sorted u64 arrays (duplicates collapsed; the union
-    case of unikmer_tpu's ``set2_sorted``), range-partitioned across
-    threads; None without the native library.  ``trim=False`` returns a
-    view into the oversized output buffer, for intermediates that are
-    consumed at once."""
+def set2_sorted(op: str, a: np.ndarray, b: np.ndarray,
+                trim: bool = True) -> np.ndarray | None:
+    """union/inter/diff of two sorted u64 arrays (duplicates collapsed),
+    range-partitioned across threads; None without the native library.
+    ``trim=False`` returns a view into the oversized output buffer, for
+    intermediates that are consumed at once."""
     lib = get_lib()
     if lib is None:
         return None
     a = np.ascontiguousarray(a, np.uint64)
     b = np.ascontiguousarray(b, np.uint64)
     out = np.empty(len(a) + len(b), np.uint64)
-    n = lib.set2_union_u64(_u64p(a), len(a), _u64p(b), len(b), _u64p(out),
-                           _threads())
+    fn = getattr(lib, f"set2_{op}_u64")
+    n = fn(_u64p(a), len(a), _u64p(b), len(b), _u64p(out), _threads())
     return out[:n].copy() if trim else out[:n]
+
+
+def set2_union(a: np.ndarray, b: np.ndarray,
+               trim: bool = True) -> np.ndarray | None:
+    """:func:`set2_sorted` ``("union", a, b)``."""
+    return set2_sorted("union", a, b, trim)
+
+
+def member_mask_sorted(ref: np.ndarray, queries: np.ndarray,
+                       want_idx: bool = True):
+    """(mask bool, idx i64) of each sorted query in sorted ref; parallel
+    two-pointer join.  None without the native library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    ref = np.ascontiguousarray(ref, np.uint64)
+    queries = np.ascontiguousarray(queries, np.uint64)
+    mask = np.empty(len(queries), np.uint8)
+    idx = np.zeros(len(queries), np.int64) if want_idx else None
+    lib.member_mask_sorted_u64(
+        _u64p(ref), len(ref), _u64p(queries), len(queries), _u8p(mask),
+        None if idx is None else _i64p(idx), _threads())
+    return mask.view(bool), idx
+
+
+def decode_sorted_blocks(buf: bytes, taxid_w: int, threads: int = 0):
+    """Concurrent decode of a whole sorted .unik block region (minor
+    version >= 1, io/unik.py layout): (codes u64, taxids u32 or None),
+    or None without the native library.  Raises ValueError on corrupt
+    framing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    inp = np.frombuffer(buf, np.uint8)
+    total = lib.unik_scan_blocks(_u8p(inp), len(buf))
+    if total < 0:
+        raise ValueError("truncated .unik block")
+    if total == 0:
+        return np.zeros(0, np.uint64), (
+            np.zeros(0, np.uint32) if taxid_w else None)
+    codes = np.empty(int(total), np.uint64)
+    taxids = np.empty(int(total) if taxid_w else 1, np.uint32)
+    got = lib.unik_decode_sorted_blocks(
+        _u8p(inp), len(buf), taxid_w, _u64p(codes), _u32p(taxids),
+        int(total), threads if threads > 0 else _threads())
+    if got != total:
+        raise ValueError("truncated .unik block")
+    return codes, (taxids if taxid_w else None)
 
 
 def sort_u64_kv(keys: np.ndarray, vals: np.ndarray):
@@ -333,6 +390,18 @@ def host_sort_kv(keys: np.ndarray, vals: np.ndarray):
             return res
     order = np.argsort(keys, kind="stable")
     return keys[order], vals[order]
+
+
+def host_argsort(keys: np.ndarray):
+    """(sorted_keys, perm) with keys[perm] == sorted_keys, stable, for
+    callers gathering several companion columns (perm uint64 from the
+    native radix, int64 from numpy; both index numpy arrays)."""
+    if keys.dtype == np.uint64 and len(keys) >= _HOST_SORT_MIN:
+        res = sort_u64_kv(keys, np.arange(len(keys), dtype=np.uint64))
+        if res is not None:
+            return res
+    order = np.argsort(keys, kind="stable")
+    return keys[order], order
 
 
 def load_fastx_packed(path: str, k: int, circular: bool = False,

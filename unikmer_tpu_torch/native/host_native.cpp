@@ -3,10 +3,13 @@
 // layers call, built by native/__init__.py with g++ at first use.
 //
 //   gb64_encode_deltas, unik_encode_sorted_blocks   .unik sorted payload
+//   unik_scan_blocks, unik_decode_sorted_blocks     .unik sorted payload
+//                                                   read back
 //   pack_bases_2bit_native                          2-bit ingress pack
 //   fastx_load, fastx_pack_free                     fused FASTA/Q ingest
 //   radix_sort_u64[_u32|_u64], msd_partition_u64    host sorts
-//   set2_union_u64                                  host set union
+//   set2_{union,inter,diff}_u64                     host set algebra
+//   member_mask_sorted_u64                          sorted merge-join
 //
 // It links no libdeflate: whole-file gzip inputs inflate with zlib when
 // native/__init__.py finds <zlib.h> (it then defines UKT_HAVE_ZLIB and
@@ -103,6 +106,120 @@ size_t gb64_encode_deltas(const uint64_t* vals, size_t n, uint64_t prev,
         ctrl[2 * g + 1] = (uint8_t)(c >> 8);
     }
     return ctrl_bytes + dpos;
+}
+
+// varint-GB64 -> cumulative sums (delta decode).  Returns bytes
+// consumed, or (size_t)-1 on truncation.
+size_t gb64_decode_deltas(const uint8_t* buf, size_t buflen, size_t n,
+                          uint64_t prev, uint64_t* out) {
+    if (n == 0) return 0;
+    size_t ngroups = (n + 3) / 4;
+    size_t ctrl_bytes = 2 * ngroups;
+    if (buflen < ctrl_bytes) return (size_t)-1;
+    const uint8_t* data = buf + ctrl_bytes;
+    size_t data_len = buflen - ctrl_bytes;
+    size_t dpos = 0;
+    uint64_t acc = prev;
+    for (size_t g = 0; g < ngroups; g++) {
+        uint16_t c = (uint16_t)buf[2 * g] | ((uint16_t)buf[2 * g + 1] << 8);
+        size_t base = g * 4;
+        size_t in_group = (base + 4 <= n) ? 4 : (n - base);
+        for (size_t j = 0; j < in_group; j++) {
+            int len = ((c >> (3 * j)) & 7) + 1;
+            if (dpos + (size_t)len > data_len) return (size_t)-1;
+            uint64_t v = 0;
+            if (dpos + 8 <= data_len) {
+                std::memcpy(&v, data + dpos, 8);
+                if (len < 8) v &= (~0ULL) >> (8 * (8 - len));
+            } else {
+                std::memcpy(&v, data + dpos, len);
+            }
+            acc += v;
+            out[base + j] = acc;
+            dpos += len;
+        }
+    }
+    return ctrl_bytes + dpos;
+}
+
+// Total records across the blocks of a sorted block region, or -1 on
+// bad framing.
+int64_t unik_scan_blocks(const uint8_t* buf, int64_t len) {
+    int64_t pos = 0, total = 0;
+    while (pos + 8 <= len) {
+        uint32_t n, nbytes;
+        std::memcpy(&n, buf + pos, 4);
+        std::memcpy(&nbytes, buf + pos + 4, 4);
+        if (n == 0) break;
+        if (pos + 8 + (int64_t)nbytes > len) return -1;
+        total += n;
+        pos += 8 + (int64_t)nbytes;
+    }
+    return total;
+}
+
+// Decode every block of a sorted block region (.unik minor version >=
+// 1: each block's delta chain restarts at 0) concurrently; taxid_w =
+// 0..4 bytes per record.  Returns records decoded, or -1 on any
+// framing or decode error.
+int64_t unik_decode_sorted_blocks(const uint8_t* buf, int64_t len,
+                                  int32_t taxid_w, uint64_t* codes,
+                                  uint32_t* taxids, int64_t cap,
+                                  int32_t threads) {
+    struct Blk { int64_t body; uint32_t n, nbytes; int64_t out; };
+    std::vector<Blk> blks;
+    int64_t pos = 0, total = 0;
+    while (pos + 8 <= len) {
+        uint32_t n, nbytes;
+        std::memcpy(&n, buf + pos, 4);
+        std::memcpy(&nbytes, buf + pos + 4, 4);
+        if (n == 0) break;
+        if (pos + 8 + (int64_t)nbytes > len) return -1;
+        blks.push_back({pos + 8, n, nbytes, total});
+        total += n;
+        pos += 8 + (int64_t)nbytes;
+    }
+    if (total > cap) return -1;
+    std::atomic<size_t> next(0);
+    std::atomic<bool> failed(false);
+    auto work = [&]() {
+        for (;;) {
+            size_t i = next.fetch_add(1);
+            if (i >= blks.size() || failed.load(std::memory_order_relaxed))
+                return;
+            const Blk& b = blks[i];
+            size_t consumed = gb64_decode_deltas(buf + b.body, b.nbytes, b.n,
+                                                 0, codes + b.out);
+            if (consumed == (size_t)-1 ||
+                consumed + (size_t)b.n * taxid_w != b.nbytes) {
+                failed = true;
+                return;
+            }
+            if (taxid_w) {
+                const uint8_t* t = buf + b.body + consumed;
+                uint32_t* out = taxids + b.out;
+                if (taxid_w == 4) {
+                    std::memcpy(out, t, (size_t)b.n * 4);
+                } else {
+                    for (uint32_t j = 0; j < b.n; j++) {
+                        uint32_t v = 0;
+                        std::memcpy(&v, t + (size_t)j * taxid_w, taxid_w);
+                        out[j] = v;
+                    }
+                }
+            }
+        }
+    };
+    int nt = threads < 1 ? 1 : threads;
+    if ((size_t)nt > blks.size()) nt = (int)blks.size();
+    if (nt <= 1) {
+        work();
+    } else {
+        std::vector<std::thread> pool;
+        for (int t = 0; t < nt; t++) pool.emplace_back(work);
+        for (auto& t : pool) t.join();
+    }
+    return failed.load() ? -1 : total;
 }
 
 // Encode a sorted code array (+ optional taxid column, taxid_w bytes
@@ -265,44 +382,46 @@ void partition_pair(const uint64_t* a, int64_t na, const uint64_t* b,
     }
 }
 
-// Union of two sorted slices, duplicates collapsed.
-int64_t union_slice(const uint64_t* a, int64_t na, const uint64_t* b,
-                    int64_t nb, uint64_t* out) {
+enum SetOp { OP_UNION = 0, OP_INTER = 1, OP_DIFF = 2 };
+
+// Union, intersection or difference of two sorted slices, duplicates
+// collapsed.
+int64_t merge_slice(SetOp op, const uint64_t* a, int64_t na,
+                    const uint64_t* b, int64_t nb, uint64_t* out) {
     int64_t i = 0, j = 0, w = 0;
     while (i < na && j < nb) {
         uint64_t x = a[i], y = b[j];
         if (x < y) {
-            out[w++] = x;
+            if (op != OP_INTER) out[w++] = x;
             while (++i < na && a[i] == x) {}
         } else if (y < x) {
-            out[w++] = y;
+            if (op == OP_UNION) out[w++] = y;
             while (++j < nb && b[j] == y) {}
         } else {
-            out[w++] = x;
+            if (op != OP_DIFF) out[w++] = x;
             while (++i < na && a[i] == x) {}
             while (++j < nb && b[j] == y) {}
         }
     }
-    while (i < na) {
-        uint64_t x = a[i];
-        out[w++] = x;
-        while (++i < na && a[i] == x) {}
+    if (op != OP_INTER) {
+        while (i < na) {
+            uint64_t x = a[i];
+            out[w++] = x;
+            while (++i < na && a[i] == x) {}
+        }
     }
-    while (j < nb) {
-        uint64_t y = b[j];
-        out[w++] = y;
-        while (++j < nb && b[j] == y) {}
+    if (op == OP_UNION) {
+        while (j < nb) {
+            uint64_t y = b[j];
+            out[w++] = y;
+            while (++j < nb && b[j] == y) {}
+        }
     }
     return w;
 }
 
-}  // namespace
-
-extern "C" {
-
-// out must hold na + nb.  Inputs sorted (duplicates allowed; collapsed).
-int64_t set2_union_u64(const uint64_t* a, int64_t na, const uint64_t* b,
-                       int64_t nb, uint64_t* out, int32_t threads) {
+int64_t set2_run(SetOp op, const uint64_t* a, int64_t na, const uint64_t* b,
+                 int64_t nb, uint64_t* out, int32_t threads) {
     int p = threads < 1 ? 1 : threads;
     if (na + nb < (1 << 16) || na == 0) p = 1;
     std::vector<int64_t> ai, bi;
@@ -315,7 +434,7 @@ int64_t set2_union_u64(const uint64_t* a, int64_t na, const uint64_t* b,
         cap_off[i + 1] =
             cap_off[i] + (ai[i + 1] - ai[i]) + (bi[i + 1] - bi[i]);
     auto work_part = [&](int i) {
-        sizes[i] = union_slice(a + ai[i], ai[i + 1] - ai[i], b + bi[i],
+        sizes[i] = merge_slice(op, a + ai[i], ai[i + 1] - ai[i], b + bi[i],
                                bi[i + 1] - bi[i], out + cap_off[i]);
     };
     if (p == 1) {
@@ -332,6 +451,56 @@ int64_t set2_union_u64(const uint64_t* a, int64_t na, const uint64_t* b,
         w += sizes[i];
     }
     return w;
+}
+
+}  // namespace
+
+extern "C" {
+
+// out must hold na + nb.  Inputs sorted (duplicates allowed; collapsed).
+int64_t set2_union_u64(const uint64_t* a, int64_t na, const uint64_t* b,
+                       int64_t nb, uint64_t* out, int32_t threads) {
+    return set2_run(OP_UNION, a, na, b, nb, out, threads);
+}
+
+int64_t set2_inter_u64(const uint64_t* a, int64_t na, const uint64_t* b,
+                       int64_t nb, uint64_t* out, int32_t threads) {
+    return set2_run(OP_INTER, a, na, b, nb, out, threads);
+}
+
+int64_t set2_diff_u64(const uint64_t* a, int64_t na, const uint64_t* b,
+                      int64_t nb, uint64_t* out, int32_t threads) {
+    return set2_run(OP_DIFF, a, na, b, nb, out, threads);
+}
+
+// Membership of each (sorted) query in sorted ref: mask[j] in {0,1},
+// idx[j] = matching ref index where mask (0 otherwise; idx may be
+// NULL).  Queries partitioned evenly; ref ranges via binary search.
+void member_mask_sorted_u64(const uint64_t* ref, int64_t nref,
+                            const uint64_t* q, int64_t nq, uint8_t* mask,
+                            int64_t* idx, int32_t threads) {
+    int p = threads < 1 ? 1 : threads;
+    if (nq < (1 << 16)) p = 1;
+    auto work = [&](int t) {
+        int64_t q0 = nq * t / p, q1 = nq * (t + 1) / p;
+        if (q0 >= q1) return;
+        const uint64_t* r =
+            std::lower_bound(ref, ref + nref, q[q0]);
+        for (int64_t j = q0; j < q1; j++) {
+            uint64_t v = q[j];
+            while (r < ref + nref && *r < v) r++;
+            bool hit = (r < ref + nref && *r == v);
+            mask[j] = hit ? 1 : 0;
+            if (idx) idx[j] = hit ? (r - ref) : 0;
+        }
+    };
+    if (p == 1) {
+        work(0);
+        return;
+    }
+    std::vector<std::thread> pool;
+    for (int t = 0; t < p; t++) pool.emplace_back(work, t);
+    for (auto& t : pool) t.join();
 }
 
 }  // extern "C"

@@ -1,0 +1,262 @@
+"""Device sorted-set algebra on sentinel-padded code tensors (port of
+unikmer_tpu/ops/device_sets.py): the layer ``KmerSet`` (api.py) and the
+CLI's taxid union run on, so a chain of set operations never leaves
+the device.
+
+Representation: a set is (codes, n), a 1-D int64 tensor of u64 bit
+patterns sorted in unsigned order whose first n slots are the members
+and whose tail is CODE_SENTINEL padding (-1 as int64, the last value in
+unsigned order).  Results use the combined capacity, with ``n`` a 0-dim
+int64 tensor (no host sync).  A member equal to the sentinel is not
+supported here: it reads as padding, as in the JAX package.
+
+- :func:`union` and :func:`common` sort the concatenation with K2
+  (ops/sort._sort_u64) and keep the first slot of each run;
+- membership (:func:`intersect`, :func:`subtract`, :func:`member_bits`
+  and the taxid variants) is a binary search, ``torch.searchsorted``,
+  over the codes with the sign bit flipped (unsigned order read as
+  signed; torch has no uint64 search), the index clipped to the last
+  slot and the slot compared, as the JAX package does;
+- the taxid unions merge runs by LCA: :func:`union_with_taxids` by the
+  tree walk of taxonomy/lca.py, :func:`union_taxids_compact` by the
+  compact-id collapse whose sort is K3;
+- compaction is a scan plus a scatter (ops/sort._compact), not the JAX
+  package's sort-based ``compact_sorted``/``compact_aux``.
+
+The TPU's staged and split3 taxid programs, compressed ingress and
+egress, watchdogs and element caps are not ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import get_device
+from ..taxonomy.lca import (
+    collapse_keyed_taxids, compact_ids, device_lca_plan, lca_collapse_device,
+    lca_pairs_device, upload_plan,
+)
+from .codec import SENTINEL, SIGN
+from .sort import _compact, _sort_u64
+
+SENT = np.uint64((1 << 64) - 1)  # CODE_SENTINEL as numpy sees it
+_BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _first(s: torch.Tensor) -> torch.Tensor:
+    """The first slot of each run of equal values of a sorted tensor."""
+    return torch.cat([s.new_ones(min(s.shape[0], 1), dtype=torch.bool),
+                      s[1:] != s[:-1]])
+
+
+def _lookup(ref: torch.Tensor, q: torch.Tensor):
+    """(idx, ref[idx] == q) for each query: the insertion index of q in
+    the sorted ``ref`` (unsigned order), clipped to the last slot."""
+    if ref.shape[0] == 0:
+        return torch.zeros_like(q), torch.zeros(q.shape, dtype=torch.bool,
+                                                device=q.device)
+    idx = torch.searchsorted(ref ^ SIGN, q ^ SIGN).clamp_(max=ref.shape[0] - 1)
+    return idx, ref[idx] == q
+
+
+def _compact_mask(values: torch.Tensor, keep: torch.Tensor):
+    return _compact(values, keep), keep.sum(dtype=torch.int64)
+
+
+def union(a: torch.Tensor, b: torch.Tensor, code_bits: int = 64):
+    """Union of two padded sorted sets -> (codes, n) with capacity
+    len(a) + len(b).  ``code_bits`` bounds the members (sentinel padding
+    aside), so K2 runs only the passes that width needs."""
+    merged = _sort_u64(torch.cat([a, b]), code_bits)
+    return _compact_mask(merged, _first(merged) & (merged != SENTINEL))
+
+
+def intersect(a: torch.Tensor, b: torch.Tensor):
+    """Intersection -> (codes, n) with capacity len(a)."""
+    _, hit = _lookup(b, a)
+    return _compact_mask(a, hit & (a != SENTINEL))
+
+
+def subtract(a: torch.Tensor, b: torch.Tensor):
+    """a - b -> (codes, n) with capacity len(a)."""
+    _, hit = _lookup(b, a)
+    return _compact_mask(a, ~hit & (a != SENTINEL))
+
+
+def common(sets: torch.Tensor, threshold: int, code_bits: int = 64):
+    """Codes in >= threshold of the stacked padded sets (sets: (F, C))
+    -> (codes, n) with capacity F * C: one K2 sort; a run starting at i
+    holds >= t slots when slot i + t - 1 holds its code (one shifted
+    compare, where the JAX package takes run bounds from a cummax and a
+    reversed cummin)."""
+    merged = _sort_u64(sets.reshape(-1), code_bits)
+    keep = _first(merged) & (merged != SENTINEL)
+    t, n = max(int(threshold), 1), merged.shape[0]
+    if t > 1:
+        reach = torch.zeros_like(keep)
+        if t <= n:
+            reach[: n - t + 1] = merged[t - 1:] == merged[: n - t + 1]
+        keep &= reach
+    return _compact_mask(merged, keep)
+
+
+def _packbits_little(bits: torch.Tensor) -> torch.Tensor:
+    """uint8 bytes of a bool tensor, bit i of byte j from element 8j + i
+    (numpy's packbits with bitorder="little"; the tail padded with 0)."""
+    n = bits.shape[0]
+    pad = torch.zeros(-(-n // 8) * 8, dtype=torch.int32, device=bits.device)
+    pad[:n] = bits
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=bits.device)
+    return (pad.view(-1, 8) * w).sum(1).to(torch.uint8)
+
+
+def member_bits(query: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Bit-packed membership of a block of codes in a device-resident
+    sorted query set (sentinel padding excluded): one binary search and
+    an 8x smaller fetch.  The device tier behind grep's lookup loop."""
+    idx, _ = _lookup(query, codes)
+    q = query[idx]
+    ok = (q == codes) & (codes != SENTINEL) & (q != SENTINEL)
+    return _packbits_little(ok)
+
+
+def _to_device(codes: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(codes, np.uint64).view(np.int64)).to(device)
+
+
+class DeviceMembership:
+    """The host side of grep's device tier: upload the sorted query set
+    once to ``device``, answer each block's membership with a bit-packed
+    fetch.  The all-ones sentinel's membership is resolved on the host."""
+
+    def __init__(self, query_set: np.ndarray, device=None):
+        from ..models.count import _padded_len
+
+        self.device = get_device(device)
+        self.sent_in = bool(len(query_set)) and query_set[-1] == SENT
+        q = query_set[:-1] if self.sent_in else query_set
+        pad = np.full(_padded_len(max(len(q), 1)), SENT, np.uint64)
+        pad[: len(q)] = q
+        self.dev_q = _to_device(pad, self.device)
+        self._padded_len = _padded_len
+
+    def lookup(self, look: np.ndarray) -> np.ndarray:
+        n = len(look)
+        if n == 0:
+            return np.zeros(0, bool)
+        pad = np.full(self._padded_len(n), SENT, np.uint64)
+        pad[:n] = look
+        bits = member_bits(self.dev_q, _to_device(pad, self.device)).cpu()
+        ok = np.unpackbits(bits.numpy(), bitorder="little")[:n].astype(bool)
+        if self.sent_in:
+            ok |= look == SENT
+        return ok
+
+
+def _compact_mask_with(values, aux, keep, aux_fill: int = 0):
+    """Compact (values, aux) rows where keep -> (values, aux, n)."""
+    return (_compact(values, keep), _compact(aux, keep, aux_fill),
+            keep.sum(dtype=torch.int64))
+
+
+def intersect_with_taxids(a, ta, b, tb, parent, depth, max_depth: int):
+    """Intersection with LCA-merged taxids (int32 u32 columns): matching
+    codes merge the two taxids by the tree walk; 0 acts as identity, so
+    a taxid-less side passes the other side's taxid through."""
+    idx, hit = _lookup(b, a)
+    hit &= a != SENTINEL
+    i = torch.nonzero(hit).squeeze(1)
+    merged = torch.zeros_like(ta)
+    merged[i] = lca_pairs_device(ta[i], tb[idx[i]], parent, depth, max_depth)
+    return _compact_mask_with(a, merged, hit)
+
+
+def intersect_one_sided_taxids(a, ta, b, tb):
+    """Intersection when only one input carries taxids: one of ta/tb is
+    a zero column, so the merge is ta | tb with no LCA tables."""
+    idx, hit = _lookup(b, a)
+    hit &= a != SENTINEL
+    return _compact_mask_with(a, ta | torch.where(hit, tb[idx], 0), hit)
+
+
+def subtract_with_taxids(a, ta, b):
+    """a - b keeping a's taxid column (diff keeps the query's taxids)."""
+    _, hit = _lookup(b, a)
+    return _compact_mask_with(a, ta, ~hit & (a != SENTINEL))
+
+
+def union_one_sided_taxids(a, ta, b, depth=None, code_bits: int = 64):
+    """Union when only ``a`` carries taxids: b's side is taxid 0, the LCA
+    identity, so each code keeps a's taxid (0 where only b holds it).
+    Given a taxonomy's ``depth`` table (int32, -1 where a taxid is
+    absent), a code in both sets whose taxid the taxonomy lacks merges
+    with 0 to 0, as the host's Taxonomy.lca_pairs does; without one it
+    keeps its taxid.  One K2 sort; returns (codes, taxids, n)."""
+    c, n = union(a, b, code_bits)
+    idx, in_a = _lookup(a, c)
+    t = torch.where(in_a & (c != SENTINEL), ta[idx], 0)
+    if depth is not None:
+        _, in_b = _lookup(b, c)
+        tl, top = t.long(), depth.shape[0] - 1
+        known = (tl > 0) & (tl <= top) & (depth[tl.clamp(0, top)] >= 0)
+        t = torch.where(in_b & ~known, 0, t)
+    return c, t, n
+
+
+def union_with_taxids(a, ta, b, tb, parent, depth, max_depth: int,
+                      rounds: int, code_bits: int = 64):
+    """Union with an LCA-merged taxid column, by the tree walk: the
+    device analog of ops/sets.union with taxids.  ``rounds`` >=
+    ceil(log2(most members of one code)); 1 for two deduplicated sets.
+    Returns (codes, taxids, n) compacted to a dense prefix."""
+    codes = torch.cat([a, b])
+    s_codes, s_tax, keep = lca_collapse_device(
+        codes, torch.cat([ta, tb]), codes != SENTINEL, parent, depth,
+        max_depth, rounds, code_bits)
+    return _compact_mask_with(s_codes, s_tax, keep)
+
+
+def union_taxids_compact(codes, ctax, lca_tab, kind: str = "table",
+                         code_bits: int = 64):
+    """N-way union with an LCA-merged compact-id column: feed the
+    concatenation of the (each deduplicated) inputs, sentinel-padded with
+    ctax 0 on padding; one K3 sort and the compact-id LCA rounds
+    (taxonomy/lca.collapse_keyed_taxids, ``kind`` 'table' or 'paths')
+    merge each run, and every run with a valid member is kept.  The merge
+    rounds are counted from the data, so no ``rounds`` is passed.
+    Returns (codes, compact ids, n)."""
+    s_codes, tax, first, run_valid, _ = collapse_keyed_taxids(
+        codes, ctax, codes != SENTINEL, lca_tab, kind, code_bits)
+    return _compact_mask_with(s_codes, tax, first & (run_valid > 0))
+
+
+def union_taxids_device(code_arrays, taxid_arrays, taxdb,
+                        code_bits: int = 64, device=None):
+    """The host entry of the device taxid union: (codes, taxids) as numpy,
+    or None where the host engine owns the semantics: unknown nonzero
+    taxids (their merge depends on order; taxonomy/lca.device_lca_plan)
+    or a real all-ones code, which the device would read as padding.
+
+    ``code_bits`` is the header's bound on code values (2k for 2-bit
+    codes, 64 for hashes)."""
+    device = get_device(device)
+    all_tax = np.concatenate(
+        [np.asarray(t, np.uint32) for t in taxid_arrays]
+    ) if taxid_arrays else np.zeros(0, np.uint32)
+    plan = device_lca_plan(taxdb, all_tax)
+    if plan is None:
+        return None
+    codes = np.concatenate(
+        [np.asarray(c, np.uint64) for c in code_arrays]
+    ) if code_arrays else np.zeros(0, np.uint64)
+    if len(codes) and codes.max() == SENT:
+        return None
+    kind, closure, tab = upload_plan(plan, device)
+    ctax = torch.from_numpy(compact_ids(closure, all_tax)).to(device)
+    out_c, out_t, n = union_taxids_compact(_to_device(codes, device), ctax,
+                                           tab, kind, code_bits)
+    n = int(n)
+    return (out_c[:n].cpu().numpy().view(np.uint64).copy(),
+            closure[out_t[:n].cpu().numpy().astype(np.int64)])

@@ -18,6 +18,13 @@ bit, so invalid slots (keyed to CODE_SENTINEL, payload 0) and real
 all-ones codes share the last run and the valid bit tells them apart.
 0 is the LCA identity (row 0 of every table is taxid 0).
 
+The tree-walk LCA (:func:`lca_pairs_device`, :func:`lca_collapse_device`)
+serves the set operations of ``KmerSet``: it walks the uploaded
+parent/depth tables, ``max_depth`` steps to lift the deeper side and
+``max_depth`` steps up in lockstep, in plain PyTorch, with the JAX
+package's rule for unknown taxids (an unknown taxid merges to 0, and 0
+is the identity), so the pairing order of a run is the JAX package's.
+
 The TPU forms of the sort stage (a packed single u64 key, a 3-operand
 split sort, staged programs) are compile workarounds of that backend
 and are not ported.
@@ -181,7 +188,86 @@ def upload_plan(plan, device):
 
 
 # ---------------------------------------------------------------------
-# device half
+# device half: the tree walk
+
+
+def device_tables(taxdb, device):
+    """(parent int64, depth int32, max_depth) of a Taxonomy on ``device``."""
+    parent = torch.from_numpy(taxdb.parent.astype(np.int64)).to(device)
+    depth = torch.from_numpy(taxdb.depth.astype(np.int32)).to(device)
+    return parent, depth, int(taxdb.depth.max())
+
+
+def lca_pairs_device(a: torch.Tensor, b: torch.Tensor, parent: torch.Tensor,
+                     depth: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Elementwise LCA of two int32 tensors of u32 taxids, 0 the
+    identity and an unknown taxid 0: ``max_depth`` steps lift the deeper
+    side, ``max_depth`` more walk both up in lockstep (no early exit).
+    Returns int32."""
+    n_tax = parent.shape[0]
+    a = a.long()
+    b = b.long()
+    da = torch.where((a > 0) & (a < n_tax), depth[a.clamp(0, n_tax - 1)], -1)
+    db = torch.where((b > 0) & (b < n_tax), depth[b.clamp(0, n_tax - 1)], -1)
+    known_a, known_b = da >= 0, db >= 0
+    x = torch.where(known_a, a, 0)
+    y = torch.where(known_b, b, 0)
+    dx, dy = da.clamp(min=0), db.clamp(min=0)
+    for _ in range(max_depth):
+        mx, my = dx > dy, dy > dx
+        x = torch.where(mx, parent[x], x)
+        dx = dx - mx.int()
+        y = torch.where(my, parent[y], y)
+        dy = dy - my.int()
+    for _ in range(max_depth):
+        m = x != y
+        x = torch.where(m, parent[x], x)
+        y = torch.where(m, parent[y], y)
+    res = torch.where(known_a & known_b, x, 0)
+    res = torch.where(known_a & (b == 0), a, res)
+    res = torch.where(known_b & (a == 0), b, res)
+    return res.to(torch.int32)
+
+
+def lca_collapse_device(codes: torch.Tensor, taxids: torch.Tensor,
+                        valid: torch.Tensor, parent: torch.Tensor,
+                        depth: torch.Tensor, max_depth: int, rounds: int,
+                        code_bits: int = 64):
+    """Sorted distinct collapse with the tree-walk LCA over each run of
+    equal codes: (sorted codes, merged taxids int32, keep mask), aligned
+    to the sorted order.
+
+    The order is that of the JAX package's sort of (code, invalid) made
+    stable (UNIKMER_TPU_SORT_STABLE=1; only unknown taxids make a run's
+    order matter): a stable partition puts the valid slots first, then
+    K3 sorts the codes stably with the slots' positions as payload, so a
+    run holds its valid slots in input order.  After round r every slot
+    holds the LCA of the next 2^(r+1) slots of its run (slot i with
+    i + 2^r, in its run when the two hold one code), so ``rounds`` >=
+    ceil(log2(longest run)) merges each run into its first slot."""
+    n = codes.shape[0]
+    valid = valid.bool()
+    part = torch.cat([torch.nonzero(valid).squeeze(1),
+                      torch.nonzero(~valid).squeeze(1)])
+    s_codes, s_pos = radix_sort_kv_u64(
+        codes[part], torch.arange(n, dtype=torch.int32, device=codes.device),
+        code_bits)
+    src = part[s_pos.long()]
+    s_valid = valid[src]
+    tax = torch.where(s_valid, taxids[src].to(torch.int32), 0)
+    first, _ = _run_edges(s_codes)
+    for r in range(rounds):
+        d = 1 << r
+        if d >= n:
+            break
+        i = torch.nonzero(s_codes[d:] == s_codes[:-d]).squeeze(1)
+        tax[i] = lca_pairs_device(tax[i], tax[i + d], parent, depth,
+                                  max_depth)
+    return s_codes, tax, first & s_valid
+
+
+# ---------------------------------------------------------------------
+# device half: compact ids
 
 
 def lca_pairs_compact(ca: torch.Tensor, cb: torch.Tensor,

@@ -43,6 +43,13 @@ def init_logging(verbose: bool = False) -> None:
     log.setLevel(logging.INFO if verbose else logging.WARNING)
 
 
+def check_error(err: BaseException | None, prefix: str = "") -> None:
+    """Log an error and exit with the reference's code (-1), if any."""
+    if err is not None:
+        log.error(f"{prefix}{err}" if prefix else str(err))
+        sys.exit(-1)
+
+
 def die(msg: str) -> None:
     """Log an error and exit with the reference's code (-1)."""
     log.error(msg)
