@@ -38,6 +38,18 @@ oracles:
             one-sided intersection, the difference); and the CLI's
             ``union`` (table and paths tiers), ``inter``, ``diff`` and
             ``common -n 2`` over ``count -t`` outputs of A, B and C.
+            Admission: the free bytes, each route's bytes a slot and the
+            element budgets are printed; under them every operation
+            above keeps its device route (its launches say so); with
+            UNIKMER_TPU_MAX_ELEMS below their size, ``from_fasta`` of
+            the 134 Mbp FASTA (no union_all K2) and the CLI ``union``
+            (no K3, the host engine) take the host route and are exact.
+            Then ``grep -F q.unik`` over A's ``count -t`` output with
+            UNIKMER_TPU_GREP_DEVICE at 1 (DeviceMembership) and at 0,
+            q.unik holding 2^22 codes of known membership, half of them
+            A's; and ``view`` -> ``dump`` over a 2^20-code 2-bit and a
+            2^20-code hashed file (the native text functions against
+            numpy and the original bytes).
             Every result and every saved ``.unik`` is held exactly to
             numpy (one stable sort merges the sorted sets with a bit a
             set, ``merge_sets``, from which union, intersection,
@@ -1675,6 +1687,17 @@ class SetsReport:
     def __init__(self):
         self.rows = []
         self.launches = {"k1": 0, "k2": 0, "k3": 0}
+        self.admission = {}
+
+    def forced_host(self, name, secs, launches, peak, device_s) -> None:
+        """A run with UNIKMER_TPU_MAX_ELEMS below its size, exact, beside
+        the device route's first run; its launches stay out of the
+        kernels line."""
+        row = {"s": round(secs, 4), "device_route_s": device_s,
+               "peak_bytes": peak,
+               "launches": {k: v for k, v in launches.items() if v}}
+        self.admission.setdefault("forced_host", {})[name] = row
+        say(f"admission {name} past the budget: exact, " + json.dumps(row))
 
     def op(self, name, fn, need, check, host=None,
            branches=("native", "numpy")):
@@ -1724,6 +1747,205 @@ def fasta_set_check(tmp, fa, oracle_path, report: SetsReport,
     report.op("from_fasta 134 Mbp (4 pieces)",
               lambda: KmerSet.from_fasta(fa, 23, canonical=True, device=dev),
               {"k1": 4, "k2": 5, "k3": 0}, check)
+    # past the budget: the pieces' sorts, no union_all, the set kept on
+    # the host
+    with max_elems(1 << 26):
+        kset, secs, launches, peak = counted(
+            lambda: KmerSet.from_fasta(fa, 23, canonical=True, device=dev),
+            {"k1": 4, "k2": 4, "k3": 0}, "from_fasta 134 Mbp (forced host)")
+    if not kset._on_host:
+        raise SystemExit("sets from_fasta past the budget: the set is on "
+                         "the card")
+    check(kset)
+    del kset
+    report.forced_host("from_fasta 134 Mbp", secs, launches, peak,
+                       report.rows[-1]["first_s"])
+
+
+@contextlib.contextmanager
+def max_elems(n: int):
+    """UNIKMER_TPU_MAX_ELEMS=n inside: every route's element budget is n,
+    so work past it takes the host route."""
+    os.environ["UNIKMER_TPU_MAX_ELEMS"] = str(n)
+    try:
+        yield
+    finally:
+        del os.environ["UNIKMER_TPU_MAX_ELEMS"]
+
+
+def admission_budgets(dev) -> dict:
+    """The device's free bytes, each route's bytes a slot and the element
+    budgets they give (ops/device_sets.element_budget; the paths tier's
+    also at path tables 1, 16 and 64 columns wide), printed."""
+    from unikmer_tpu_torch.ops import device_sets
+
+    if "UNIKMER_TPU_MAX_ELEMS" in os.environ:
+        raise SystemExit("admission: UNIKMER_TPU_MAX_ELEMS is set")
+    row = {"free_bytes": device_sets._device_free_bytes(dev),
+           "admit_share": device_sets.ADMIT_SHARE,
+           "slot_bytes": dict(device_sets.SLOT_BYTES),
+           "path_column_bytes": device_sets.PATH_COLUMN_BYTES,
+           "budgets": {route: device_sets.element_budget(route, dev)
+                       for route in device_sets.SLOT_BYTES},
+           "paths_budgets": {
+               dp: device_sets.element_budget("union_taxids_paths", dev, dp)
+               for dp in (1, 16, 64)}}
+    say("admission budgets: " + json.dumps(row))
+    return row
+
+
+def grep_oracle(path: str, unik_in: str, hit: np.ndarray, taxid: int) -> None:
+    """What ``grep -F q.unik -C`` writes for a sorted input file with a
+    global taxid: block by block of the input (read here on the numpy
+    branches), the codes where ``hit``, each with the taxid, in a sorted
+    .unik with INCLUDE_TAXID and no count."""
+    from unikmer_tpu_torch.io import unik
+
+    with numpy_host(), unik.UnikReader(unik_in) as r, open(path, "wb") as fh, \
+            unik.UnikWriter(fh, k=r.header.k, flag=unik.SORTED
+                            | unik.CANONICAL | unik.INCLUDE_TAXID,
+                            compress=False, max_taxid=(1 << 32) - 1) as w:
+        off = 0
+        for codes, _ in r.iter_blocks():
+            c = codes[hit[off:off + len(codes)]]
+            off += len(codes)
+            if len(c):
+                w.write_codes(c, np.full(len(c), taxid, np.uint32))
+
+
+def grep_path(tmp, rng, a_codes, a_unik: str, taxid: int, dev,
+              half: int = 1 << 21):
+    """``grep -F q.unik`` over A's ``count -t`` output, the device tier
+    (UNIKMER_TPU_GREP_DEVICE=1) and then the host's (=0): q.unik holds
+    2 x ``half`` codes, ``half`` of them members of A and ``half`` valid
+    23-mer codes that A lacks, so the hits are known.  Both outputs are held to
+    grep_oracle byte for byte; each run is timed whole, with its peak
+    device memory above what was allocated before it and the
+    DeviceMembership.lookup calls it made; member_bits is timed alone
+    on a 2^20-code block (CUDA events).  Prints and returns the ``grep``
+    row."""
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.ops import device_sets
+
+    idx = rng.choice(len(a_codes), half, replace=False)
+    cand = np.unique(rng.integers(0, 1 << 46, size=half + (half >> 2),
+                                  dtype=np.uint64))
+    cand = cand[~member_np(a_codes, cand)[1]]
+    if len(cand) < half:
+        raise SystemExit("grep: too few non-members drawn")
+    cand = rng.choice(cand, half, replace=False)
+    q = np.unique(np.concatenate([a_codes[idx], cand]))
+    hit = np.zeros(len(a_codes), bool)
+    hit[idx] = True
+    qpath = os.path.join(tmp, "q.unik")
+    with numpy_host():
+        write_oracle(qpath, 23, unik.SORTED | unik.CANONICAL, q)
+    want = os.path.join(tmp, "grep.oracle.unik")
+    grep_oracle(want, a_unik, hit, taxid)
+    calls = []
+    real = device_sets.DeviceMembership.lookup
+
+    def spy(self, look):
+        calls.append(len(look))
+        return real(self, look)
+
+    row = {"queries": len(q), "hits": int(hit.sum()),
+           "input_codes": len(a_codes)}
+    device_sets.DeviceMembership.lookup = spy
+    try:
+        for route, knob in (("device", "1"), ("host", "0")):
+            out = os.path.join(tmp, f"grep_{route}")
+            os.environ["UNIKMER_TPU_GREP_DEVICE"] = knob
+            calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            try:
+                _, secs, launches, peak = counted(
+                    lambda: run_cli(["grep", "-F", qpath, "-C", a_unik, "-o",
+                                     out]),
+                    {"k1": 0, "k2": 0, "k3": 0}, f"grep ({route} tier)")
+            finally:
+                del os.environ["UNIKMER_TPU_GREP_DEVICE"]
+            if (route == "device") != bool(calls):
+                raise SystemExit(f"grep {route} tier: {len(calls)} "
+                                 f"DeviceMembership lookups")
+            if not same_bytes(out + ".unik", want):
+                raise SystemExit(f"grep {route} tier: .unik differs from the "
+                                 f"oracle")
+            row[f"{route}_s"] = round(secs, 4)
+            if route == "device":
+                row["device_peak_bytes"] = peak - base
+                row["lookups"] = len(calls)
+            os.remove(out + ".unik")
+    finally:
+        device_sets.DeviceMembership.lookup = real
+    member = device_sets.DeviceMembership(q, device=dev)
+    block = torch.from_numpy(np.sort(a_codes[rng.integers(
+        0, len(a_codes), size=min(1 << 20, len(a_codes)))]).view(
+            np.int64)).to(dev)
+    row["member_bits_ms"] = round(cuda_ms(
+        lambda: device_sets.member_bits(member.dev_q, block), 20), 5)
+    look = block.cpu().numpy().view(np.uint64)
+    row["lookup_ms"] = round(cuda_ms(lambda: member.lookup(look), 20), 5)
+    del member, block
+    for f in (qpath, want):
+        os.remove(f)
+    say("grep: both tiers equal the oracle; " + json.dumps(row))
+    return row
+
+
+def text_round_trip(tmp, rng, a_codes, n: int = 1 << 20) -> dict:
+    """``view`` then ``dump`` over an n-code 2-bit file (k = 23, A's
+    first codes, canonical: ``dump -K`` keeps them) and an n-code hashed file (k = 31): view's text with the native library
+    equals its numpy branch's (utils/textout) byte for byte, with and
+    without -n; dump of that text (the native parse_code_lines) writes the
+    original file's bytes, and the hashed file's numpy dump (the per-line
+    parse) does too.  Returns seconds by step."""
+    from unikmer_tpu_torch.io import unik
+
+    hashed = np.unique(rng.integers(0, 1 << 64, size=n + (n >> 4),
+                                    dtype=np.uint64))
+    files = {"2-bit": (23, unik.SORTED | unik.CANONICAL, a_codes[:n], []),
+             "hashed": (31, unik.SORTED | unik.CANONICAL | unik.HASHED,
+                        np.sort(rng.choice(hashed, n, replace=False)),
+                        ["--hashed", "-k", "31"])}
+    secs = {}
+    for name, (k, flag, codes, dump_flags) in files.items():
+        src = os.path.join(tmp, "rt.unik")
+        with numpy_host():
+            write_oracle(src, k, flag, codes)
+        for extra in (["-n"], []):  # the plain text is dumped below
+            texts = []
+            for branch in ("native", "numpy"):
+                txt = os.path.join(tmp, f"rt_{branch}.txt")
+                with HOST_BRANCHES[branch]():
+                    t0 = time.perf_counter()
+                    run_cli(["view", *extra, src, "-o", txt])
+                    secs[f"{name} view {' '.join(extra)} {branch}".replace(
+                        "  ", " ")] = round(time.perf_counter() - t0, 4)
+                texts.append(txt)
+            if not same_bytes(*texts):
+                raise SystemExit(f"round trip {name}: view {extra}: the native "
+                                 f"text differs from numpy's")
+        branches = ("native", "numpy") if name == "hashed" else ("native",)
+        for branch in branches:
+            back = os.path.join(tmp, f"rt_back_{branch}")
+            with HOST_BRANCHES[branch]():
+                t0 = time.perf_counter()
+                run_cli(["dump", "-K", "-s", "-C", *dump_flags,
+                         os.path.join(tmp, "rt_native.txt"), "-o", back])
+                secs[f"{name} dump {branch}"] = round(
+                    time.perf_counter() - t0, 4)
+            if not same_bytes(back + ".unik", src):
+                raise SystemExit(f"round trip {name}: dump ({branch}) differs "
+                                 f"from the original file")
+            os.remove(back + ".unik")
+        for f in (src, *texts):
+            os.remove(f)
+    say("round trip view -> dump: native text and parse equal numpy's; "
+        "seconds " + json.dumps(secs))
+    return secs
 
 
 def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
@@ -1737,6 +1959,7 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
     dev = dev or torch.device("cuda", 0)
+    report.admission.update(admission_budgets(dev))
     t0 = time.perf_counter()
     bases = set_bases(rng)
     fas = [os.path.join(tmp, f"set{n}.fa") for n in "ABC"]
@@ -1886,7 +2109,7 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
     t0 = time.perf_counter()
     with numpy_host():
         cli_oracle = cli_setop_oracles(merged, gtax, taxdb)
-    del an, bn, cn, oracle, merged
+    del bn, cn, oracle, merged
     written = {}
     for key, (codes, taxids) in cli_oracle.items():
         written[key] = os.path.join(tmp, f"cli_{key}.oracle.unik")
@@ -1934,6 +2157,34 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
         say(f"sets CLI {name}: {os.path.getsize(out + '.unik')} bytes equal "
             f"to the oracle; " + json.dumps(row))
         os.remove(out + ".unik")
+        if name == "union (table tier)":
+            device_s = secs
+    # past the budget: the host engine, no K3
+    out = os.path.join(tmp, "cliout")
+    host_sets.union = spy
+    host_union_calls.clear()
+    try:
+        with max_elems(1 << 20):
+            _, secs, launches, peak = counted(
+                lambda: run_cli(["union", "-s", "-C", "--data-dir", d, *uniks,
+                                 "-o", out]),
+                {"k1": 0, "k2": 0, "k3": 0}, "CLI union (forced host)")
+    finally:
+        host_sets.union = real_union
+    if not host_union_calls or not same_bytes(out + ".unik",
+                                               written["union"]):
+        raise SystemExit("sets CLI union past the budget: not the host "
+                         "engine, or not the oracle's bytes")
+    os.remove(out + ".unik")
+    report.forced_host("CLI union", secs, launches, peak, round(device_s, 4))
+    t0 = time.perf_counter()
+    grep_path(tmp, rng, an, uniks[0], gtax[0], dev)
+    t1 = time.perf_counter()
+    text_round_trip(tmp, rng, an)
+    say("phase seconds: " + json.dumps({
+        "grep": round(t1 - t0, 3),
+        "round trip": round(time.perf_counter() - t1, 3)}))
+    del an
     for u in uniks + list(written.values()):
         os.remove(u)
 
@@ -2389,6 +2640,7 @@ def main() -> int:
     say(f"path seconds: main {t[0] - t0:.3f}, count -T {t[1] - t[0]:.3f}, "
         f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}")
     say(json.dumps({"sets": report.rows}))
+    say(json.dumps({"admission": report.admission}))
     launches["k2"] += report.launches["k2"]
     launches["k3"] += report.launches["k3"]
     launches.update(probe_path())

@@ -343,3 +343,181 @@ def test_kmerset_on_card_matches_cpu(taxdbs):
                 if wt is not None:
                     np.testing.assert_array_equal(gt, wt)
                 assert got[key].capacity == want[key].capacity
+
+
+# ---------------------------------------------------------------------
+# admission: past a route's element budget the host route
+
+
+@pytest.fixture
+def small_budget(monkeypatch):
+    """The device's free bytes replaced by 64 KiB: every route's element
+    budget falls below a set of one 2^20-slot capacity."""
+    from unikmer_tpu_torch.ops import device_sets
+
+    monkeypatch.setattr(device_sets, "_device_free_bytes",
+                        lambda device: 1 << 16)
+
+
+def same_members(j, p):
+    np.testing.assert_array_equal(p.to_numpy(), np.asarray(j.to_numpy()))
+    jt, pt = j.taxids_to_numpy(), p.taxids_to_numpy()
+    assert (jt is None) == (pt is None)
+    if jt is not None:
+        np.testing.assert_array_equal(pt, np.asarray(jt))
+
+
+def no_device_sets(monkeypatch):
+    """Make every device set function of the KmerSet routes raise."""
+    from unikmer_tpu_torch.ops import device_sets
+
+    def boom(*a, **kw):
+        raise AssertionError("a device route ran past the budget")
+
+    for name in ("union", "intersect", "subtract", "common",
+                 "union_one_sided_taxids", "union_with_taxids",
+                 "intersect_with_taxids", "intersect_one_sided_taxids",
+                 "subtract_with_taxids"):
+        monkeypatch.setattr(device_sets, name, boom)
+    monkeypatch.setattr(port_api, "collapse_sorted", boom)
+
+
+@pytest.mark.parametrize("taxids", ["none", "both", "one"])
+@pytest.mark.parametrize("op", ["|", "&", "-", "union_all", "common"])
+def test_set_ops_past_the_budget_take_the_host_route(taxdbs, monkeypatch,
+                                                     op, taxids):
+    """Sets made on the device, then the free bytes made small: each
+    operation (and its taxid forms) takes the host engine, keeps its
+    result on the host, and gives the JAX package's members."""
+    if taxids == "none":
+        sets = [both(c) for c in draws(30, count=3)]
+    else:
+        sets = taxid_sets(taxdbs, 31)[:3]
+        if taxids == "one":
+            sets[1] = both(np.asarray(sets[1][0].to_numpy()))
+    (ja, pa), (jb, pb), (jc, pc) = sets
+    assert not pa._on_host
+    from unikmer_tpu_torch.ops import device_sets
+
+    monkeypatch.setattr(device_sets, "_device_free_bytes",
+                        lambda device: 1 << 16)
+    no_device_sets(monkeypatch)
+    want, got = {
+        "|": lambda: (ja | jb, pa | pb),
+        "&": lambda: (ja & jb, pa & pb),
+        "-": lambda: (ja - jb, pa - pb),
+        "union_all": lambda: (JK.union_all([ja, jb, jc]),
+                              PK.union_all([pa, pb, pc])),
+        "common": lambda: (JK.common([ja, jb, jc], 2),
+                           PK.common([pa, pb, pc], 2)),
+    }[op]()
+    assert got._on_host and len(got) > 100
+    same_members(want, got)
+
+
+def test_from_fasta_past_the_budget_takes_the_host_merge(tmp_path,
+                                                         monkeypatch,
+                                                         small_budget):
+    """A multi-piece FASTA past the from_fasta budget: the pieces are
+    merged on the host (no device union_all), the set stays there, and
+    its members are the JAX package's."""
+    rng = np.random.default_rng(32)
+    seq = rng.choice(list(b"ACGTN"), size=30000,
+                     p=[.245, .245, .245, .245, .02]).astype(np.uint8)
+    fa = tmp_path / "g.fa"
+    fa.write_bytes(b">g\n" + seq.tobytes() + b"\n>h\n" + seq[:900].tobytes()
+                   + b"\n")
+    monkeypatch.setattr(jax_api, "_stream_chunk_bases", lambda: 4096)
+    monkeypatch.setattr(port_api, "_stream_chunk_bases", lambda dev: 4096)
+    no_device_sets(monkeypatch)
+    merged = []
+    real = port_api.count_stream_packed
+    monkeypatch.setattr(port_api, "count_stream_packed",
+                        lambda *a, **kw: (merged.append(1),
+                                          real(*a, **kw))[1])
+    monkeypatch.setattr(PK, "union_all", staticmethod(
+        lambda sets: (_ for _ in ()).throw(AssertionError("device merge"))))
+    got = PK.from_fasta(str(fa), 15, canonical=True, device="cpu")
+    assert merged == [1] and got._on_host and len(got) > 20000
+    same_members(JK.from_fasta(str(fa), 15, canonical=True), got)
+
+
+ROUTES = ["from_fasta", "from_codes", "union", "union_one_sided",
+          "union_taxids", "intersect", "intersect_one_sided",
+          "intersect_taxids", "subtract", "subtract_taxids", "union_all",
+          "common", "union_taxids_table", "union_taxids_paths", "membership"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_element_budget(monkeypatch, route):
+    """No budget on the CPU; the free bytes over the route's bytes a slot
+    where the device reports them; UNIKMER_TPU_MAX_ELEMS wins."""
+    from unikmer_tpu_torch.ops import device_sets
+
+    assert sorted(device_sets.SLOT_BYTES) == sorted(ROUTES)
+
+    monkeypatch.delenv("UNIKMER_TPU_MAX_ELEMS", raising=False)
+    assert device_sets._device_free_bytes(torch.device("cpu")) is None
+    assert device_sets.element_budget(route, "cpu") == 1 << 62
+    monkeypatch.setattr(device_sets, "_device_free_bytes",
+                        lambda device: 80 << 30)
+    per = device_sets.SLOT_BYTES[route]
+    assert 4 <= per <= 1024
+    share = int((80 << 30) * device_sets.ADMIT_SHARE)
+    assert device_sets.element_budget(route, "cpu") == share // per
+    assert device_sets.element_budget(route, "cpu", 3, 1 << 20) == (
+        share - (1 << 20)) // (per + 3 * device_sets.PATH_COLUMN_BYTES)
+    monkeypatch.setenv("UNIKMER_TPU_MAX_ELEMS", "12345")
+    assert device_sets.element_budget(route, "cpu") == 12345
+
+
+def test_union_taxids_device_declines_past_the_budget(taxdbs, monkeypatch):
+    """union_taxids_device returns None past its tier's budget (the JAX
+    package's nn > 2^25), which sends the CLI to the host engine."""
+    from unikmer_tpu_torch.ops import device_sets
+
+    rng = np.random.default_rng(33)
+    codes = [np.unique(c) for c in draws(34, count=3)]
+    taxids = [rng.choice(TAXIDS[:-1], len(c)).astype(np.uint32)
+              for c in codes]
+    args = (codes, taxids, taxdbs[1], 40, "cpu")
+    assert device_sets.union_taxids_device(*args) is not None
+    monkeypatch.setattr(device_sets, "_device_free_bytes",
+                        lambda device: 1 << 16)
+    assert device_sets.union_taxids_device(*args) is None
+    monkeypatch.setattr(device_sets, "_device_free_bytes",
+                        lambda device: 1 << 40)
+    assert device_sets.union_taxids_device(*args) is not None
+
+
+def test_paths_tier_budget_counts_the_table_width(monkeypatch):
+    """The paths tier's bytes a code grow with its path table's width:
+    under the same free bytes, codes whose taxids lie on a 64-deep chain
+    go to the host engine (None) where those of a 4-deep chain are
+    admitted, and the admitted union equals the host engine's."""
+    from unikmer_tpu_torch.ops import device_sets
+    from unikmer_tpu_torch.ops import sets as host_sets
+    from unikmer_tpu_torch.slot_bytes import chain_taxonomy
+
+    monkeypatch.setenv("UNIKMER_TPU_TAXID_VOCAB_MAX", "0")
+    monkeypatch.delenv("UNIKMER_TPU_MAX_ELEMS", raising=False)
+    rng = np.random.default_rng(35)
+    codes = [np.unique(c) for c in draws(36, count=3)]
+    n = sum(len(c) for c in codes)
+    shallow = (device_sets.SLOT_BYTES["union_taxids_paths"]
+               + 4 * device_sets.PATH_COLUMN_BYTES)
+    free = int(n * shallow / device_sets.ADMIT_SHARE) + (1 << 16)
+    monkeypatch.setattr(device_sets, "_device_free_bytes",
+                        lambda device: free)
+    got = {}
+    for depth in (4, 64):
+        taxdb = chain_taxonomy(depth)
+        taxids = [rng.integers(2, depth + 2, len(c)).astype(np.uint32)
+                  for c in codes]
+        got[depth] = device_sets.union_taxids_device(codes, taxids, taxdb,
+                                                     40, "cpu")
+        if depth == 4:
+            want_codes, want_taxids = host_sets.union(codes, taxids, taxdb)
+    assert got[64] is None
+    assert np.array_equal(got[4][0], want_codes)
+    assert np.array_equal(got[4][1], want_taxids)

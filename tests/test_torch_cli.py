@@ -360,3 +360,30 @@ def test_union_takes_the_device_taxid_route(uniks, envs, tmp_path,
                       *[uniks[i] for i in inputs],
                       "-o", str(tmp_path / "u")]) == 0
     assert len(seen) == 1 and (seen[0] is not None) == device
+
+
+@pytest.mark.parametrize("inputs", [["t0", "t1", "t2"], ["r0", "r1"]])
+def test_union_past_the_budget_takes_the_host_engine(uniks, envs, tmp_path,
+                                                     monkeypatch, inputs):
+    """With the device's free bytes made small, union_taxids_device
+    declines (None) and the host engine writes the JAX CLI's bytes."""
+    from unikmer_tpu_torch.ops import device_sets
+
+    seen = []
+    real = device_sets.union_taxids_device
+
+    def spy(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(device_sets, "union_taxids_device", spy)
+    monkeypatch.setattr(device_sets, "_device_free_bytes",
+                        lambda device: 1 << 16)
+    outs = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        assert main(["union", "-s", "-C", *TAXDUMP_FLAGS,
+                     *[uniks[i] for i in inputs],
+                     "-o", str(tmp_path / name)]) == 0
+        outs[name] = (tmp_path / f"{name}.unik").read_bytes()
+    assert seen == [None]
+    assert len(outs["port"]) > 1000 and outs["port"] == outs["jax"]

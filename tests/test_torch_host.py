@@ -370,6 +370,89 @@ def test_cli_common_helpers_match_jax(tmp_path):
     np.testing.assert_array_equal(t, taxids)
 
 
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("stream", [False, True])
+def test_reader_gzipped_and_stream_match_jax(compress, stream):
+    """UnikReader, which always streams, reads as the JAX reader does in
+    either of its modes (``stream``), and its ``gzipped`` (info's column)
+    says the same."""
+    codes = sorted_codes(30, 4000)
+    data = write_both(codes, k=23, flag=unik.SORTED, compress=compress)[0]
+    with jax_unik.UnikReader(io.BytesIO(data), stream=stream) as r:
+        want = (r.gzipped, r.read_all()[0])
+    with unik.UnikReader(io.BytesIO(data)) as r:
+        got = (r.gzipped, r.read_all()[0])
+    assert got[0] == want[0] == compress
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("h0_tax,h_tax,ignore", [
+    (False, False, False), (True, True, False), (False, True, False),
+    (True, False, False), (True, False, True)])
+def test_check_taxid_info_match_matches_jax(caplog, h0_tax, h_tax, ignore):
+    from unikmer_tpu.cli.commands import _common as jax_common
+    from unikmer_tpu_torch.cli.commands import _common as port_common
+
+    def header(mod, tax):
+        return mod.UnikHeader(k=23, flag=mod.SORTED | (
+            mod.INCLUDE_TAXID if tax else 0), taxid_bytes=4 if tax else 0)
+
+    got = []
+    for mod, common in ((jax_unik, jax_common), (unik, port_common)):
+        caplog.clear()
+        opt = type("Opt", (), {"ignore_taxid": ignore})()
+        try:
+            common.check_taxid_info_match(header(mod, h0_tax),
+                                          header(mod, h_tax), "f.unik", opt)
+            got.append(None)
+        except SystemExit as e:
+            got.append((e.code, caplog.records[-1].getMessage()))
+    assert got[0] == got[1]
+    assert (got[1] is None) == (h0_tax == h_tax or ignore)
+
+
+@pytest.mark.parametrize("name", ["-", "out.txt", "out.txt.gz", "OUT.GZ"])
+def test_out_text_stream_matches_jax(tmp_path, name):
+    from unikmer_tpu.cli import opts as jax_opts
+    from unikmer_tpu_torch.cli import opts as port_opts
+
+    text = "ACGT\t12\nä\n" * 50
+    got = []
+    for side, mod in (("jax", jax_opts), ("port", port_opts)):
+        path = name if name == "-" else str(tmp_path / f"{side}{name}")
+        out, owns = mod.out_text_stream(path, 3)
+        assert owns == (name != "-")
+        if name == "-":
+            assert out is sys.stdout
+            continue
+        out.write(text)
+        out.close()
+        data = open(path, "rb").read()
+        got.append(gzip.decompress(data) if name.lower().endswith(".gz")
+                   else data)
+    assert got[0] == got[1] if got else True
+    assert not got or got[1] == text.encode()
+
+
+def test_dump_chunk_takes_a_compression_level(tmp_path):
+    """grep's spill writes its chunks at level 1: the chunk reads back
+    sorted and collapsed at either level."""
+    codes = np.random.default_rng(31).permutation(sorted_codes(31, 50000))
+    opt = type("Opt", (), dict(max_taxid=0, compress=True,
+                               compression_level=9, threads=1))()
+    sizes = []
+    for level in (None, 1):
+        path = str(tmp_path / f"c{level}.unik")
+        extsort.dump_chunk(np.concatenate([codes, codes[:99]]), None, path,
+                           23, unik.CANONICAL, "unique", None, opt,
+                           compression_level=level)
+        with unik.UnikReader(path) as r:
+            assert r.header.is_sorted
+            np.testing.assert_array_equal(r.read_all()[0], np.sort(codes))
+        sizes.append(os.path.getsize(path))
+    assert sizes[1] > sizes[0]
+
+
 @pytest.fixture(scope="module")
 def set_inputs():
     """Five sorted code arrays sharing members, with taxid columns (an
@@ -927,3 +1010,52 @@ def test_chip_smoke_names_a_missing_package(monkeypatch, capsys):
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 1 and "unikmer_tpu_torch" in out[0]
     assert '"ok"' not in out[0]
+
+
+@pytest.fixture
+def cuda_calls_on_cpu(monkeypatch):
+    """chip_smoke's card-side bookkeeping (synchronize, peak memory, CUDA
+    events) made no-ops, so its phases run on the CPU."""
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: 0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps=5, before=None: (fn(), 0.0)[1])
+    monkeypatch.setenv("UNIKMER_TPU_TORCH_DEVICE", "cpu")
+
+
+@pytest.mark.parametrize("half", [1 << 10, 1 << 13])
+def test_chip_smoke_grep_path_holds_both_tiers(tmp_path, cuda_calls_on_cpu,
+                                               half):
+    """grep_path's oracle equals both tiers' output (the device tier on
+    the CPU: DeviceMembership over the plain member_bits), and its row
+    counts the lookups of the device tier only."""
+    rng = np.random.default_rng(40)
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 60000)]
+    fa = tmp_path / "A.fa"
+    fa.write_bytes(b">A\n" + seq.tobytes() + b"\n")
+    a_unik = str(tmp_path / "cliA")
+    assert port_main(["count", "-k", "23", "-K", "-s", "-C", "-t", "562",
+                      str(fa), "-o", a_unik]) == 0
+    with unik.UnikReader(a_unik + ".unik") as r:
+        an = r.read_all()[0]
+    row = chip_smoke.grep_path(str(tmp_path), rng, an, a_unik + ".unik",
+                               562, torch.device("cpu"), half=half)
+    assert row["queries"] == 2 * half and row["hits"] == half
+    assert row["lookups"] == 1 and row["input_codes"] == len(an)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["A.fa",
+                                                          "cliA.unik"]
+
+
+def test_chip_smoke_round_trip_and_admission(tmp_path, cuda_calls_on_cpu):
+    rng = np.random.default_rng(41)
+    # canonical 23-mers, as A's codes from count -K are
+    codes = np.unique(jax_canonical_np(sorted_codes(42, 5000), 23))
+    secs = chip_smoke.text_round_trip(str(tmp_path), rng, codes, n=4096)
+    assert {"2-bit dump native", "hashed dump numpy",
+            "hashed view -n numpy"} <= set(secs)
+    assert not list(tmp_path.iterdir())
+    row = chip_smoke.admission_budgets(torch.device("cpu"))
+    assert row["free_bytes"] is None and set(row["budgets"]) == set(
+        row["slot_bytes"])

@@ -21,14 +21,15 @@ CUDA unless UNIKMER_TPU_TORCH_DEVICE says otherwise); an operation
 between sets on different devices raises.  Capacities are padded to
 ``_padded_len`` (2^20 times a power of two, the JAX package's quantum
 off the TPU), so ``capacity``, ``compact()`` and ``repr`` agree with it.
-There is no element cap on the card; UNIKMER_TPU_MAX_ELEMS keeps sets
-above that capacity on the host and sends their operations to the host
-engine (ops/sets.py), as in the JAX package.
+Each constructor and operation admits its work by the device's element
+budget for its route (ops/device_sets.element_budget: the free bytes
+over the route's measured bytes a slot, or UNIKMER_TPU_MAX_ELEMS when
+set; none on the CPU).  Past it a set stays on the host and its
+operations take the host engine (ops/sets.py), as in the JAX package
+past its cap.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -43,13 +44,6 @@ from .ops.codec import SENTINEL
 from .ops.sort import collapse_sorted
 
 _SENT = np.uint64((1 << 64) - 1)
-
-
-def _max_device_elems() -> int:
-    """Capacity above which a set stays on the host: UNIKMER_TPU_MAX_ELEMS,
-    else no cap."""
-    env = os.environ.get("UNIKMER_TPU_MAX_ELEMS")
-    return int(env) if env else (1 << 62)
 
 
 def _host_codes(codes) -> np.ndarray:
@@ -149,7 +143,7 @@ class KmerSet:
         flags = dict(canonical=canonical, hashed=hashed, scale=scale,
                      taxdb=taxdb, device=device)
         cap = _padded_len(max(len(codes), 1))
-        if cap > _max_device_elems():
+        if cap > device_sets.element_budget("from_codes", device):
             # kept on the host: binary ops take the host engine (their
             # capacities add past the cap) and contains() runs numpy
             if not assume_sorted_unique:
@@ -200,15 +194,19 @@ class KmerSet:
         if len(packed.bases) <= chunk + cfg.k:
             return cls._from_token(count_packed_dispatch(packed, cfg, device),
                                    k, flags)
-        if cfg.mode == "distinct":
+        fits = len(packed.bases) <= device_sets.element_budget("from_fasta",
+                                                               device)
+        if cfg.mode == "distinct" and fits:
             # a device set a piece, merged by one device union
             pieces = [cls._from_token(count_packed_dispatch(p, cfg, device),
                                       k, flags)
                       for p in split_packed(packed, chunk,
                                             cfg.k if cfg.segmentable else 0)]
             return cls.union_all(pieces)
-        # unique/repeated need multiplicities across pieces: the capped
-        # host merge of the stream, then an upload
+        # unique/repeated need multiplicities across pieces, and pieces
+        # past the device's budget must not stay resident: the capped host
+        # merge of the stream, then an upload (from_codes keeps a set past
+        # its own budget on the host)
         codes = _spilled(count_stream_packed([packed], cfg, device=device))
         return cls.from_codes(codes, k, assume_sorted_unique=True, **flags)
 
@@ -369,6 +367,16 @@ class KmerSet:
         )
         return self._from_host(c, t)
 
+    def _on_device_within(self, route: str, sets) -> bool:
+        """Whether ``route`` over ``sets`` runs on the device: every set
+        is there and their slots fit the route's element budget (the
+        capacities' sum; for common, the largest times the count)."""
+        if any(s._on_host for s in sets):
+            return False
+        caps = [s.capacity for s in sets]
+        slots = max(caps) * len(caps) if route == "common" else sum(caps)
+        return slots <= device_sets.element_budget(route, self.device)
+
     def _tables(self, taxdb):
         from .taxonomy.lca import device_tables
 
@@ -380,7 +388,10 @@ class KmerSet:
         missing side is taxid 0, the identity; a shared code whose taxid
         the attached taxonomy lacks merges to 0, as on the host)."""
         self._check_compatible(other)
-        if self.capacity + other.capacity > _max_device_elems():
+        route = ("union" if not (self.has_taxids or other.has_taxids)
+                 else "union_taxids" if self.has_taxids and other.has_taxids
+                 else "union_one_sided")
+        if not self._on_device_within(route, (self, other)):
             return self._host_union(other)
         bits = self._code_bits
         taxdb = self._taxdb or other._taxdb
@@ -412,7 +423,11 @@ class KmerSet:
         sides carry them, and the present side passes through when only
         one does (--mix-taxid semantics)."""
         self._check_compatible(other)
-        if self.capacity + other.capacity > _max_device_elems():
+        route = ("intersect" if not (self.has_taxids or other.has_taxids)
+                 else "intersect_taxids"
+                 if self.has_taxids and other.has_taxids
+                 else "intersect_one_sided")
+        if not self._on_device_within(route, (self, other)):
             return self._host_intersect(other)
         if self.has_taxids and other.has_taxids:
             taxdb = self._taxdb or other._taxdb
@@ -439,7 +454,8 @@ class KmerSet:
         """Difference; keeps this set's taxid column (diff keeps the
         query's taxids)."""
         self._check_compatible(other)
-        if self.capacity + other.capacity > _max_device_elems():
+        route = "subtract_taxids" if self.has_taxids else "subtract"
+        if not self._on_device_within(route, (self, other)):
             return self._host_subtract(other)
         if self.has_taxids:
             c, t, n = device_sets.subtract_with_taxids(
@@ -469,7 +485,7 @@ class KmerSet:
             for s in sets[1:]:
                 out = out.union(s)
             return out
-        if sum(s.capacity for s in sets) > _max_device_elems():
+        if not first._on_device_within("union_all", sets):
             from .ops import sets as host_sets
 
             c, _ = host_sets.union([s.to_numpy() for s in sets])
@@ -492,13 +508,13 @@ class KmerSet:
         if threshold <= 0:
             # the host engine reads <= 0 as "all files"; so does this
             threshold = len(sets)
-        cap = max(s.capacity for s in sets)
-        if cap * len(sets) > _max_device_elems():
+        if not first._on_device_within("common", sets):
             from .ops import sets as host_sets
 
             c, _ = host_sets.common(
                 [s.to_numpy() for s in sets], None, threshold)
             return first._from_host(c, None)
+        cap = max(s.capacity for s in sets)
         stacked = torch.stack([
             s._codes if s.capacity == cap
             else torch.cat([s._codes, s._codes.new_full(

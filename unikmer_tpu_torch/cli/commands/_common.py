@@ -49,6 +49,23 @@ def open_reader(file: str) -> UnikReader:
     return UnikReader(sys.stdin.buffer if file == "-" else file)
 
 
+def check_taxid_info_match(h0, h, file, opt) -> None:
+    """Multi-file inputs must ALL have (or all lack) taxid info unless
+    -I/--ignore-taxid (reference sort.go:217-222; the same block appears
+    in concat/merge/sample/split/view/grep/head)."""
+    if opt.ignore_taxid or h.has_taxid_info == h0.has_taxid_info:
+        return
+    if h.has_taxid_info:
+        die(
+            "taxid information not found in previous files, "
+            f"but found in this: {file}"
+        )
+    die(
+        "taxid information found in previous files, "
+        f"but missing in this: {file}"
+    )
+
+
 def effective_taxids(reader: UnikReader, n: int, taxids, ignore_taxid: bool):
     """Per-record taxids, a global taxid made into a column (readers
     report the global taxid for every record)."""

@@ -1,5 +1,7 @@
-"""unikmer-tpu-torch CLI: the ``count``, ``union``, ``inter``, ``diff``
-and ``common`` subcommands on the PyTorch/CUDA port.
+"""unikmer-tpu-torch CLI: the ``count``, ``info`` (``stats``), ``num``,
+``view``, ``dump``, ``encode``, ``decode``, ``concat``, ``inter``,
+``union``, ``common``, ``diff`` and ``grep`` subcommands on the
+PyTorch/CUDA port.
 
 Same global flags (cli/opts.py, the port's copy of unikmer_tpu/cli/opts.py)
 and exit-code conventions as ``python -m unikmer_tpu.cli.main``; the
@@ -7,6 +9,7 @@ other subcommands are not ported yet (ROADMAP.md queue 1 item 12).
 
     python -m unikmer_tpu_torch.cli.main count -k 23 -K -s in.fa -o a
     python -m unikmer_tpu_torch.cli.main union -s a.unik b.unik -o u
+    python -m unikmer_tpu_torch.cli.main view a.unik | head
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ import sys
 import zlib
 
 from .. import REFERENCE_VERSION, __version__
-from .commands import common, count, diff, inter, union
+from .commands import (
+    common, concat, count, decode, diff, dump, encode, grep, info, inter, num,
+    union, view,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -25,14 +31,17 @@ def build_parser() -> argparse.ArgumentParser:
         prog="unikmer-tpu-torch",
         description=(
             "unikmer-tpu-torch - the k-mer toolkit on PyTorch and CUDA "
-            "(unikmer-compatible count and set operations)\n\n"
+            "(unikmer-compatible count, format, lookup and set "
+            "operations)\n\n"
             f"Version: v{__version__} (reference parity: unikmer "
             f"v{REFERENCE_VERSION})"
         ),
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = p.add_subparsers(dest="command", metavar="command")
-    for cmd in (count, union, inter, diff, common):
+    # the JAX CLI's order (unikmer_tpu/cli/commands/__init__.py)
+    for cmd in (count, info, num, view, dump, encode, decode, concat, inter,
+                union, common, diff, grep):
         cmd.register(sub)
     return p
 

@@ -5,6 +5,8 @@ flags, defaults, environment names and file-list rules."""
 from __future__ import annotations
 
 import argparse
+import gzip
+import io
 import os
 import sys
 from dataclasses import dataclass
@@ -131,3 +133,18 @@ def out_binary_stream(path: str):
     if path == "-":
         return sys.stdout.buffer, False
     return open(path, "wb"), True
+
+
+def out_text_stream(path: str, compression_level: int = 5):
+    """Text out stream; '-' = stdout, a .gz suffix gzips (view -o)."""
+    if path == "-":
+        return sys.stdout, False
+    if path.lower().endswith(".gz"):
+        return (
+            io.TextIOWrapper(
+                gzip.open(path, "wb", compresslevel=compression_level),
+                encoding="utf-8",
+            ),
+            True,
+        )
+    return open(path, "w"), True

@@ -300,7 +300,8 @@ class UnikReader:
             head = f.read(2)
             f = io.BufferedReader(_Concat(head, f))
             magic2 = head
-        if magic2 == b"\x1f\x8b":
+        self.gzipped = magic2 == b"\x1f\x8b"
+        if self.gzipped:
             f = io.BufferedReader(gzip.GzipFile(fileobj=f), 1 << 20)
         elif not isinstance(f, io.BufferedReader):
             f = io.BufferedReader(f)

@@ -140,6 +140,19 @@ def _bind(lib) -> None:
     lib.fastx_load.argtypes = [ctypes.c_char_p, i64, i32, i64]
     lib.fastx_pack_free.restype = None
     lib.fastx_pack_free.argtypes = [ctypes.POINTER(FastxPackStruct)]
+    lib.render_kmer_lines.restype = i64
+    lib.render_kmer_lines.argtypes = [u64p, i64, i32, u8p]
+    lib.render_kmer_u64_lines.restype = i64
+    lib.render_kmer_u64_lines.argtypes = [u64p, u64p, i64, i32, u8p]
+    lib.render_u64_lines.restype = i64
+    lib.render_u64_lines.argtypes = [u64p, i64, u8p]
+    lib.render_u64_pair_lines.restype = i64
+    lib.render_u64_pair_lines.argtypes = [u64p, u64p, i64, u8p]
+    lib.decode_codes_ascii.restype = None
+    lib.decode_codes_ascii.argtypes = [u64p, i64, i32, u8p]
+    lib.parse_code_lines.restype = i64
+    lib.parse_code_lines.argtypes = [u8p, i64, i32, i32, i32, u64p, u32p,
+                                     i64]
 
 
 class FastxPackStruct(ctypes.Structure):
@@ -439,3 +452,69 @@ def load_fastx_packed(path: str, k: int, circular: bool = False,
         return bases, starts, lengths, ids
     finally:
         lib.fastx_pack_free(p)
+
+
+def render_lines(codes: np.ndarray, k: int | None,
+                 vals: np.ndarray | None = None) -> bytes | None:
+    """Text lines for view: '<kmer>\\n', '<kmer>\\t<val>\\n' (k set),
+    or '<val>\\n' / '<a>\\t<b>\\n' (k None).  None -> numpy fallback."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(codes)
+    if n == 0:
+        return b""
+    codes = np.ascontiguousarray(codes, np.uint64)
+    if vals is not None:
+        vals = np.ascontiguousarray(vals, np.uint64)
+    if k is not None:
+        if vals is None:
+            out = np.empty(n * (k + 1), np.uint8)
+            ln = lib.render_kmer_lines(_u64p(codes), n, k, _u8p(out))
+        else:
+            out = np.empty(n * (k + 22), np.uint8)
+            ln = lib.render_kmer_u64_lines(_u64p(codes), _u64p(vals), n, k,
+                                           _u8p(out))
+    else:
+        if vals is None:
+            out = np.empty(n * 21, np.uint8)
+            ln = lib.render_u64_lines(_u64p(codes), n, _u8p(out))
+        else:
+            out = np.empty(n * 42, np.uint8)
+            ln = lib.render_u64_pair_lines(_u64p(codes), _u64p(vals), n,
+                                           _u8p(out))
+    return out[:ln].tobytes()
+
+
+def decode_codes_ascii(codes: np.ndarray, k: int) -> np.ndarray | None:
+    """(n, k) ASCII matrix of k-mer strings; None -> numpy fallback."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, np.uint64)
+    out = np.empty((len(codes), k), np.uint8)
+    lib.decode_codes_ascii(_u64p(codes), len(codes), k, _u8p(out))
+    return out
+
+
+def parse_code_lines(text: bytes, kmer_mode: bool, k: int, has_taxid: bool):
+    """Bulk-parse '<token>[\\t<int>]' lines (dump's hot loop).
+
+    Returns (codes u64, taxids u32 or None), or None when the native
+    library is unavailable, or an int byte-offset of the first malformed
+    line (the caller falls back to the per-line parser for exact errors).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    inp = np.frombuffer(text, np.uint8)
+    cap = text.count(b"\n") + 2
+    codes = np.empty(cap, np.uint64)
+    taxids = np.empty(cap if has_taxid else 1, np.uint32)
+    n = lib.parse_code_lines(
+        _u8p(inp), len(inp), 0 if kmer_mode else 1, k,
+        1 if has_taxid else 0, _u64p(codes), _u32p(taxids), cap,
+    )
+    if n < 0:
+        return int(-n - 1)  # byte offset of the offending line
+    return codes[:n].copy(), (taxids[:n].copy() if has_taxid else None)

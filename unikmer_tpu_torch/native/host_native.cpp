@@ -10,6 +10,10 @@
 //   radix_sort_u64[_u32|_u64], msd_partition_u64    host sorts
 //   set2_{union,inter,diff}_u64                     host set algebra
 //   member_mask_sorted_u64                          sorted merge-join
+//   render_kmer_lines, render_kmer_u64_lines,       view's text lines
+//   render_u64_lines, render_u64_pair_lines,
+//   decode_codes_ascii
+//   parse_code_lines                                dump's text parse
 //
 // It links no libdeflate: whole-file gzip inputs inflate with zlib when
 // native/__init__.py finds <zlib.h> (it then defines UKT_HAVE_ZLIB and
@@ -1062,6 +1066,158 @@ FastxPack* fastx_load(const char* path, int64_t k, int32_t circular,
     p->id_offs = (int64_t*)std::malloc(sizeof(int64_t) * id_offs.size());
     std::memcpy(p->id_offs, id_offs.data(), sizeof(int64_t) * id_offs.size());
     return p;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Text emission (view's hot loops): k-mer decode and decimal rendering
+// fused into sequential single-pass writers, and the bulk parse of
+// dump's input lines.
+// ---------------------------------------------------------------------
+
+namespace {
+
+const char kBaseChar[4] = {'A', 'C', 'G', 'T'};
+
+inline uint8_t* put_u64(uint8_t* p, uint64_t v) {
+    char tmp[20];
+    int len = 0;
+    do {
+        tmp[len++] = (char)('0' + (v % 10));
+        v /= 10;
+    } while (v);
+    for (int i = len - 1; i >= 0; i--) *p++ = (uint8_t)tmp[i];
+    return p;
+}
+
+inline uint8_t* put_kmer(uint8_t* p, uint64_t code, int k) {
+    for (int j = k - 1; j >= 0; j--) p[j] = (uint8_t)kBaseChar[code & 3], code >>= 2;
+    return p + k;
+}
+
+}  // namespace
+
+extern "C" {
+
+// "<kmer>\n" lines; out capacity n*(k+1); returns bytes written.
+int64_t render_kmer_lines(const uint64_t* codes, int64_t n, int32_t k,
+                          uint8_t* out) {
+    uint8_t* p = out;
+    for (int64_t i = 0; i < n; i++) {
+        p = put_kmer(p, codes[i], k);
+        *p++ = '\n';
+    }
+    return p - out;
+}
+
+// "<kmer>\t<val>\n" lines; out capacity n*(k+22).
+int64_t render_kmer_u64_lines(const uint64_t* codes, const uint64_t* vals,
+                              int64_t n, int32_t k, uint8_t* out) {
+    uint8_t* p = out;
+    for (int64_t i = 0; i < n; i++) {
+        p = put_kmer(p, codes[i], k);
+        *p++ = '\t';
+        p = put_u64(p, vals[i]);
+        *p++ = '\n';
+    }
+    return p - out;
+}
+
+// "<val>\n" lines; out capacity n*21.
+int64_t render_u64_lines(const uint64_t* vals, int64_t n, uint8_t* out) {
+    uint8_t* p = out;
+    for (int64_t i = 0; i < n; i++) {
+        p = put_u64(p, vals[i]);
+        *p++ = '\n';
+    }
+    return p - out;
+}
+
+// "<a>\t<b>\n" lines; out capacity n*42.
+int64_t render_u64_pair_lines(const uint64_t* a, const uint64_t* b,
+                              int64_t n, uint8_t* out) {
+    uint8_t* p = out;
+    for (int64_t i = 0; i < n; i++) {
+        p = put_u64(p, a[i]);
+        *p++ = '\t';
+        p = put_u64(p, b[i]);
+        *p++ = '\n';
+    }
+    return p - out;
+}
+
+// (n, k) ASCII matrix of k-mer strings (ops/codec.decode_codes twin).
+void decode_codes_ascii(const uint64_t* codes, int64_t n, int32_t k,
+                        uint8_t* out) {
+    for (int64_t i = 0; i < n; i++) put_kmer(out + i * k, codes[i], k);
+}
+
+// Bulk text parse (dump's hot loop): lines of "<token>[\t<int>]" where
+// token is a k-mer (mode 0, fixed length k) or a decimal u64 (mode 1).
+// Blank lines skipped; \r and trailing spaces tolerated.  Returns the
+// number of records parsed, or -(1 + byte_offset_of_bad_line) on the
+// first malformed line (the caller re-parses in Python for the exact
+// reference error message).
+int64_t parse_code_lines(const uint8_t* text, int64_t len, int32_t mode,
+                         int32_t k, int32_t has_taxid, uint64_t* codes,
+                         uint32_t* taxids, int64_t cap) {
+    int64_t n = 0, i = 0;
+    while (i < len) {
+        int64_t line_start = i;
+        int64_t e = i;
+        while (e < len && text[e] != '\n') e++;
+        int64_t a = i, b = e;
+        while (a < b && is_ws(text[a])) a++;
+        while (b > a && is_ws(text[b - 1])) b--;
+        i = e + 1;
+        if (a == b) continue;  // blank line
+        if (n >= cap) return -(1 + line_start);
+        // token = [a, t); no inner trimming: the Python/Go parsers see
+        // 'ACGTA \t..' as a 6-char token and reject it, so must this
+        int64_t t = a;
+        while (t < b && text[t] != '\t') t++;
+        if (!has_taxid && t < b) return -(1 + line_start);  // unexpected column
+        int64_t tok_end = t;
+        uint64_t code = 0;
+        if (mode == 0) {
+            if (tok_end - a != k) return -(1 + line_start);
+            for (int64_t j = a; j < tok_end; j++) {
+                uint8_t c = BASE_LUT[text[j]];
+                if (c > 3) return -(1 + line_start);
+                code = (code << 2) | c;
+            }
+        } else {
+            if (tok_end == a) return -(1 + line_start);
+            for (int64_t j = a; j < tok_end; j++) {
+                if (text[j] < '0' || text[j] > '9') return -(1 + line_start);
+                uint64_t d = (uint64_t)(text[j] - '0');
+                if (code > (~0ULL - d) / 10) return -(1 + line_start);  // u64 overflow
+                code = code * 10 + d;
+            }
+        }
+        codes[n] = code;
+        if (has_taxid) {
+            if (t >= b) return -(1 + line_start);
+            int64_t ta = t + 1, tb = b;
+            while (ta < tb && is_ws(text[ta])) ta++;
+            // the taxid column may itself be followed by further columns
+            int64_t te = ta;
+            uint64_t tax = 0;
+            if (te >= tb) return -(1 + line_start);
+            while (te < tb && text[te] != '\t') te++;
+            while (te > ta && is_ws(text[te - 1])) te--;
+            if (te == ta) return -(1 + line_start);
+            for (int64_t j = ta; j < te; j++) {
+                if (text[j] < '0' || text[j] > '9') return -(1 + line_start);
+                tax = tax * 10 + (uint64_t)(text[j] - '0');
+                if (tax > 0xFFFFFFFFULL) return -(1 + line_start);
+            }
+            taxids[n] = (uint32_t)tax;
+        }
+        n++;
+    }
+    return n;
 }
 
 }  // extern "C"

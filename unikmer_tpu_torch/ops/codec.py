@@ -11,8 +11,11 @@ order is taken by flipping the sign bit (``SIGN``) before comparing.
 
 These functions are the plain version of the K1 kernel
 (ops/encode.py, csrc/encode.cu).  The host tables below (``BASE_LUT``,
-``INVALID_BASE``, ``RECORD_SEP``, the k limits) are the port's own copy
-of those of ``unikmer_tpu/ops/codec.py``.
+``INVALID_BASE``, ``RECORD_SEP``, the k limits) and the numpy helpers
+for text interop at the end (``max_code``, ``encode_kmer``,
+``decode_codes``, ``decode_kmer``, ``bits_string``, ``revcomp_np``,
+``canonical_np``: the encode/decode/view/dump/grep commands) are the
+port's own copy of those of ``unikmer_tpu/ops/codec.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,13 @@ MAX_K_ENCODED = 32
 MAX_K_HASHED = 64
 
 
+def max_code(k: int) -> int:
+    """MaxCode[k] = 4^k - 1 (reference: kmers.MaxCode, cmd/decode.go:99-106)."""
+    if not 0 < k <= MAX_K_ENCODED:
+        raise ValueError(f"k must be in [1,{MAX_K_ENCODED}], got {k}")
+    return (1 << (2 * k)) - 1
+
+
 def _build_base_lut() -> np.ndarray:
     lut = np.full(256, INVALID_BASE, dtype=np.uint8)
     for chars, code in (("Aa", 0), ("Cc", 1), ("Gg", 2), ("TtUu", 3)):
@@ -44,6 +54,8 @@ def _build_base_lut() -> np.ndarray:
 
 # ASCII byte -> 2-bit base code (255 = invalid).
 BASE_LUT = _build_base_lut()
+# 2-bit base code -> ASCII byte.
+BASE_CHARS = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 # CODE_SENTINEL (2^64-1) as an int64 bit pattern.
 SENTINEL = -1
@@ -134,3 +146,74 @@ def canonical_code(code: torch.Tensor, k: int) -> torch.Tensor:
     """min(code, revcomp(code)) in unsigned order."""
     rc = revcomp_code(code, k)
     return torch.where(ult(rc, code), rc, code)
+
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy) helpers for text interop: encode/decode of explicit
+# k-mer strings.  These serve the encode/decode/view/dump/grep commands;
+# the device path above never materializes strings.
+# ---------------------------------------------------------------------------
+
+_M2_NP = np.uint64(_M2)
+_M4_NP = np.uint64(_M4)
+_M8_NP = np.uint64(_M8)
+_M16_NP = np.uint64(_M16)
+
+
+def encode_kmer(kmer: bytes | str) -> int:
+    """Encode one k-mer string to its code. Raises on invalid base."""
+    if isinstance(kmer, str):
+        kmer = kmer.encode()
+    b = BASE_LUT[np.frombuffer(kmer, dtype=np.uint8)]
+    if (b >= 4).any():
+        bad = kmer[int(np.argmax(b >= 4))]
+        raise ValueError(f"invalid DNA base {chr(bad)!r} in k-mer {kmer!r}")
+    if len(kmer) > MAX_K_ENCODED:
+        raise ValueError(f"k-mer longer than {MAX_K_ENCODED}: {len(kmer)}")
+    code = 0
+    for v in b:
+        code = (code << 2) | int(v)
+    return code
+
+
+def decode_codes(codes: np.ndarray, k: int) -> np.ndarray:
+    """Decode uint64 codes to an (n, k) array of ASCII bytes, from the
+    little-endian byte view with uint8 column ops only (no (n, k) uint64
+    temporary)."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint64).reshape(-1)
+    byte_view = codes.view(np.uint8).reshape(-1, 8)  # little-endian
+    n = len(codes)
+    out = np.empty((n, k), np.uint8)
+    for j in range(k):
+        bit = 2 * (k - 1 - j)
+        out[:, j] = (byte_view[:, bit >> 3] >> (bit & 7)) & 3
+    return BASE_CHARS[out]
+
+
+def decode_kmer(code: int, k: int) -> str:
+    """Decode a single code to its k-mer string."""
+    if code > max_code(k):
+        raise ValueError(f"code {code} overflows k={k} (max {max_code(k)})")
+    return decode_codes(np.array([code], dtype=np.uint64), k)[0].tobytes().decode()
+
+
+def bits_string(code: int, k: int) -> str:
+    """Bit representation grouped per base (reference: encode -a)."""
+    s = format(code, f"0{2 * k}b")
+    return " ".join(s[i : i + 2] for i in range(0, len(s), 2))
+
+
+def revcomp_np(codes: np.ndarray, k: int) -> np.ndarray:
+    """Numpy twin of revcomp_code for host-side paths."""
+    c = ~np.asarray(codes, dtype=np.uint64)
+    c = ((c >> np.uint64(2)) & _M2_NP) | ((c & _M2_NP) << np.uint64(2))
+    c = ((c >> np.uint64(4)) & _M4_NP) | ((c & _M4_NP) << np.uint64(4))
+    c = ((c >> np.uint64(8)) & _M8_NP) | ((c & _M8_NP) << np.uint64(8))
+    c = ((c >> np.uint64(16)) & _M16_NP) | ((c & _M16_NP) << np.uint64(16))
+    c = (c >> np.uint64(32)) | (c << np.uint64(32))
+    return c >> np.uint64(64 - 2 * k)
+
+
+def canonical_np(codes: np.ndarray, k: int) -> np.ndarray:
+    codes = np.asarray(codes, dtype=np.uint64)
+    return np.minimum(codes, revcomp_np(codes, k))

@@ -65,8 +65,11 @@ def collapse_batch(codes, taxids, mode, taxdb, final_round: bool):
 
 
 def dump_chunk(codes: np.ndarray, taxids: np.ndarray | None, path: str,
-               k: int, flag: int, mode: str, taxdb, opt) -> None:
-    """Sort + within-chunk collapse + write one chunk file."""
+               k: int, flag: int, mode: str, taxdb, opt,
+               compression_level: int | None = None) -> None:
+    """Sort + within-chunk collapse + write one chunk file;
+    ``compression_level`` overrides opt's (grep's temporary spill chunks
+    take 1)."""
     if len(codes) > 1 and (codes[1:] < codes[:-1]).any():
         if taxids is None:
             codes = native.host_sort(codes)
@@ -76,9 +79,11 @@ def dump_chunk(codes: np.ndarray, taxids: np.ndarray | None, path: str,
     flag |= unik.SORTED
     if taxids is not None:
         flag |= unik.INCLUDE_TAXID
+    if compression_level is None:
+        compression_level = opt.compression_level
     with unik.UnikWriter(path, k=k, flag=flag, number=len(codes),
                          max_taxid=opt.max_taxid, compress=opt.compress,
-                         compression_level=opt.compression_level,
+                         compression_level=compression_level,
                          threads=opt.threads) as w:
         w.write_codes(codes, taxids)
 
