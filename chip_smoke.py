@@ -57,6 +57,18 @@ oracles:
             known membership; the LCA by the port's host Taxonomy), and
             each operation is timed (CUDA events, 5 runs) beside the
             host engine (ops/sets, native and numpy) in the ``sets`` line;
+  file commands
+            over the sets path's ``count -t`` files of A, B and C (about
+            3.3 x 10^7 codes each) and T2's ``count -T`` output: ``sort -u
+            -I`` in memory and with ``-m 16M -M 4`` (a cascade, gzip
+            temporaries), ``split -m 16M -u -I`` then ``merge -D -u -I -M
+            4`` (sort -m's bytes), ``sort -d -I``, ``sort -u`` of A's and
+            B's codes with the taxid phase's per-code taxids (its LCA
+            oracle), ``tsplit`` of T2, ``rfilter -E species`` and ``-L
+            genus`` on a copy of the tree ranked by depth, ``head -n
+            1048576``, ``sample -s 3 -w 7`` and ``filter`` (its mask on
+            the card) of A, each held to numpy (``file_commands_path``)
+            and timed in the ``file_commands`` line;
   probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
             of scripts/exp_pallas_dma*.py, each kernel held to its plain
             version inside the entry point.
@@ -103,9 +115,11 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gzip
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1424,7 +1438,8 @@ def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows,
 
 def taxid_path(tmp, rng):
     """T1, T1 hashed, T2 and T3 (module docstring); returns K3's launches
-    in T1-T3."""
+    in T1-T3 and T2's output for the file commands (its path and the
+    oracle's codes and taxids; the taxonomy in ``tmp``/taxdump)."""
     from unikmer_tpu_torch.taxonomy.lca import device_lca_plan
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
@@ -1458,6 +1473,10 @@ def taxid_path(tmp, rng):
             tmp, name, fa, d, k, canonical, mode,
             len(taxids) * (length - k + 1))
         k3 += launches["k3"]
+        if name == "T2":
+            t2 = {"unik": os.path.join(tmp, "T2.unik"), "codes": codes,
+                  "taxids": got_taxids}
+            os.remove(os.path.join(tmp, "T2.oracle.unik"))
         if name == "T1":  # the same input hashed (H1, then K3) and sketched
             taxid_run(tmp, "T1H", fa, d, 31, True, "distinct",
                       len(taxids) * (length - 31 + 1), hashed=True)
@@ -1470,7 +1489,7 @@ def taxid_path(tmp, rng):
     if not (codes[-1] == SENT and got_taxids[-1] == t3[0]):
         raise SystemExit(f"T3: the 2^64-1 code was not kept with taxid "
                          f"{t3[0]}: {codes[-3:]}, {got_taxids[-3:]}")
-    return k3
+    return k3, t2
 
 
 # ---------------------------------------------------------------------------
@@ -1640,7 +1659,7 @@ def counted(fn, need: dict, what: str):
     peak = torch.cuda.max_memory_allocated()
     launches = {key: w.launches for key, w in wrappers.items()}
     if any(launches[key] != n for key, n in need.items()):
-        raise SystemExit(f"sets {what}: launches {launches}, expected {need}")
+        raise SystemExit(f"{what}: launches {launches}, expected {need}")
     return out, secs, launches, peak
 
 
@@ -1704,7 +1723,7 @@ class SetsReport:
         """Run a set operation once counted and checked, then time it
         (the median of 5 runs; of 1 where the first took over a second:
         the host-bound transforms); returns its result."""
-        out, secs, launches, peak = counted(fn, need, name)
+        out, secs, launches, peak = counted(fn, need, f"sets {name}")
         check(out)
         for key in self.launches:
             self.launches[key] += launches[key]
@@ -1752,7 +1771,8 @@ def fasta_set_check(tmp, fa, oracle_path, report: SetsReport,
     with max_elems(1 << 26):
         kset, secs, launches, peak = counted(
             lambda: KmerSet.from_fasta(fa, 23, canonical=True, device=dev),
-            {"k1": 4, "k2": 4, "k3": 0}, "from_fasta 134 Mbp (forced host)")
+            {"k1": 4, "k2": 4, "k3": 0},
+            "sets from_fasta 134 Mbp (forced host)")
     if not kset._on_host:
         raise SystemExit("sets from_fasta past the budget: the set is on "
                          "the card")
@@ -1948,10 +1968,14 @@ def text_round_trip(tmp, rng, a_codes, n: int = 1 << 20) -> dict:
     return secs
 
 
-def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
+def sets_path(tmp, rng, report: SetsReport, dev=None) -> dict:
     """The library phase, the taxid phase and the CLI phase (module
     docstring), every result held exactly to its numpy oracle; the
-    -T path's taxonomy is read from ``tmp``/taxdump."""
+    -T path's taxonomy is read from ``tmp``/taxdump.  Returns what the
+    file commands read: the ``count -t`` files of A, B and C, the codes
+    of their union and of those in two of them, A's and B's codes with
+    their per-code taxids, the oracle of their taxid union and A's
+    low-complexity mask."""
     from unikmer_tpu_torch import KmerSet
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.ops import device_sets
@@ -2051,7 +2075,8 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
     idx = np.arange(len(an))
     oracle["head"] = an[:1000]
     oracle["sample"] = an[(idx >= 3) & ((idx - 3) % 7 == 0)]
-    oracle["filter"] = an[~low_complexity_oracle(an, 23)]
+    low = low_complexity_oracle(an, 23)
+    oracle["filter"] = an[~low]
     report.op("head 1000", lambda: a.head(1000), no_sort, holds("head"))
     report.op("sample 3 7", lambda: a.sample(3, 7), no_sort, holds("sample"))
     report.op("filter_low_complexity", lambda: a.filter_low_complexity(),
@@ -2109,7 +2134,9 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
     t0 = time.perf_counter()
     with numpy_host():
         cli_oracle = cli_setop_oracles(merged, gtax, taxdb)
-    del bn, cn, oracle, merged
+    kept = {"uniks": uniks, "taxdump": d, "a": (an, ta), "b": (bn, tb),
+            "a_low": low, "ab_taxids": oracle["A | B (taxids)"]}
+    del cn, oracle, merged
     written = {}
     for key, (codes, taxids) in cli_oracle.items():
         written[key] = os.path.join(tmp, f"cli_{key}.oracle.unik")
@@ -2139,7 +2166,8 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
         try:
             _, secs, launches, peak = counted(
                 lambda: run_cli(argv),
-                {"k1": 0, "k2": 0, "k3": 1 if key == "union" else 0}, name)
+                {"k1": 0, "k2": 0, "k3": 1 if key == "union" else 0},
+                f"sets CLI {name}")
         finally:
             host_sets.union = real_union
             os.environ.pop("UNIKMER_TPU_TAXID_VOCAB_MAX", None)
@@ -2168,7 +2196,7 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
             _, secs, launches, peak = counted(
                 lambda: run_cli(["union", "-s", "-C", "--data-dir", d, *uniks,
                                  "-o", out]),
-                {"k1": 0, "k2": 0, "k3": 0}, "CLI union (forced host)")
+                {"k1": 0, "k2": 0, "k3": 0}, "sets CLI union (forced host)")
     finally:
         host_sets.union = real_union
     if not host_union_calls or not same_bytes(out + ".unik",
@@ -2184,9 +2212,325 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> None:
     say("phase seconds: " + json.dumps({
         "grep": round(t1 - t0, 3),
         "round trip": round(time.perf_counter() - t1, 3)}))
-    del an
-    for u in uniks + list(written.values()):
+    for u in written.values():
         os.remove(u)
+    kept.update(union=cli_oracle["union"][0], common=cli_oracle["common"][0])
+    return kept
+
+
+# ---------------------------------------------------------------------------
+# file commands: sort, split, merge, tsplit, rfilter, head, sample and
+# filter over the files the count -T and sets paths wrote
+
+
+RANK_BY_DEPTH = ("no rank", "superkingdom", "phylum", "class", "order",
+                 "family", "genus", "species", "strain")
+
+
+def write_ranked_taxonomy(src: str, dst: str) -> np.ndarray:
+    """A copy of ``src``/nodes.dmp in ``dst`` whose ranks go by depth
+    (RANK_BY_DEPTH; past its end "no rank"); returns the depths."""
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
+
+    with numpy_host():
+        taxdb = load_taxonomy(src, with_rank=False)
+    depth = taxdb.depth.astype(np.int64)
+    names = RANK_BY_DEPTH + ("no rank",) * int(depth.max() + 1)
+    os.mkdir(dst)
+    with open(os.path.join(dst, "nodes.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{taxdb.parent[t]}\t|\t{names[depth[t]]}"
+                     "\t|\t\t|\n" for t in np.flatnonzero(depth >= 0))
+    return depth
+
+
+def rfilter_keep(depth: np.ndarray, taxids: np.ndarray, how: str):
+    """What ``rfilter`` keeps on the ranked copy of the tree: under ``-E
+    species`` the taxids at the species depth; under ``-L genus`` those
+    below genus (species, strain) and those whose rank has no order ("no
+    rank": the root and every depth past strain, order 0 in the rank
+    file); a taxid absent from the tree has no rank and goes."""
+    t = taxids.astype(np.int64)
+    d = np.full(len(t), -1)
+    ok = (t > 0) & (t < len(depth))
+    d[ok] = depth[t[ok]]
+    species = RANK_BY_DEPTH.index("species")
+    if how == "-E species":
+        return d == species
+    if how == "-L genus":
+        return (d >= species) | (d == 0)
+    raise ValueError(how)
+
+
+def write_oracle_blocks(out: str, k: int, flag: int, blocks,
+                        max_taxid: int = 0) -> None:
+    """The oracle's (codes, taxids) blocks through the port's UnikWriter,
+    one write_codes a block and no count, as the streaming commands
+    (head, sample, filter) write: an empty block writes nothing."""
+    from unikmer_tpu_torch.io import unik
+
+    with numpy_host(), open(out, "wb") as fh, unik.UnikWriter(
+            fh, k=k, flag=flag, compress=False, max_taxid=max_taxid) as w:
+        for codes, taxids in blocks:
+            w.write_codes(codes, taxids)
+
+
+def block_bounds(path: str) -> np.ndarray:
+    """The offsets of a .unik file's blocks (0, n0, n0 + n1, ...)."""
+    from unikmer_tpu_torch.io import unik
+
+    with unik.UnikReader(path) as r:
+        return np.cumsum([0] + [len(c) for c, _ in r.iter_blocks()])
+
+
+def read_unik(path: str):
+    """(header, codes, taxids) of a .unik file, read by the port's reader."""
+    from unikmer_tpu_torch.io import unik
+
+    with unik.UnikReader(path) as r:
+        return (r.header, *r.read_all())
+
+
+def same_content(name: str, path: str, codes, taxids, flag: int,
+                 number: int) -> None:
+    """A .unik file holds exactly these codes and taxids under this flag
+    and count."""
+    h, c, t = read_unik(path)
+    if h.flag != flag or h.number != number:
+        raise SystemExit(f"file commands {name}: flag {h.flag}, count "
+                         f"{h.number}; expected {flag}, {number}")
+    if not np.array_equal(c, codes) or (t is None) != (taxids is None) or (
+            taxids is not None and not np.array_equal(t, taxids)):
+        raise SystemExit(f"file commands {name}: {len(c)} codes, not the "
+                         f"oracle's {len(codes)} (or their taxids)")
+
+
+def same_inflated(a: str, b: str) -> bool:
+    """Two gzip files inflate to the same bytes."""
+    with gzip.open(a, "rb") as fa, gzip.open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 24), fb.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def file_commands_path(tmp, sets: dict, t2: dict, dev, chunk: str = "16M",
+                       max_open: int = 4, head_n: int = 1 << 20) -> dict:
+    """The file commands over the sets path's ``count -t`` files of A, B
+    and C and T2's ``count -T`` output, each run through the CLI (no
+    K1, K2 or K3 launch: they run on the host, filter's mask in plain
+    torch on the card) and held to its oracle.  The runs over A, B and C
+    take -I (their global taxids' LCA is the host ``lca_reduce``, which
+    would lead every call); the LCA run is A's and B's codes with the
+    taxid phase's per-code taxids:
+
+      sort -u -I (in memory)    the bytes of the union's codes
+      sort -u -I -m chunk -M n  the union's codes, from more chunks than
+                                -M, so a cascade; gzip temporaries
+      split + merge -D -u -I    the inflated bytes of sort -m's output
+                                (the same chunks merged the same way)
+      sort -d -I                the bytes of the codes in two files
+      sort -u, per-code taxids  the bytes of the taxid phase's LCA oracle
+      tsplit T2                 a file a taxid, holding T2's codes with
+                                that taxid under a global taxid
+      rfilter -E / -L           T2's codes whose taxids pass, on a copy
+                                of the tree ranked by depth
+      head, sample, filter      A's codes block by block (head's first
+                                ``head_n``, sample's -s 3 -w 7, filter's
+                                by low_complexity_oracle)
+
+    Returns the seconds of each call and filter's mask times and peak
+    device bytes over what was resident (each block's mask must run on
+    ``dev``); prints them as the ``file_commands`` line."""
+    from unikmer_tpu_torch.cli.commands import filter as filter_cmd
+    from unikmer_tpu_torch.cli.commands.filter import block_mask
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.ops.filter import low_complexity_mask
+    from unikmer_tpu_torch.utils.sizes import parse_byte_size
+
+    d, uniks = sets["taxdump"], sets["uniks"]
+    an, ta = sets["a"]
+    bn, tb = sets["b"]
+    seconds = {}
+    stmp = os.path.join(tmp, "fc_tmp")
+
+    def run(name, argv):
+        _, secs, _, peak = counted(lambda: run_cli(argv),
+                                   {"k1": 0, "k2": 0, "k3": 0},
+                                   f"file commands {name}")
+        seconds[name] = round(secs, 4)
+        return peak
+
+    def out(name):
+        return os.path.join(tmp, f"fc_{name}")
+
+    def holds(name, got, want, same=same_bytes):
+        if not same(got, want):
+            raise SystemExit(f"file commands {name}: {got} differs from "
+                             f"{want}")
+        say(f"file commands {name}: {os.path.getsize(got)} bytes equal to "
+            f"the oracle's ({seconds[name]} s)")
+
+    def oracle(name, codes, taxids=None):
+        path = out(name + ".oracle")
+        with numpy_host():
+            write_oracle(path, 23, (unik.SORTED | unik.CANONICAL) | (
+                0 if taxids is None else unik.INCLUDE_TAXID), codes, taxids)
+        return path
+
+    sorted_flag = unik.SORTED | unik.CANONICAL
+    n_codes = sum(read_unik(u)[0].number for u in uniks)
+    if -(-n_codes // parse_byte_size(chunk)) <= max_open:
+        raise SystemExit(f"file commands: {n_codes} codes in chunks of "
+                         f"{chunk} make no cascade past -M {max_open}")
+    # sort -u in memory, and external with a cascade
+    run("sort -u -I", ["sort", "-u", "-I", "-C", *uniks, "-o", out("sort_u")])
+    holds("sort -u -I", out("sort_u") + ".unik",
+          oracle("union", sets["union"]))
+    for f in (out("sort_u") + ".unik", out("union.oracle")):
+        os.remove(f)
+    name_m = f"sort -u -I -m {chunk} -M {max_open}"
+    run(name_m, ["sort", "-u", "-I", "-m", chunk, "-M", str(max_open), "-t",
+                 stmp, *uniks, "-o", out("sort_um")])
+    same_content(name_m, out("sort_um") + ".unik", sets["union"], None,
+                 sorted_flag, -1)
+    say(f"file commands {name_m}: {len(sets['union'])} codes equal to the "
+        f"union's ({seconds[name_m]} s)")
+    # split, then merge what it wrote: sort -m's bytes
+    parts = out("parts")
+    run(f"split -u -I -m {chunk}", ["split", "-u", "-I", "-m", chunk,
+                                    *uniks, "-O", parts])
+    name_merge = f"merge -D -u -I -M {max_open}"
+    run(name_merge, ["merge", "-D", "-u", "-I", "-M", str(max_open), "-t",
+                     stmp, parts, "-o", out("merge")])
+    holds(name_merge, out("merge") + ".unik", out("sort_um") + ".unik",
+          same_inflated)
+    shutil.rmtree(parts)
+    for f in ("merge", "sort_um"):
+        os.remove(out(f) + ".unik")
+    # sort -d: the codes of at least two files
+    run("sort -d -I", ["sort", "-d", "-I", "-C", *uniks, "-o", out("sort_d")])
+    holds("sort -d -I", out("sort_d") + ".unik",
+          oracle("common", sets["common"]))
+    for f in (out("sort_d") + ".unik", out("common.oracle")):
+        os.remove(f)
+    # duplicate codes with different per-code taxids: their LCA
+    taxid_flag = sorted_flag | unik.INCLUDE_TAXID
+    per_code = [out("at") + ".unik", out("bt") + ".unik"]
+    for path, codes, taxids in zip(per_code, (an, bn), (ta, tb)):
+        write_oracle(path, 23, taxid_flag, codes, taxids)
+    run("sort -u (per-code taxids)", ["sort", "-u", "-C", "--data-dir", d,
+                                      *per_code, "-o", out("sort_ut")])
+    holds("sort -u (per-code taxids)", out("sort_ut") + ".unik",
+          oracle("ab", *sets["ab_taxids"]))
+    for f in (*per_code, out("sort_ut") + ".unik", out("ab.oracle")):
+        os.remove(f)
+    # tsplit of T2: a file a taxid
+    ts = out("tsplit")
+    run("tsplit", ["tsplit", "-C", t2["unik"], "-O", ts])
+    codes, taxids = t2["codes"], t2["taxids"]
+    order = np.argsort(taxids, kind="stable")
+    t_s, c_s = taxids[order], codes[order]
+    starts = np.flatnonzero(np.r_[True, t_s[1:] != t_s[:-1]])
+    bounds = np.append(starts, len(t_s))
+    names = {f"tsplit.taxid-{t_s[i]}.k23.unik" for i in starts}
+    if set(os.listdir(ts)) != names:
+        raise SystemExit(f"file commands tsplit: {len(os.listdir(ts))} "
+                         f"files, not the {len(names)} taxids' names")
+    for i, lo in enumerate(starts):
+        path = os.path.join(ts, f"tsplit.taxid-{t_s[lo]}.k23.unik")
+        h, c, _ = read_unik(path)
+        if (h.global_taxid != t_s[lo] or h.flag != unik.SORTED
+                | unik.CANONICAL or h.number != bounds[i + 1] - lo
+                or not np.array_equal(c, c_s[lo:bounds[i + 1]])):
+            raise SystemExit(f"file commands tsplit: {path} is not taxid "
+                             f"{t_s[lo]}'s {bounds[i + 1] - lo} codes")
+    say(f"file commands tsplit: {len(names)} files, each equal to T2's "
+        f"codes of its taxid ({seconds['tsplit']} s)")
+    shutil.rmtree(ts)
+    del order, t_s, c_s
+    # rfilter on the tree ranked by depth
+    ranked = os.path.join(tmp, "taxdump_ranked")
+    depth = write_ranked_taxonomy(d, ranked)
+    for how in ("-E species", "-L genus"):
+        keep = rfilter_keep(depth, taxids, how)
+        if keep.all() or not keep.any():
+            raise SystemExit(f"file commands rfilter {how}: keeps "
+                             f"{int(keep.sum())} of {len(keep)}")
+        run(f"rfilter {how}", ["rfilter", *how.split(), "-C", "--data-dir",
+                               ranked, t2["unik"], "-o", out("rfilter")])
+        same_content(f"rfilter {how}", out("rfilter") + ".unik", codes[keep],
+                     taxids[keep], taxid_flag, -1)
+        say(f"file commands rfilter {how}: {int(keep.sum())} of "
+            f"{len(keep)} codes, equal to the oracle's "
+            f"({seconds[f'rfilter {how}']} s)")
+        os.remove(out("rfilter") + ".unik")
+    shutil.rmtree(ranked)
+    # head, sample and filter of A, block by block
+    a_unik = uniks[0]
+    h = read_unik(a_unik)[0]
+    edges = block_bounds(a_unik)
+    blocks = [(lo, hi) for lo, hi in zip(edges[:-1], edges[1:])]
+    if edges[-1] != len(an):
+        raise SystemExit("file commands: A's file does not hold A's codes")
+
+    def tax(n):
+        return np.full(n, h.global_taxid, np.uint32)
+
+    run(f"head -n {head_n}", ["head", "-n", str(head_n), "-C", a_unik, "-o",
+                              out("head")])
+    write_oracle_blocks(out("head.oracle"), 23, h.flag | unik.INCLUDE_TAXID, (
+        (an[lo:min(hi, head_n)], tax(min(hi, head_n) - lo))
+        for lo, hi in blocks if lo < head_n))
+    holds(f"head -n {head_n}", out("head") + ".unik", out("head.oracle"))
+    idx = np.arange(1, len(an) + 1)
+    picked = (idx >= 3) & ((idx - 3) % 7 == 0)
+    run("sample -s 3 -w 7", ["sample", "-s", "3", "-w", "7", "-C", a_unik,
+                             "-o", out("sample")])
+    write_oracle_blocks(out("sample.oracle"), 23, h.flag | unik.INCLUDE_TAXID,
+                        ((an[lo:hi][picked[lo:hi]],
+                          tax(int(picked[lo:hi].sum())))
+                         for lo, hi in blocks if picked[lo:hi].any()))
+    holds("sample -s 3 -w 7", out("sample") + ".unik", out("sample.oracle"))
+    del idx, picked
+    # every block's mask on dev; the peak over what was resident before
+    masked, real_mask = [], filter_cmd.low_complexity_mask
+
+    def mask_on(x, *args):
+        masked.append(x.device.type)
+        return real_mask(x, *args)
+
+    resident = torch.cuda.memory_allocated()
+    filter_cmd.low_complexity_mask = mask_on
+    try:
+        peak = run("filter", ["filter", "-C", a_unik, "-o", out("filter")])
+    finally:
+        filter_cmd.low_complexity_mask = real_mask
+    if masked != [dev.type] * len(blocks):
+        raise SystemExit(f"file commands filter: masks on {masked}, not one "
+                         f"on {dev.type} for each of {len(blocks)} blocks")
+    low = sets["a_low"]
+    write_oracle_blocks(out("filter.oracle"), 23, h.flag, (
+        (an[lo:hi][~low[lo:hi]], None) for lo, hi in blocks))
+    holds("filter", out("filter") + ".unik", out("filter.oracle"))
+    for f in ("head", "sample", "filter"):
+        os.remove(out(f) + ".unik")
+        os.remove(out(f + ".oracle"))
+    block = an[:1 << 20]
+    x = torch.from_numpy(block.view(np.int64)).to(dev)
+    mask = {"blocks": len(blocks), "kept": int((~low).sum()),
+            "peak_bytes": peak - resident,
+            "mask_ms": round(cuda_ms(lambda: low_complexity_mask(x, 23), 20),
+                             5),
+            "block_mask_ms": round(cuda_ms(
+                lambda: block_mask(block, dev, 23, 3, 1, 15, 7), 20), 5)}
+    del x
+    say(f"file commands filter: mask of a {len(block)}-code block "
+        + json.dumps(mask))
+    if os.path.exists(stmp) and os.listdir(stmp):
+        raise SystemExit(f"file commands: {stmp} was left non-empty")
+    return {"seconds": seconds, "filter": mask}
 
 
 # ---------------------------------------------------------------------------
@@ -2630,17 +2974,22 @@ def main() -> int:
         t0 = time.perf_counter()
         launches = main_path(tmp, rng, report)
         t = [time.perf_counter()]
-        launches["k3"] = taxid_path(tmp, rng)
+        launches["k3"], t2 = taxid_path(tmp, rng)
         t.append(time.perf_counter())
         linear_hashed_path(tmp, rng)
         compat_path(tmp, rng)
         t.append(time.perf_counter())
-        sets_path(tmp, rng, report)
+        kept = sets_path(tmp, rng, report)
+        t.append(time.perf_counter())
+        file_commands = file_commands_path(tmp, kept, t2, dev)
+        del kept, t2
         t.append(time.perf_counter())
     say(f"path seconds: main {t[0] - t0:.3f}, count -T {t[1] - t[0]:.3f}, "
-        f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}")
+        f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}, "
+        f"file commands {t[4] - t[3]:.3f}")
     say(json.dumps({"sets": report.rows}))
     say(json.dumps({"admission": report.admission}))
+    say(json.dumps({"file_commands": file_commands}))
     launches["k2"] += report.launches["k2"]
     launches["k3"] += report.launches["k3"]
     launches.update(probe_path())

@@ -387,3 +387,59 @@ def test_union_past_the_budget_takes_the_host_engine(uniks, envs, tmp_path,
         outs[name] = (tmp_path / f"{name}.unik").read_bytes()
     assert seen == [None]
     assert len(outs["port"]) > 1000 and outs["port"] == outs["jax"]
+
+
+def test_every_jax_command_but_locate_and_map_is_registered():
+    """The port's parser takes every subcommand of the JAX CLI (and the
+    alias stats) but locate and map, which ROADMAP.md queue 1 group E
+    ports."""
+    from unikmer_tpu.cli import commands as jax_commands
+    from unikmer_tpu_torch.cli import commands
+    from unikmer_tpu_torch.cli.main import build_parser
+
+    sub = next(a for a in build_parser()._actions
+               if a.dest == "command").choices
+    assert set(sub) == (set(jax_commands.COMMANDS) - {"locate", "map"}
+                        | {"stats"})
+    assert commands.COMMANDS == [c for c in jax_commands.COMMANDS
+                                 if c not in ("locate", "map")]
+
+
+@pytest.mark.parametrize("check_update", [False, True])
+def test_version_matches_jax_cli(capsys, check_update):
+    flags = ["-u"] if check_update else []
+    assert jax_main(["version", *flags]) == 0
+    want = capsys.readouterr().out
+    assert port_main(["version", *flags]) == 0
+    got = capsys.readouterr().out
+    assert got == want.replace("unikmer-tpu v", "unikmer-tpu-torch v")
+    assert got.startswith("unikmer-tpu-torch v") and (
+        ("no network" in got) == check_update)
+
+
+@pytest.mark.parametrize("shell", ["bash", "zsh", "fish", "powershell"])
+def test_autocompletion_matches_jax_cli(tmp_path, caplog, monkeypatch,
+                                        shell):
+    """The JAX command's script and log line, over the port's commands
+    (the JAX list less locate and map) plus stats and uniqs, with the
+    port's program name; powershell exits as in the JAX command."""
+    from unikmer_tpu.cli.commands import autocompletion as jax_autocompletion
+    from unikmer_tpu_torch.cli.commands import COMMANDS
+
+    monkeypatch.setattr(jax_autocompletion, "COMMANDS", COMMANDS)
+    got = {}
+    for side, main in (("jax", jax_main), ("port", port_main)):
+        path = tmp_path / side / "c.sh"
+        caplog.clear()
+        rc = main(["autocompletion", "--type", shell, "--file", str(path)])
+        text = path.read_text() if path.exists() else ""
+        msg = caplog.records[-1].getMessage().replace(str(path), "F")
+        if side == "jax":
+            text, msg = (x.replace("unikmer-tpu", "unikmer-tpu-torch").replace(
+                "_unikmer_tpu_", "_unikmer_tpu_torch_") for x in (text, msg))
+        got[side] = (rc, text, msg)
+    assert got["port"] == got["jax"]
+    rc, text, _ = got["port"]
+    assert (rc == 0) == (shell != "powershell")
+    if rc == 0:
+        assert " stats" in text and " uniqs" in text and "locate" not in text

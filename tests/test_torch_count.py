@@ -313,6 +313,9 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "unikmer_tpu_torch.cli.main" in mods
+    assert {f"unikmer_tpu_torch.cli.commands.{c}" for c in (
+        "sort", "split", "merge", "tsplit", "head", "sample", "filter",
+        "rfilter", "version", "autocompletion")} <= set(mods)
     assert "unikmer_tpu_torch.ops.radix_sort" in mods
 
 

@@ -207,6 +207,95 @@ def test_taxonomy_from_numpy_round_trip(taxdbs):
     np.testing.assert_array_equal(got.has(TAXIDS), want.has(TAXIDS))
 
 
+@pytest.mark.parametrize("with_ranks", [True, False])
+def test_taxonomy_rank_matches_jax(with_ranks):
+    """rank (rfilter) answers as the JAX Taxonomy's, with and without
+    ranks loaded, for every node, 0 and taxids past the tree."""
+    want = jax_taxdump.load_taxonomy(TAXDUMP, with_rank=with_ranks)
+    got = taxdump.load_taxonomy(TAXDUMP, with_rank=with_ranks)
+    np.testing.assert_array_equal(got.rank_ids, want.rank_ids)
+    assert got.ranks == want.ranks
+    queries = [0, 1, 999999, 10 ** 9, *np.flatnonzero(want.depth >= 0)]
+    ranks = [got.rank(int(t)) for t in queries]
+    assert ranks == [want.rank(int(t)) for t in queries]
+    assert ("species" in ranks) == with_ranks
+
+
+@pytest.mark.parametrize("chunk_size", [0, 1, 700, 1000, 5000])
+@pytest.mark.parametrize("has_taxid", [False, True])
+def test_chunk_accumulator_matches_jax(chunk_size, has_taxid):
+    """The same chunks (exactly chunk_size codes, the rest at flush; one
+    chunk for 0), taxids zero-filled for a block without them."""
+    from unikmer_tpu.pipeline import extsort as jax_extsort
+
+    rng = np.random.default_rng(chunk_size)
+    blocks = [(rng.integers(0, 1 << 40, size=n, dtype=np.uint64),
+               None if i % 3 == 1 else rng.integers(1, 9, size=n,
+                                                    dtype=np.uint32))
+              for i, n in enumerate((900, 0, 1500, 300, 2100))]
+    got = []
+    for mod in (jax_extsort, extsort):
+        chunks = []
+        acc = mod.ChunkAccumulator(chunk_size, has_taxid,
+                                   lambda c, t: chunks.append((c, t)))
+        for codes, taxids in blocks:
+            acc.add(codes, taxids)
+        acc.flush()
+        acc.flush()
+        got.append(chunks)
+    assert len(got[0]) == len(got[1]) > 0
+    for (wc, wt), (gc, gt) in zip(*got):
+        np.testing.assert_array_equal(gc, wc)
+        assert (gt is None) == (wt is None) == (not has_taxid)
+        if has_taxid:
+            np.testing.assert_array_equal(gt, wt)
+    sizes = [len(c) for c, _ in got[1]]
+    if chunk_size:
+        assert all(n == chunk_size for n in sizes[:-1])
+        assert 0 < sizes[-1] <= chunk_size
+    assert sum(sizes) == 4800
+
+
+@pytest.mark.parametrize("src,has_taxid,number", [
+    ("plain", False, -1), ("taxids", True, 77), ("global", True, -1),
+    ("global", False, 5), ("hashed", False, -1)])
+def test_make_writer_like_matches_jax(tmp_path, src, has_taxid, number):
+    """The writer takes the reader's flag (+INCLUDE_TAXID with taxids),
+    its scale and its taxid width, and its global taxid unless taxids
+    are written: the same header and blocks as the JAX helper's."""
+    from unikmer_tpu.cli.commands import _common as jax_common
+    from unikmer_tpu_torch.cli.commands import _common as port_common
+
+    codes = sorted_codes(33, 3000)
+    kw = {"plain": dict(flag=unik.SORTED),
+          "taxids": dict(flag=unik.SORTED | unik.INCLUDE_TAXID,
+                         max_taxid=600000),
+          "global": dict(flag=unik.CANONICAL, global_taxid=562),
+          "hashed": dict(flag=unik.HASHED, scale=8, k=31)}[src]
+    path = str(tmp_path / "in.unik")
+    with unik.UnikWriter(path, **{"k": 23, **kw}, compress=False) as w:
+        w.write_codes(codes, np.full(len(codes), 511145, np.uint32)
+                      if src == "taxids" else None)
+    opt = type("Opt", (), dict(compress=False, compression_level=5,
+                               threads=2))()
+    out = []
+    for side, common in (("jax", jax_common), ("port", port_common)):
+        with common.open_reader(path) as r:
+            w = common.make_writer_like(r, str(tmp_path / side), opt,
+                                        has_taxid, number)
+            w.write_codes(codes, np.arange(len(codes), dtype=np.uint32)
+                          if has_taxid else None)
+            w.close()
+        out.append((tmp_path / f"{side}.unik").read_bytes())
+    assert out[0] == out[1]
+    with unik.UnikReader(str(tmp_path / "port.unik")) as r:
+        h = r.header
+        assert h.is_include_taxid == has_taxid and h.number == number
+        assert h.global_taxid == (562 if src == "global" and not has_taxid
+                                  else 0)
+        assert h.scale == (8 if src == "hashed" else 1)
+
+
 @pytest.mark.parametrize("mode", ["unique", "once", "repeated"])
 def test_extsort_spill_merges_like_in_ram(tmp_path, mode):
     rng = np.random.default_rng(7)
@@ -986,6 +1075,9 @@ def test_port_sources_import_nothing_of_unikmer_tpu():
             bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
                     for n in names if _bad_import(n)]
     assert len(_port_sources()) > 30
+    assert {REPO / "unikmer_tpu_torch/cli/commands" / f"{c}.py" for c in (
+        "sort", "split", "merge", "tsplit", "head", "sample", "filter",
+        "rfilter", "version", "autocompletion")} <= set(_port_sources())
     assert not bad, bad
 
 
@@ -1059,3 +1151,68 @@ def test_chip_smoke_round_trip_and_admission(tmp_path, cuda_calls_on_cpu):
     row = chip_smoke.admission_budgets(torch.device("cpu"))
     assert row["free_bytes"] is None and set(row["budgets"]) == set(
         row["slot_bytes"])
+
+
+def test_chip_smoke_file_commands_path_on_the_cpu(tmp_path, monkeypatch,
+                                                  cuda_calls_on_cpu):
+    """file_commands_path, at a small size on the CPU, over inputs made
+    as the count -T and sets paths make theirs: every output equals its
+    oracle (a cascade forced by -M 2), every call is timed and the
+    temporary directory is left empty."""
+    monkeypatch.setattr(chip_smoke, "TAX_NODES", 3000)
+    rng = np.random.default_rng(43)
+    tmp = str(tmp_path)
+    d = os.path.join(tmp, "taxdump")
+    os.mkdir(d)
+    chip_smoke.write_taxonomy(d, rng)
+    taxdb = taxdump.load_taxonomy(d)
+    known = np.flatnonzero(taxdb.depth >= 0)
+    # T2: records of taxids at every depth, species (7) among them
+    picks = np.concatenate([rng.choice(np.flatnonzero(taxdb.depth == dp), 2)
+                            for dp in (3, 6, 7, 7, 8, 10)])
+    fa = os.path.join(tmp, "T2.fa")
+    chip_smoke.write_taxid_fasta(fa, rng, np.repeat(picks, 2), 3000)
+    t2 = os.path.join(tmp, "T2")
+    assert port_main(["count", "-k", "23", "-K", "-s", "-C", "-T", "-r",
+                      chip_smoke.RE_TAXID, "--data-dir", d, fa, "-o",
+                      t2]) == 0
+    _, codes, taxids = chip_smoke.oracle_taxid_unik(
+        fa, t2 + ".oracle.unik", 23, True, "distinct", d)
+    assert chip_smoke.same_bytes(t2 + ".unik", t2 + ".oracle.unik")
+    for f in (fa, t2 + ".oracle.unik"):
+        os.remove(f)
+    # A, B and C with global taxids, as the sets path's CLI phase
+    gtax = [int(t) for t in rng.choice(known[known > 2], 3, replace=False)]
+    uniks, sets_np = [], []
+    for name, x, t in zip("ABC", chip_smoke.set_bases(rng, 40000), gtax):
+        path = os.path.join(tmp, f"set{name}.fa")
+        chip_smoke.write_one_record(path, name, x)
+        assert port_main(["count", "-k", "23", "-K", "-s", "-C", "-t",
+                          str(t), path, "-o", os.path.join(tmp, f"cli{name}")
+                          ]) == 0
+        os.remove(path)
+        uniks.append(os.path.join(tmp, f"cli{name}.unik"))
+        sets_np.append(chip_smoke.numpy_count(x, 23, True, "distinct"))
+    cli = chip_smoke.cli_setop_oracles(chip_smoke.merge_sets(sets_np), gtax,
+                                       taxdb)
+    an, bn = sets_np[:2]
+    ta = rng.choice(known[known > 0], len(an)).astype(np.uint32)
+    tb = rng.choice(known[known > 0], len(bn)).astype(np.uint32)
+    sets_in = {"uniks": uniks, "taxdump": d, "a": (an, ta), "b": (bn, tb),
+               "a_low": chip_smoke.low_complexity_oracle(an, 23),
+               "ab_taxids": chip_smoke.taxid_set_oracles(
+                   an, ta, bn, tb, taxdb)["A | B (taxids)"],
+               "union": cli["union"][0], "common": cli["common"][0]}
+    before = sorted(os.listdir(tmp))
+    got = chip_smoke.file_commands_path(
+        tmp, sets_in, {"unik": t2 + ".unik", "codes": codes,
+                       "taxids": taxids}, torch.device("cpu"), chunk="20K",
+        max_open=2, head_n=5000)
+    assert set(got["seconds"]) == {
+        "sort -u -I", "sort -u -I -m 20K -M 2", "split -u -I -m 20K",
+        "merge -D -u -I -M 2", "sort -d -I", "sort -u (per-code taxids)",
+        "tsplit",
+        "rfilter -E species", "rfilter -L genus", "head -n 5000",
+        "sample -s 3 -w 7", "filter"}
+    assert got["filter"]["kept"] < len(an)
+    assert sorted(os.listdir(tmp)) == sorted(before + ["fc_tmp"])

@@ -140,23 +140,41 @@ def _outputs(d: Path) -> dict:
     got = {}
     for p in sorted(d.rglob("*")):
         if p.is_file():
-            data = p.read_bytes()
-            got[str(p.relative_to(d))] = (gzip.decompress(data)
-                                          if data[:2] == b"\x1f\x8b"
-                                          else data)
+            got[str(p.relative_to(d))] = _inflated(p.read_bytes())
     return got
 
 
-def run_both(argv, inputs, tmp_path, caplog, capsysbinary, port_env=()):
+def _inflated(data: bytes) -> bytes:
+    return gzip.decompress(data) if _is_gzip(data) else data
+
+
+def _is_gzip(data: bytes) -> bool:
+    return data[:2] == b"\x1f\x8b"
+
+
+def _gzipped(stdout: bytes, d: Path) -> tuple:
+    """Whether stdout is gzip, and the files under d that are: a side
+    must compress what the other does, whatever its deflate's bytes."""
+    return _is_gzip(stdout), sorted(
+        str(p.relative_to(d)) for p in d.rglob("*")
+        if p.is_file() and _is_gzip(p.read_bytes()[:2]))
+
+
+def run_both(argv, inputs, tmp_path, caplog, capsysbinary, port_env=(),
+             prepare=None):
     """Each CLI on the same arguments (names looked up in ``inputs``;
-    "{out}" a path in an empty directory of each side), the port under
-    the environment ``port_env`` adds: (exit code, log lines, stdout
-    bytes, output files) a side, which must be equal."""
-    got = {}
+    "{out}" a path in a directory of each side, empty but for what
+    ``prepare(directory)`` puts there), the port under the environment
+    ``port_env`` adds: (exit code, log lines with the side's directory
+    read as "{out}", stdout bytes, output files; gzip inflated) a side,
+    which must be equal, as must what each side compressed."""
+    got, gzipped = {}, {}
     for name, main, logger in (("jax", jax_main, "unikmer_tpu"),
                                ("port", port_main, "unikmer_tpu_torch")):
         d = tmp_path / name
         d.mkdir()
+        if prepare is not None:
+            prepare(d)
         args = [str(d / a[len("{out}"):].lstrip("/")) if a.startswith("{out}")
                 else inputs.get(a, a) for a in argv]
         caplog.clear()
@@ -165,9 +183,13 @@ def run_both(argv, inputs, tmp_path, caplog, capsysbinary, port_env=()):
             for key, val in (port_env if name == "port" else ()):
                 mp.setenv(key, val)
             rc = main(args)
-        got[name] = (rc, _records(caplog, logger),
-                     capsysbinary.readouterr().out, _outputs(d))
+        stdout = capsysbinary.readouterr().out
+        got[name] = (rc, [(level, msg.replace(str(d), "{out}"))
+                          for level, msg in _records(caplog, logger)],
+                     _inflated(stdout), _outputs(d))
+        gzipped[name] = _gzipped(stdout, d)
     assert got["port"] == got["jax"]
+    assert gzipped["port"] == gzipped["jax"]
     return got["jax"]
 
 

@@ -8,11 +8,11 @@ import sys
 
 import numpy as np
 
-from ...io.unik import UnikReader
+from ...io.unik import INCLUDE_TAXID, UnikReader, UnikWriter
 from ...utils.log import die, log
 from ..opts import (
-    MESH_NOT_PORTED, add_global_flags, check_file_suffix, get_file_list,
-    get_options,
+    MESH_NOT_PORTED, add_global_flags, check_file_suffix, ensure_unik_suffix,
+    get_file_list, get_options, out_binary_stream,
 )
 
 
@@ -77,6 +77,31 @@ def effective_taxids(reader: UnikReader, n: int, taxids, ignore_taxid: bool):
     if h.has_global_taxid:
         return np.full(n, h.global_taxid, np.uint32)
     return None
+
+
+def make_writer_like(
+    reader: UnikReader, out_path: str, opt, has_taxid: bool, number: int = -1
+) -> UnikWriter:
+    """Writer whose flag copies the reader's (+INCLUDE_TAXID when the
+    inputs carry taxid info), as head.go and sample.go write."""
+    h = reader.header
+    flag = h.flag
+    if has_taxid:
+        flag |= INCLUDE_TAXID
+    max_taxid = (1 << (8 * h.taxid_bytes)) - 1 if h.taxid_bytes else 0
+    out, _ = out_binary_stream(ensure_unik_suffix(out_path))
+    return UnikWriter(
+        out,
+        k=h.k,
+        flag=flag,
+        number=number,
+        global_taxid=0 if has_taxid else h.global_taxid,
+        scale=h.scale,
+        max_taxid=max_taxid,
+        compress=opt.compress,
+        compression_level=opt.compression_level,
+        threads=opt.threads,
+    )
 
 
 def log_saved(opt, n: int, out_file: str) -> None:

@@ -1,14 +1,15 @@
-"""unikmer-tpu-torch CLI: the ``count``, ``info`` (``stats``), ``num``,
-``view``, ``dump``, ``encode``, ``decode``, ``concat``, ``inter``,
-``union``, ``common``, ``diff`` and ``grep`` subcommands on the
-PyTorch/CUDA port.
+"""unikmer-tpu-torch CLI: the unikmer-compatible subcommands on the
+PyTorch/CUDA port, all of the JAX CLI's but ``locate`` and ``map``
+(ROADMAP.md queue 1 group E): counting, information, format
+conversion, set operations, split and merge, subsets and the misc
+commands.
 
 Same global flags (cli/opts.py, the port's copy of unikmer_tpu/cli/opts.py)
-and exit-code conventions as ``python -m unikmer_tpu.cli.main``; the
-other subcommands are not ported yet (ROADMAP.md queue 1 item 12).
+and exit-code conventions as ``python -m unikmer_tpu.cli.main``.
 
     python -m unikmer_tpu_torch.cli.main count -k 23 -K -s in.fa -o a
     python -m unikmer_tpu_torch.cli.main union -s a.unik b.unik -o u
+    python -m unikmer_tpu_torch.cli.main sort -u -m 16M a.unik -o s
     python -m unikmer_tpu_torch.cli.main view a.unik | head
 """
 
@@ -20,10 +21,7 @@ import sys
 import zlib
 
 from .. import REFERENCE_VERSION, __version__
-from .commands import (
-    common, concat, count, decode, diff, dump, encode, grep, info, inter, num,
-    union, view,
-)
+from . import commands
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,18 +29,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="unikmer-tpu-torch",
         description=(
             "unikmer-tpu-torch - the k-mer toolkit on PyTorch and CUDA "
-            "(unikmer-compatible count, format, lookup and set "
-            "operations)\n\n"
+            "(unikmer-compatible)\n\n"
             f"Version: v{__version__} (reference parity: unikmer "
             f"v{REFERENCE_VERSION})"
         ),
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = p.add_subparsers(dest="command", metavar="command")
-    # the JAX CLI's order (unikmer_tpu/cli/commands/__init__.py)
-    for cmd in (count, info, num, view, dump, encode, decode, concat, inter,
-                union, common, diff, grep):
-        cmd.register(sub)
+    for name in commands.COMMANDS:
+        commands.register(name, sub)
     return p
 
 

@@ -1,8 +1,9 @@
 """External (beyond-RAM) sort/merge over `.unik` chunk files (the port's
-copy of the parts of unikmer_tpu/pipeline/extsort.py that the count
-spill uses).
+copy of unikmer_tpu/pipeline/extsort.py): the count and grep spills and
+``sort -m``, ``split`` and ``merge``.
 
-Each chunk is sorted, collapsed within itself and dumped to
+Inputs are cut into chunks of exactly ``-m`` codes (ChunkAccumulator);
+each chunk is sorted, collapsed within itself and dumped to
 ``chunk_NNN.unik``; the chunk files are then merged as a bulk
 tournament: every open chunk keeps a buffered block, each round takes
 everything <= the smallest buffer tail among the open readers, collapses
@@ -34,6 +35,52 @@ from ..utils.log import log
 
 def chunk_file_name(out_dir: str, i: int) -> str:
     return os.path.join(out_dir, f"chunk_{i:03d}{unik.EXT}")
+
+
+class ChunkAccumulator:
+    """Accumulate (codes, taxids) arrays and emit exact chunk_size pieces
+    (the reference dumps at exactly -m elements, sort.go:241-297); with
+    taxids on, a block without them contributes zeros."""
+
+    def __init__(self, chunk_size: int, has_taxid: bool, on_chunk):
+        self.chunk_size = chunk_size
+        self.has_taxid = has_taxid
+        self.on_chunk = on_chunk
+        self._c: list[np.ndarray] = []
+        self._t: list[np.ndarray] = []
+        self._n = 0
+
+    def add(self, codes: np.ndarray, taxids: np.ndarray | None) -> None:
+        off = 0
+        while True:
+            room = self.chunk_size - self._n if self.chunk_size else len(codes) - off
+            take = min(len(codes) - off, room) if self.chunk_size else len(codes) - off
+            if take > 0:
+                self._c.append(codes[off : off + take])
+                if self.has_taxid:
+                    t = (
+                        taxids[off : off + take]
+                        if taxids is not None
+                        else np.zeros(take, np.uint32)
+                    )
+                    self._t.append(t)
+                self._n += take
+                off += take
+            if self.chunk_size and self._n >= self.chunk_size:
+                self._emit()
+            if off >= len(codes):
+                return
+
+    def _emit(self) -> None:
+        if self._n == 0:
+            return
+        codes = np.concatenate(self._c)
+        taxids = np.concatenate(self._t) if self.has_taxid else None
+        self._c, self._t, self._n = [], [], 0
+        self.on_chunk(codes, taxids)
+
+    def flush(self) -> None:
+        self._emit()
 
 
 def collapse_batch(codes, taxids, mode, taxdb, final_round: bool):

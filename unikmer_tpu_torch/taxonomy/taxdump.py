@@ -1,6 +1,6 @@
 """NCBI taxonomy on the host (the port's copy of the parts of
-unikmer_tpu/taxonomy/taxdump.py that ``count -T`` uses): nodes.dmp and
-merged.dmp loading and vectorized LCA.
+unikmer_tpu/taxonomy/taxdump.py that its commands use): nodes.dmp and
+merged.dmp loading, ranks (rfilter) and vectorized LCA.
 
 The tree is flattened into dense numpy arrays (parent[], depth[]) so
 LCA runs on whole arrays at once: lift the deeper side to equal depth,
@@ -49,6 +49,13 @@ class Taxonomy:
         out = np.zeros(t.shape, bool)
         out[ok] = self.depth[t[ok]] >= 0
         return out
+
+    def rank(self, taxid: int) -> str:
+        """The rank name of ``taxid``; "" when absent or loaded without
+        ranks."""
+        if 0 < taxid <= self.max_taxid and self.rank_ids[taxid] >= 0:
+            return self.ranks[self.rank_ids[taxid]]
+        return ""
 
     def lca_pairs(self, a, b) -> np.ndarray:
         """Vectorized LCA over parallel arrays (0 = identity; unknown -> 0)."""
