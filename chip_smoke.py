@@ -6,8 +6,8 @@ Builds the hand-written kernels (K1 encode, H1 ntHash encode, S1 sketch
 window select, K2 radix sort, K3 key+value radix sort, and the four P1/P2
 probe kernels) from unikmer_tpu_torch/csrc, holds each against its plain
 PyTorch version on the card (exact equality), then drives the port's
-paths (count and the set operations) and holds their results against
-oracles:
+paths (count, the set operations, the file and genome commands) and
+holds their results against oracles:
 
   count     ``count -k 23 -K -s -C`` over a 134 Mbp FASTA of 4 records,
             and over the same FASTA bench.py's two ntHash configurations,
@@ -69,6 +69,16 @@ oracles:
             1048576``, ``sample -s 3 -w 7`` and ``filter`` (its mask on
             the card) of A, each held to numpy (``file_commands_path``)
             and timed in the ``file_commands`` line;
+  genome    over the sets path's record A: ``locate -g A`` of 2^20 codes
+            of ``diff A B`` (linear, ``--circular``, and from two files
+            that share codes; and once with UNIKMER_TPU_MAX_ELEMS below
+            A's windows, the index sorted on the host), ``map -m 200``
+            of all of ``diff A B`` over A (``-x 5 -X 2``, ``-M``, ``-a``)
+            and over 1,024 records cut from A (without and with ``-W``),
+            ``count -k 31 -K -H`` of A and ``view -g A`` of 2^20 of its
+            hashes and 16 that A lacks; every output held to numpy's
+            bytes (``genome_path``), each call's seconds, index stages,
+            peak, windows and route in the ``genome`` line;
   probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
             of scripts/exp_pallas_dma*.py, each kernel held to its plain
             version inside the entry point.
@@ -2130,12 +2140,14 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> dict:
                      "-o", out], {"k1": True, "k2": True, "h1": False,
                                   "s1": False})
         uniks.append(out + ".unik")
-        os.remove(fa)
+        if name != "A":  # the genome path reads A
+            os.remove(fa)
     t0 = time.perf_counter()
     with numpy_host():
         cli_oracle = cli_setop_oracles(merged, gtax, taxdb)
     kept = {"uniks": uniks, "taxdump": d, "a": (an, ta), "b": (bn, tb),
-            "a_low": low, "ab_taxids": oracle["A | B (taxids)"]}
+            "a_low": low, "ab_taxids": oracle["A | B (taxids)"],
+            "a_fa": fas[0]}
     del cn, oracle, merged
     written = {}
     for key, (codes, taxids) in cli_oracle.items():
@@ -2531,6 +2543,375 @@ def file_commands_path(tmp, sets: dict, t2: dict, dev, chunk: str = "16M",
     if os.path.exists(stmp) and os.listdir(stmp):
         raise SystemExit(f"file commands: {stmp} was left non-empty")
     return {"seconds": seconds, "filter": mask}
+
+
+# ---------------------------------------------------------------------------
+# genome commands: locate, map and view -g over the sets path's record A
+
+GENOME_QUERY = 1 << 20  # codes of locate's and view -g's query files
+MAP_RECORDS = 1024  # the multi-record genome cut from A
+MAP_RECORD_BASES = 24576
+ORACLE_LUT = np.full(256, 4, np.uint8)  # ACGT -> 0-3, any other byte 4
+ORACLE_LUT[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+
+
+def record_sequence(path: str) -> bytes:
+    """The sequence of a FASTA of one record on one line
+    (write_one_record's)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    return raw[raw.index(b"\n") + 1:].rstrip(b"\n")
+
+
+def windows_oracle(seq: bytes, k: int, hashed: bool = False):
+    """(codes, positions) of the valid windows of seq: canonical 2-bit
+    codes (numpy_windows) or ntHash v1 (nthash_oracle)."""
+    bases = ORACLE_LUT[np.frombuffer(seq, np.uint8)]
+    return (nthash_oracle if hashed else numpy_windows)(bases, k, True)
+
+
+def dense_oracle(seqs, k: int) -> list:
+    """map's windows of each record: each start's code, SENT where the
+    window is invalid (the JAX package's ``_seq_codes``), from one pass
+    over the records joined by invalid bases."""
+    joined = b"\n".join(seqs) + b"\n"
+    codes, pos = windows_oracle(joined, k)
+    dense = np.full(len(joined), SENT, np.uint64)
+    dense[pos] = codes
+    out, at = [], 0
+    for seq in seqs:
+        out.append(dense[at:at + len(seq) - k + 1])
+        at += len(seq) + 1
+    return out
+
+
+def member_any_np(ref: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """member_np's hits for queries in any order, searched in sorted
+    order (np.searchsorted of 3.4 x 10^7 queries in random order spent
+    most of a minute on the card's host in cache misses)."""
+    order = np.argsort(q)
+    hit = np.empty(len(q), bool)
+    hit[order] = member_np(ref, q[order])[1]
+    return hit
+
+
+def bed6_oracle(codes, pos, seq: bytes, rid: bytes, k: int,
+                printed: np.ndarray) -> bytes:
+    """locate's lines: for each code of ``printed`` in turn, every
+    position of the sorted (codes, pos) index that holds it."""
+    s = np.searchsorted(codes, printed, "left")
+    n = np.searchsorted(codes, printed, "right") - s
+    sel = np.repeat(s, n) + (np.arange(int(n.sum()))
+                             - np.repeat(np.cumsum(n) - n, n))
+    return b"".join(b"%s\t%d\t%d\t%s\t0\t.\n" % (rid, p, p + k, seq[p:p + k])
+                    for p in pos[sel].tolist())
+
+
+def regions_oracle(rid: bytes, seq: bytes, k: int, match: np.ndarray,
+                   term: np.ndarray, opt: dict) -> bytes:
+    """map's output for one record from its windows' match and
+    terminator masks (map.go as unikmer_tpu/cli/commands/map.py reads
+    it): a region grows over matched windows, across at most opt["X"]
+    gaps of at most opt["x"] unmatched windows, ends at its last match,
+    is cut by a terminator past that match and is kept from opt["m"]
+    bases."""
+    out = []
+
+    def emit(start, last):
+        if last - start + k < opt["m"]:
+            return
+        if opt["a"]:
+            sub = seq[start:last + k]
+            out.append(b">%s:%d-%d\n" % (rid, start + 1, last + k)
+                       + b"\n".join(sub[i:i + LINE]
+                                    for i in range(0, len(sub), LINE))
+                       + b"\n")
+        else:
+            out.append(b"%s\t%d\t%d\n" % (rid, start, last + k))
+
+    eff = np.concatenate([[False], match & ~term, [False]])
+    run_s = np.flatnonzero(eff[1:] & ~eff[:-1]).tolist()
+    run_e = (np.flatnonzero(eff[:-1] & ~eff[1:]) - 1).tolist()
+    terms = np.flatnonzero(term).tolist()
+    start = last = -1
+    gaps = ti = 0
+    for s, e in zip(run_s, run_e):
+        while ti < len(terms) and terms[ti] < s:
+            if start >= 0 and terms[ti] > last:
+                emit(start, last)
+                start = -1
+            ti += 1
+        if start < 0:
+            start, last, gaps = s, e, 0
+        elif s == last + 1:
+            last = e
+        elif s - last - 1 <= opt["x"] and gaps < opt["X"]:
+            gaps, last = gaps + 1, e
+        else:
+            emit(start, last)
+            start, last, gaps = s, e, 0
+    if start >= 0:
+        emit(start, last)
+    return b"".join(out)
+
+
+def map_oracle(records, k: int, query: np.ndarray, opts) -> list:
+    """map's output over one genome file of linear records for each
+    option set of ``opts``; ``records`` are (id, sequence, dense_oracle
+    windows): a window matches when its code is in ``query``; unless
+    opt["M"] a match is a terminator when its code matches twice or more
+    in its unit, the record or (opt["W"]) the file."""
+    dense = np.concatenate([d for _, _, d in records])
+    cuts = np.cumsum([len(d) for _, _, d in records])[:-1]
+    match = member_any_np(query, dense)
+
+    def multi_codes(hits):
+        u, c = np.unique(hits, return_counts=True)
+        return u[c >= 2]
+
+    terms = {}
+    out = []
+    for opt in opts:
+        key = "M" if opt["M"] else opt["W"]
+        if key == "M":
+            terms[key] = np.zeros(len(dense), bool)
+        elif key not in terms and opt["W"]:
+            terms[key] = member_any_np(multi_codes(dense[match]),
+                                       dense) & match
+        elif key not in terms:
+            terms[key] = np.concatenate([
+                member_np(multi_codes(d[m]), d)[1] & m
+                for d, m in zip(np.split(dense, cuts),
+                                np.split(match, cuts))])
+        out.append(b"".join(
+            regions_oracle(rid, seq, k, m, t, opt) for (rid, seq, _), m, t
+            in zip(records, np.split(match, cuts),
+                   np.split(terms[key], cuts))))
+    return out
+
+
+def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
+                m_records: int = MAP_RECORDS,
+                m_bases: int = MAP_RECORD_BASES) -> dict:
+    """The genome commands over the sets path's record A (its FASTA,
+    ``sets["a_fa"]``, and the codes of A and B), each run through the
+    CLI and held to its oracle's bytes:
+
+      locate -g A q1          q1: n_query codes of diff A B and those of
+      locate -g A --circular q1   the k-1 windows across A's end
+      locate -g A q1 q2       q2: half of q1's codes, others of diff A B
+                              and codes of B alone (missed: no line), so
+                              a code is printed once
+      locate, forced host     UNIKMER_TPU_MAX_ELEMS below A's windows:
+                              the index sorted on the host (no K3)
+      map -m 200 -g A diff    the regions of A that B lacks (diff: all of
+                              diff A B), with -x 5 -X 2, with -M, with -a
+      map -m 200 -g M diff    M: m_records records of m_bases cut from
+                              the end of A, each sharing a third of its
+                              bases with the next (-W's terminators) and
+                              with a repeat inside (terminators without
+                              -W); without and with -W
+      count -k 31 -K -H A     held to the ntHash oracle
+      view -g A hq            hq: n_query of its hashes and 16 that A
+                              lacks (the per-row path and its warnings)
+
+    The oracles restate models/locate.py and the map command in numpy
+    over this script's windows: one stable argsort for the index (the
+    circular one, whose entries before position len - k + 1 make the
+    linear one), np.searchsorted and np.unique.  Each call runs on
+    ``dev`` with its K1/H1/K2/K3 launches counted and its stages
+    recorded; the forced-host call's launches stay out of the returned
+    ones.  Returns {"launches": ..., "row": the genome line}."""
+    from unikmer_tpu_torch.cli.commands import locate as locate_cmd
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.models import locate as locate_model
+
+    on_card = dev.type == "cuda"
+    k, rid = 23, b"A"
+    a_fa = sets["a_fa"]
+    an, bn = sets["a"][0], sets["b"][0]
+    calls, oracle_s = {}, {}
+    launches = {"k1": 0, "h1": 0, "k2": 0, "k3": 0}
+    built = []
+    real_build = locate_model.build_genome_index
+
+    def spy(*a, **kw):
+        idx = real_build(*a, **kw)
+        built.append(idx)
+        return idx
+
+    def path(name):
+        return os.path.join(tmp, f"gn_{name}")
+
+    def call(name, argv, need, want: bytes, windows=None, out=None,
+             count=True):
+        """One CLI call, counted, its output file held to ``want``."""
+        need = {key: must and on_card for key, must in need.items()}
+        built.clear()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        secs, got, st = counted_cli(argv, need)
+        row = {"s": round(secs, 4),
+               "peak_bytes": torch.cuda.max_memory_allocated() - resident,
+               "stages": {key: round(v, 4) for key, v in st.seconds.items()},
+               "launches": {key: v for key, v in got.items() if v}}
+        if built:
+            row.update(windows=len(built[0].seq_idx), route=built[0].route)
+        elif windows is not None:
+            row["windows"] = windows
+        if count:
+            for key in launches:
+                launches[key] += got[key]
+        out = out or argv[argv.index("-o") + 1]
+        with open(out, "rb") as f:
+            body = f.read()
+        os.remove(out)
+        if body != want:
+            raise SystemExit(f"genome {name}: {len(body)} bytes differ from "
+                             f"the oracle's {len(want)}")
+        calls[name] = row
+        say(f"genome {name}: {len(want)} bytes equal to the oracle's "
+            + json.dumps(row))
+
+    t0 = time.perf_counter()
+    seq = record_sequence(a_fa)
+    length = len(seq)
+    circ = seq + seq[:k - 1]  # the k-1 windows across the end
+    codes, pos = windows_oracle(circ, k)
+    order = np.argsort(codes, kind="stable")
+    icodes, ipos = codes[order], pos[order]
+    linear = ipos <= length - k
+    lcodes, lpos = icodes[linear], ipos[linear]
+    dense = np.full(length - k + 1, SENT, np.uint64)
+    keep = pos <= length - k
+    dense[pos[keep]] = codes[keep]
+    wrap = codes[~keep]  # found by the circular index alone
+    del codes, pos, order, linear, keep
+    diff = an[~member_np(bn, an)[1]]
+    q1 = np.unique(np.concatenate([
+        rng.choice(diff, n_query - len(wrap), replace=False), wrap]))
+    b_only = bn[~member_np(an, bn)[1]]
+    q2 = np.unique(np.concatenate([
+        q1[::2], rng.choice(diff, n_query // 4, replace=False),
+        rng.choice(b_only, n_query // 16, replace=False)]))
+    flag = unik.SORTED | unik.CANONICAL
+    for name, x in (("q1", q1), ("q2", q2), ("diff", diff)):
+        write_oracle(path(name) + ".unik", k, flag, x)
+    oracle_s["index and inputs"] = round(time.perf_counter() - t0, 3)
+
+    t0 = time.perf_counter()
+    want = bed6_oracle(lcodes, lpos, seq, rid, k, q1)
+    wants = {"locate": want,
+             "locate --circular": bed6_oracle(icodes, ipos, circ, rid, k,
+                                              q1),
+             "locate q1 q2": want + bed6_oracle(
+                 lcodes, lpos, seq, rid, k, q2[~member_np(q1, q2)[1]])}
+    del icodes, ipos, lcodes, lpos
+    oracle_s["locate"] = round(time.perf_counter() - t0, 3)
+    loc_need = {"k1": True, "h1": False, "k2": False, "k3": True}
+    q1u, q2u = path("q1") + ".unik", path("q2") + ".unik"
+    locate_model.build_genome_index = locate_cmd.build_genome_index = spy
+    try:
+        for name, argv in (
+                ("locate", ["-g", a_fa, q1u]),
+                ("locate --circular", ["-g", a_fa, "--circular", q1u]),
+                ("locate q1 q2", ["-g", a_fa, q1u, q2u])):
+            call(name, ["locate", *argv, "-o", path("out")], loc_need,
+                 wants[name])
+        with max_elems(length // 2):
+            call("locate (forced host)", ["locate", "-g", a_fa, q1u, "-o",
+                                          path("out")],
+                 {"k1": True, "k2": False, "k3": False}, want, count=False)
+        routes = [calls[n].get("route") for n in ("locate",
+                                                  "locate (forced host)")]
+        if routes != ["device", "host"]:
+            raise SystemExit(f"genome locate: routes {routes}, not device "
+                             f"then host")
+        del want, wants
+
+        # map over A, then over M
+        t0 = time.perf_counter()
+        base = dict(m=200, x=0, X=0, M=False, W=False, a=False)
+        a_rec = [(rid, seq, dense)]
+        wants = dict(zip(("-x 5 -X 2", "-M", "-a"), map_oracle(
+            a_rec, k, diff, ({**base, "x": 5, "X": 2}, {**base, "M": True},
+                             {**base, "a": True}))))
+        del a_rec, dense
+        # neighbours share a third of their bases; the records end where
+        # A ends, in the half B lacks
+        stride = 2 * m_bases // 3
+        off = max(length - (m_records - 1) * stride - m_bases, 0)
+        m_recs = []
+        for i in range(m_records):
+            r = bytearray(seq[off + i * stride:off + i * stride + m_bases])
+            r[-400:-100] = r[100:400]  # a repeat inside the record
+            m_recs.append((b"m%d" % i, bytes(r)))
+        m_fa = path("M.fa")
+        with open(m_fa, "wb") as f:
+            f.writelines(b">%s\n%s\n" % rec for rec in m_recs)
+        m_dense = list(zip(*zip(*m_recs), dense_oracle(
+            [s for _, s in m_recs], k)))
+        wants["M"], wants["M -W"] = map_oracle(m_dense, k, diff, (
+            base, {**base, "W": True}))
+        del m_dense, m_recs
+        if wants["M"].count(b"\n") < 2 or wants["M"] == wants["M -W"]:
+            raise SystemExit("genome map M: no region, or -W cut none")
+        oracle_s["map"] = round(time.perf_counter() - t0, 3)
+        map_need = {"k1": True, "h1": False, "k2": True, "k3": True}
+        for name, flags, genome, windows in (
+                ("-x 5 -X 2", ["-x", "5", "-X", "2"], a_fa, length),
+                ("-M", ["-M"], a_fa, length), ("-a", ["-a"], a_fa, length),
+                ("M", [], m_fa, m_records * m_bases),
+                ("M -W", ["-W"], m_fa, m_records * m_bases)):
+            call(f"map {name}", ["map", "-m", "200", *flags, "-g", genome,
+                                 path("diff") + ".unik", "-o", path("out")],
+                 {**map_need, "k3": name != "-M"}, wants[name], windows)
+        os.remove(m_fa)
+        del wants
+
+        # count -k 31 -K -H of A, then view -g of its hashes
+        t0 = time.perf_counter()
+        hcodes, hpos = windows_oracle(seq, 31, hashed=True)
+        hu, first = np.unique(hcodes, return_index=True)
+        first = hpos[first]
+        del hcodes, hpos
+        hflag = flag | unik.HASHED
+        with numpy_host():
+            write_oracle(path("h31.oracle"), 31, hflag, hu)
+        with open(path("h31.oracle"), "rb") as f:
+            want = f.read()
+        os.remove(path("h31.oracle"))
+        lacks = np.random.default_rng(SEED).integers(
+            0, 1 << 64, size=64, dtype=np.uint64)
+        lacks = lacks[~member_np(hu, lacks)[1]][:16]
+        pick = np.sort(rng.choice(len(hu), n_query, replace=False))
+        hq = np.unique(np.concatenate([hu[pick], lacks]))
+        write_oracle(path("hq") + ".unik", 31, hflag, hq)
+        at, found = member_np(hu, hq)
+        where = first[at].tolist()
+        want_v = b"".join(seq[p:p + 31] + b"\n" if ok else b"%d\n" % c
+                          for p, ok, c in zip(where, found.tolist(),
+                                              hq.tolist()))
+        del hu, first
+        oracle_s["count -H and view -g"] = round(time.perf_counter() - t0, 3)
+        call("count -k 31 -K -H", ["count", "-k", "31", "-K", "-H", "-s",
+                                   "-C", a_fa, "-o", path("h31")],
+             {"k1": False, "h1": True, "k2": True, "k3": False}, want,
+             windows=length, out=path("h31") + ".unik")
+        call("view -g", ["view", "-g", a_fa, path("hq") + ".unik", "-o",
+                         path("out")],
+             {"k1": False, "h1": True, "k2": False, "k3": True}, want_v)
+    finally:
+        locate_model.build_genome_index = real_build
+        locate_cmd.build_genome_index = real_build
+    for name in ("q1", "q2", "diff", "hq"):
+        os.remove(path(name) + ".unik")
+    os.remove(a_fa)
+    row = {"calls": calls, "oracle_s": oracle_s, "query_codes": n_query,
+           "diff_codes": len(diff), "M": [m_records, m_bases]}
+    say(json.dumps({"genome": row}))
+    return {"launches": launches, "row": row}
 
 
 # ---------------------------------------------------------------------------
@@ -2982,16 +3363,21 @@ def main() -> int:
         kept = sets_path(tmp, rng, report)
         t.append(time.perf_counter())
         file_commands = file_commands_path(tmp, kept, t2, dev)
-        del kept, t2
+        del t2
+        t.append(time.perf_counter())
+        genome = genome_path(tmp, rng, kept, dev)
+        del kept
         t.append(time.perf_counter())
     say(f"path seconds: main {t[0] - t0:.3f}, count -T {t[1] - t[0]:.3f}, "
         f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}, "
-        f"file commands {t[4] - t[3]:.3f}")
+        f"file commands {t[4] - t[3]:.3f}, genome {t[5] - t[4]:.3f}")
     say(json.dumps({"sets": report.rows}))
     say(json.dumps({"admission": report.admission}))
     say(json.dumps({"file_commands": file_commands}))
     launches["k2"] += report.launches["k2"]
     launches["k3"] += report.launches["k3"]
+    for key, n in genome["launches"].items():
+        launches[key] += n
     launches.update(probe_path())
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -445,7 +445,8 @@ def test_from_fasta_past_the_budget_takes_the_host_merge(tmp_path,
 ROUTES = ["from_fasta", "from_codes", "union", "union_one_sided",
           "union_taxids", "intersect", "intersect_one_sided",
           "intersect_taxids", "subtract", "subtract_taxids", "union_all",
-          "common", "union_taxids_table", "union_taxids_paths", "membership"]
+          "common", "union_taxids_table", "union_taxids_paths", "membership",
+          "genome_index"]
 
 
 @pytest.mark.parametrize("route", ROUTES)

@@ -390,19 +390,19 @@ def test_union_past_the_budget_takes_the_host_engine(uniks, envs, tmp_path,
 
 
 def test_every_jax_command_but_locate_and_map_is_registered():
-    """The port's parser takes every subcommand of the JAX CLI (and the
-    alias stats) but locate and map, which ROADMAP.md queue 1 group E
-    ports."""
+    """The port's parser takes every subcommand of the JAX CLI, locate
+    and map among them, and the aliases stats and uniqs, in the JAX
+    order.  (The name is the test's from before locate and map were
+    ported.)"""
     from unikmer_tpu.cli import commands as jax_commands
     from unikmer_tpu_torch.cli import commands
     from unikmer_tpu_torch.cli.main import build_parser
 
     sub = next(a for a in build_parser()._actions
                if a.dest == "command").choices
-    assert set(sub) == (set(jax_commands.COMMANDS) - {"locate", "map"}
-                        | {"stats"})
-    assert commands.COMMANDS == [c for c in jax_commands.COMMANDS
-                                 if c not in ("locate", "map")]
+    assert set(sub) == set(jax_commands.COMMANDS) | {"stats", "uniqs"}
+    assert commands.COMMANDS == jax_commands.COMMANDS
+    assert len(commands.COMMANDS) == 25
 
 
 @pytest.mark.parametrize("check_update", [False, True])
@@ -421,8 +421,8 @@ def test_version_matches_jax_cli(capsys, check_update):
 def test_autocompletion_matches_jax_cli(tmp_path, caplog, monkeypatch,
                                         shell):
     """The JAX command's script and log line, over the port's commands
-    (the JAX list less locate and map) plus stats and uniqs, with the
-    port's program name; powershell exits as in the JAX command."""
+    (the JAX list) plus stats and uniqs, with the port's program name;
+    powershell exits as in the JAX command."""
     from unikmer_tpu.cli.commands import autocompletion as jax_autocompletion
     from unikmer_tpu_torch.cli.commands import COMMANDS
 
@@ -442,4 +442,4 @@ def test_autocompletion_matches_jax_cli(tmp_path, caplog, monkeypatch,
     rc, text, _ = got["port"]
     assert (rc == 0) == (shell != "powershell")
     if rc == 0:
-        assert " stats" in text and " uniqs" in text and "locate" not in text
+        assert " stats" in text and " uniqs" in text and " locate" in text

@@ -227,15 +227,20 @@ def test_view_matches_jax_cli(inputs, host, tmp_path, caplog, capsysbinary,
     assert rc != 0 or len(stdout) + sum(map(len, files.values())) > 1000
 
 
-def test_view_genome_exits_naming_roadmap(inputs, tmp_path, caplog):
-    """-g over hashed canonical k-mers needs models/locate.py: the port
-    exits naming ROADMAP.md queue 1 group E, and writes nothing."""
-    out = tmp_path / "v.txt"
-    rc = port_main(["view", "-g", inputs["k21"], inputs["h31"], "-o",
-                    str(out)])
-    assert rc != 0
-    assert "ROADMAP.md queue 1 group E" in caplog.text
-    assert out.read_bytes() == b""
+def test_view_genome_exits_naming_roadmap(inputs, tmp_path, caplog,
+                                         capsysbinary):
+    """-g over hashed canonical k-mers decodes them through the genome
+    they were counted from (the port's genome index, on the CPU here):
+    the JAX CLI's bytes and log lines, every hash found.  (The name is
+    the test's from when the port exited naming ROADMAP.md here.)"""
+    genome = str(Path(inputs["h31"]).parent / "in.fa")
+    rc, logs, _, files = run_both(
+        ["view", "-g", genome, "h31", "-o", "{out}/v.txt"], inputs, tmp_path,
+        caplog, capsysbinary,
+        port_env=(("UNIKMER_TPU_TORCH_DEVICE", "cpu"),))
+    lines = files["v.txt"].splitlines()
+    assert rc == 0 and not logs and len(lines) > 1000
+    assert all(len(x) == 31 and not x.isdigit() for x in lines)
 
 
 DUMP_CASES = [

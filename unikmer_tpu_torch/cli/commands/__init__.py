@@ -1,8 +1,7 @@
 """Subcommands of the port: each module exposes register(subparsers).
 
-COMMANDS is the JAX CLI's list (unikmer_tpu/cli/commands/__init__.py)
-without ``locate`` and ``map``, which are not ported yet (ROADMAP.md
-queue 1 group E)."""
+COMMANDS is the JAX CLI's list (unikmer_tpu/cli/commands/__init__.py),
+in its order."""
 
 from __future__ import annotations
 
@@ -30,6 +29,8 @@ COMMANDS = [
     "sample",
     "filter",
     "rfilter",
+    "locate",
+    "map",
     "autocompletion",
     "version",
 ]

@@ -6,9 +6,10 @@ The plain text modes take the native renderer (native/host_native.cpp),
 else vectorized numpy (utils/textout.py): whole blocks of lines built as
 byte buffers.
 
-``-g`` (decoding hashed k-mers through their genomes) needs
-models/locate.py, which is not ported yet: where the JAX CLI would use
-it, the command exits naming ROADMAP.md.
+``-g`` decodes hashed canonical k-mers through a genome index built,
+sorted and searched on the device (models/locate.py): each hash prints
+as the genome k-mer at its first occurrence, or as its integer with a
+warning when no genome holds it.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from ... import native
 from ...io.unik import check_compatibility
 from ...ops.codec import decode_codes
 from ...utils import textout
-from ...utils.log import check_error, die, log
+from ...utils.log import check_error, log
 from ._common import (
     add_files_arg,
     check_taxid_info_match,
@@ -31,9 +32,6 @@ from ._common import (
     open_reader,
     unik_inputs,
 )
-
-GENOME_NOT_PORTED = ("-g/--genome (models/locate.py): ROADMAP.md queue 1 "
-                     "group E")
 
 
 def register(subparsers):
@@ -52,8 +50,7 @@ def register(subparsers):
     p.add_argument("-t", "--show-taxid", action="store_true", help="show taxid")
     p.add_argument("-T", "--show-taxid-only", action="store_true", help="show taxid only")
     p.add_argument("-g", "--genome", action="append", default=[],
-                   help="genomes in (gzipped) fasta file(s) for decoding "
-                        "hashed k-mers (not ported yet)")
+                   help="genomes in (gzipped) fasta file(s) for decoding hashed k-mers")
     p.set_defaults(func=run)
 
 
@@ -70,6 +67,8 @@ def run(args) -> int:
     show_taxid = args.show_taxid and not opt.ignore_taxid
 
     out, owns = _out_binary(args.out_file, opt.compression_level)
+    hash2loc = None
+    sequences = None
     h0 = None
     k = None
     try:
@@ -100,14 +99,17 @@ def run(args) -> int:
                                 "-g/--genome ignored since 'canonical' flag is off"
                             )
                         else:
-                            die("not supported by unikmer_tpu_torch yet: "
-                                + GENOME_NOT_PORTED)
+                            from ...models.locate import load_hash2loc
+
+                            sequences, hash2loc = load_hash2loc(args.genome, k)
                 for codes, taxids in r.iter_blocks():
                     taxids = effective_taxids(r, len(codes), taxids, opt.ignore_taxid)
                     if taxids is None:
                         taxids = np.zeros(len(codes), np.uint32)
-                    out.write(_render_block(args, show_taxid, h, k, codes,
-                                            taxids))
+                    out.write(
+                        _render_block(args, show_taxid, h, k, codes, taxids,
+                                      sequences, hash2loc)
+                    )
     finally:
         out.flush()
         if owns:
@@ -115,14 +117,43 @@ def run(args) -> int:
     return 0
 
 
-def _render_block(args, show_taxid, h, k, codes, taxids):
-    if not (args.fasta or args.fastq):
+def _kmer_matrix(codes, h, k, sequences, hash2loc):
+    """(n, k) byte matrix of k-mer strings, or None when hashed and not
+    decodable (caller prints integer codes instead)."""
+    if not h.is_hashed:
+        return decode_codes(codes, k)
+    if hash2loc is not None:
+        from ...models.locate import lookup_hashes
+
+        found, seq_idx, pos = lookup_hashes(hash2loc, codes)
+        if not found.all():
+            # undecodable hashes print as integers (reference
+            # view.go:176-181 warns per miss); rare -> per-row path
+            for c in codes[~found]:
+                log.warning(
+                    f"fail to decode hash: {int(c)}, which is not found in given genomes"
+                )
+            return [
+                (
+                    sequences[seq_idx[i]][pos[i] : pos[i] + k].decode()
+                    if found[i]
+                    else str(int(codes[i]))
+                )
+                for i in range(len(codes))
+            ]
+        return hash2loc.gather_kmers(seq_idx, pos)
+    return None
+
+
+def _render_block(args, show_taxid, h, k, codes, taxids, sequences, hash2loc):
+    if not (args.fasta or args.fastq) and hash2loc is None:
         r = _render_native(args, show_taxid, h, k, codes, taxids)
         if r is not None:
             return r
-    # (n, k) byte matrix of k-mer strings; None for hashed codes, which
-    # print as integers
-    arr = None if h.is_hashed else decode_codes(codes, k)
+    arr = _kmer_matrix(codes, h, k, sequences, hash2loc)
+    if isinstance(arr, list):
+        # mixed decodable/undecodable hashes: per-line slow path
+        return _render_rows(args, show_taxid, k, codes, taxids, arr)
     if args.fasta or args.fastq:
         return _render_fastx(args, show_taxid, k, codes, taxids, arr)
     if show_taxid:
@@ -155,6 +186,30 @@ def _render_native(args, show_taxid, h, k, codes, taxids):
     if args.show_code:
         return native.render_lines(codes, dk, codes)
     return native.render_lines(codes, dk)
+
+
+def _render_rows(args, show_taxid, k, codes, taxids, kmers):
+    quality = "g" * k
+    parts = []
+    for i, km in enumerate(kmers):
+        c, t = int(codes[i]), int(taxids[i])
+        if args.fasta:
+            head = f">{c} {t}" if show_taxid else f">{c}"
+            parts.append(f"{head}\n{km}\n")
+        elif args.fastq:
+            head = f"@{c} {t}" if show_taxid else f"@{c}"
+            parts.append(f"{head}\n{km}\n+\n{quality}\n")
+        elif show_taxid:
+            parts.append(f"{km}\t{t}\n")
+        elif args.show_taxid_only:
+            parts.append(f"{t}\n")
+        elif args.show_code_only:
+            parts.append(f"{c}\n")
+        elif args.show_code:
+            parts.append(f"{km}\t{c}\n")
+        else:
+            parts.append(f"{km}\n")
+    return "".join(parts).encode()
 
 
 def _render_fastx(args, show_taxid, k, codes, taxids, arr):

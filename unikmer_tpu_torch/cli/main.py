@@ -1,8 +1,7 @@
 """unikmer-tpu-torch CLI: the unikmer-compatible subcommands on the
-PyTorch/CUDA port, all of the JAX CLI's but ``locate`` and ``map``
-(ROADMAP.md queue 1 group E): counting, information, format
-conversion, set operations, split and merge, subsets and the misc
-commands.
+PyTorch/CUDA port, all of the JAX CLI's: counting, information, format
+conversion, set operations, split and merge, subsets, the genome
+commands (locate, map) and the misc commands.
 
 Same global flags (cli/opts.py, the port's copy of unikmer_tpu/cli/opts.py)
 and exit-code conventions as ``python -m unikmer_tpu.cli.main``.
@@ -11,6 +10,7 @@ and exit-code conventions as ``python -m unikmer_tpu.cli.main``.
     python -m unikmer_tpu_torch.cli.main union -s a.unik b.unik -o u
     python -m unikmer_tpu_torch.cli.main sort -u -m 16M a.unik -o s
     python -m unikmer_tpu_torch.cli.main view a.unik | head
+    python -m unikmer_tpu_torch.cli.main locate -g g.fa a.unik
 """
 
 from __future__ import annotations

@@ -517,26 +517,53 @@ def count_stream(records, cfg: CountConfig, chunk_bases: int | None = None,
 def linear_codes_all(bases: np.ndarray, cfg: CountConfig,
                      chunk_bases: int | None = None, device=None):
     """All valid window codes of a packed base buffer, in genome order:
-    (codes uint64[n_valid], positions int64[n_valid]).  Buffers past
-    the piece size are cut into k-1-overlap segments, each window
-    landing in exactly one."""
+    (codes uint64[n_valid], positions int64[n_valid]).  Each piece is
+    fetched before the next is encoded, so the device holds one piece
+    at a time."""
     device = get_device(device)
-    n = len(bases)
-    if n == 0:
+    if len(bases) == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    parts_c, parts_p = [], []
+    for codes, pos in _linear_pieces(bases, cfg, chunk_bases, device):
+        with stage("d2h", device):
+            parts_c.append(codes.cpu().numpy().view(np.uint64))
+            parts_p.append(pos.cpu().numpy())
+    return np.concatenate(parts_c), np.concatenate(parts_p)
+
+
+def linear_codes_device(bases: np.ndarray, cfg: CountConfig,
+                        chunk_bases: int | None = None, device=None):
+    """:func:`linear_codes_all` left on the device: (codes int64 tensor of
+    u64 bit patterns, positions int64 tensor), nothing fetched (the
+    genome index and map read them there)."""
+    device = get_device(device)
+    if len(bases) == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=device)
+        return empty, empty.clone()
+    parts = list(_linear_pieces(bases, cfg, chunk_bases, device))
+    if len(parts) == 1:
+        return parts[0]
+    with stage("collapse", device):
+        return (torch.cat([c for c, _ in parts]),
+                torch.cat([p for _, p in parts]))
+
+
+def _linear_pieces(bases: np.ndarray, cfg: CountConfig,
+                   chunk_bases: int | None, device: torch.device):
+    """(codes, positions) tensors of the valid windows of each piece, in
+    genome order.  Buffers past the piece size are cut into k-1-overlap
+    segments, each window landing in exactly one."""
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
-    k = cfg.k
+    n, k = len(bases), cfg.k
     if n <= chunk_bases + k or not cfg.segmentable:
-        return _linear_piece(bases, cfg, device, n)
-    parts_c, parts_p = [], []
+        yield _linear_piece(bases, cfg, device, n)
+        return
     for off in range(0, n - (k - 1), chunk_bases):
         seg = bases[off: min(off + chunk_bases + k - 1, n)]
         # windows starting in the overlap tail belong to the next segment
-        c, p = _linear_piece(seg, cfg, device, chunk_bases)
-        parts_c.append(c)
-        parts_p.append(p + off)
-    return np.concatenate(parts_c), np.concatenate(parts_p)
+        codes, pos = _linear_piece(seg, cfg, device, chunk_bases)
+        yield codes, pos + off
 
 
 def _linear_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device,
@@ -545,9 +572,7 @@ def _linear_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device,
     keyed, valid = _encode_piece(bases, cfg, device)
     with stage("collapse", device):
         pos = torch.nonzero(valid[:limit]).squeeze(1)
-        codes = keyed[pos]
-    with stage("d2h", device):
-        return codes.cpu().numpy().view(np.uint64), pos.cpu().numpy()
+        return keyed[pos], pos
 
 
 def count_linear(packed: PackedSeqs, cfg: CountConfig,

@@ -56,7 +56,8 @@ _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
 # result included), from torch.cuda.reset_peak_memory_stats and
 # max_memory_allocated, rounded up: ``python -m unikmer_tpu_torch.slot_bytes``
 # on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6).  A
-# slot is a base for from_fasta, a code of the concatenated inputs for the
+# slot is a base for from_fasta and for the genome index (of the buffer
+# that joins its records), a code of the concatenated inputs for the
 # taxid union, a padded query slot for membership, else a slot of the
 # input capacities (their sum; for common, the largest times the set
 # count).  The taxid union's tiers are measured with every code in 8
@@ -75,9 +76,10 @@ SLOT_BYTES = {
     "subtract_taxids": 18,
     "union_all": 46,
     "common": 35,
-    "union_taxids_table": 100,
+    "union_taxids_table": 101,
     "union_taxids_paths": 100,
     "membership": 18,
+    "genome_index": 45,
 }
 # The paths tier's merge rounds gather an (m, Dp) int32 path row for each
 # merging slot and make temporaries of that shape, so its bytes a slot

@@ -4,11 +4,12 @@
 
 For every key of ops/device_sets.SLOT_BYTES this builds the route's
 inputs on the card (sets of about 2^25 codes, as chip_smoke.py's sets
-path; from_fasta over 4 seeded records of 2^25 bases, 4 pieces), lets
-the caching allocator start clean (``torch.cuda.empty_cache`` and
-``reset_peak_memory_stats``), runs the route once through its public
-entry (a KmerSet operator, ``KmerSet.from_fasta`` / ``from_codes``,
-``union_taxids_device``, ``DeviceMembership``), and reads
+path; from_fasta and the genome index over 4 seeded records of 2^25
+bases, 4 pieces), lets the caching allocator start clean
+(``torch.cuda.empty_cache`` and ``reset_peak_memory_stats``), runs the
+route once through its public entry (a KmerSet operator,
+``KmerSet.from_fasta`` / ``from_codes``, ``union_taxids_device``,
+``DeviceMembership``, ``build_genome_index``), and reads
 ``max_memory_allocated`` less what was allocated before: the inputs that
 were already resident are not counted, the result is.  Dividing by the
 route's slots (device_sets.SLOT_BYTES says which) gives the bytes a slot
@@ -78,6 +79,7 @@ def measure(dev, log2_codes: int = 25, seed: int = 20261017) -> dict:
     taxid union's as taxid_union_peaks gives them."""
     from .api import KmerSet
     from .models.count import _padded_len
+    from .models.locate import build_genome_index
     from .ops import device_sets
     from .ops.device_sets import DeviceMembership
 
@@ -140,6 +142,9 @@ def measure(dev, log2_codes: int = 25, seed: int = 20261017) -> dict:
                 f.write(b">r%d\n%s\n" % (r, seq.tobytes()))
         out["from_fasta"] = (4 * n, peak_above(
             lambda: KmerSet.from_fasta(fa, 23, canonical=True, device=dev)))
+        # the joined buffer: the 4 records and a separator after each
+        out["genome_index"] = (4 * (n + 1), peak_above(
+            lambda: build_genome_index([fa], 23, hashed=False, device=dev)))
     missing = set(device_sets.SLOT_BYTES) - {
         key.split("@")[0] for key in out}
     assert not missing, missing
