@@ -74,11 +74,25 @@ holds their results against oracles:
             that share codes; and once with UNIKMER_TPU_MAX_ELEMS below
             A's windows, the index sorted on the host), ``map -m 200``
             of all of ``diff A B`` over A (``-x 5 -X 2``, ``-M``, ``-a``)
-            and over 1,024 records cut from A (without and with ``-W``),
+            and over 1,024 records cut from A (without and with ``-W``,
+            and once forced past map's budget: the host route),
             ``count -k 31 -K -H`` of A and ``view -g A`` of 2^20 of its
             hashes and 16 that A lacks; every output held to numpy's
             bytes (``genome_path``), each call's seconds, index stages,
             peak, windows and route in the ``genome`` line;
+  mesh      parallel/sharded.py with 4 shards on the card
+            (``make_mesh(devices=[cuda:0] * 4)``): ``count --mesh 1 -k 23
+            -K -s -C`` of the 134 Mbp FASTA through the CLI, byte-equal
+            to the main path's .unik; mesh_count_stream_packed over it
+            (distinct and -d) and over its first record (-k 31 -K -H and
+            -k 31 -W 15); mesh_count_taxids over T1 and T2; mesh_set_op
+            (union, inter, diff, common 2) and mesh_set_op_taxids (both
+            LCA tiers) over the sets path's A, B and C; and the CLI's
+            ``union``, ``inter``, ``diff`` and ``common -n 2`` with
+            ``--mesh 1``, byte-equal to their --mesh 0 outputs.  Each
+            output is held to its single-device twin's (``mesh_path``),
+            each run timed with its peak beside the twin in the ``mesh``
+            line;
   probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
             of scripts/exp_pallas_dma*.py, each kernel held to its plain
             version inside the entry point.
@@ -1093,7 +1107,8 @@ def main_path(tmp, rng, report):
     FASTA (into ``report``), hashed (bench.py's two ntHash
     configurations) and sketched (its two sketch configurations), then
     -u, -d, k = 32 and k = 64 -H -u over one 37.7 Mbp record; returns the
-    launches of the 2-bit, the -K -H and the -W 15 run."""
+    launches of the 2-bit, the -K -H and the -W 15 run, and the FASTA's
+    and the 2-bit run's paths (for the mesh path)."""
     fa = os.path.join(tmp, "in.fa")
     t0 = time.perf_counter()
     write_fasta(fa, rng, 4, RECORD_BASES)
@@ -1117,7 +1132,6 @@ def main_path(tmp, rng, report):
     hashed, bases, keyed, valid = hashed_main_path(tmp, fa)
     sketched = sketch_main_path(tmp, fa, bases, keyed, valid)
     del bases, keyed, valid
-    os.remove(fa)
     one = os.path.join(tmp, "one.fa")
     write_fasta(one, rng, 1, RECORD_BASES + (RECORD_BASES >> 3))
     check_against_oracle(tmp, one, "u", 23, True, "unique", ["-u"])
@@ -1126,8 +1140,9 @@ def main_path(tmp, rng, report):
     check_against_oracle(tmp, one, "k64Hu", 64, False, "unique", ["-H", "-u"],
                          hashed=True)
     os.remove(one)
-    return {"k1": launches["k1"], "k2": launches["k2"], "h1": hashed["h1"],
-            "s1": sketched["s1"]}
+    os.remove(out + ".oracle.unik")
+    return ({"k1": launches["k1"], "k2": launches["k2"], "h1": hashed["h1"],
+             "s1": sketched["s1"]}, {"fa": fa, "k23": out + ".unik"})
 
 
 def hashed_main_path(tmp, fa):
@@ -1448,8 +1463,9 @@ def taxid_run(tmp, name, fa, data_dir, k, canonical, mode, windows,
 
 def taxid_path(tmp, rng):
     """T1, T1 hashed, T2 and T3 (module docstring); returns K3's launches
-    in T1-T3 and T2's output for the file commands (its path and the
-    oracle's codes and taxids; the taxonomy in ``tmp``/taxdump)."""
+    in T1-T3, T2's output for the file commands (its path and the
+    oracle's codes and taxids; the taxonomy in ``tmp``/taxdump) and the
+    FASTA files of T1 and T2 for the mesh path ([(name, path, tier)])."""
     from unikmer_tpu_torch.taxonomy.lca import device_lca_plan
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
@@ -1468,6 +1484,7 @@ def taxid_path(tmp, rng):
             ("T2", t2, T2_BASES, 23, True, "distinct", "table"),
             ("T3", t3, T3_BASES, 32, False, "unique", "table"))
     k3 = 0
+    kept = []
     for name, taxids, length, k, canonical, mode, tier in runs:
         plan = device_lca_plan(taxdb, taxids)
         if plan is None or plan[0] != tier:
@@ -1493,13 +1510,16 @@ def taxid_path(tmp, rng):
             taxid_run(tmp, "T1W", fa, d, SKETCH_K, False, "distinct",
                       len(taxids) * (length - SKETCH_K + 1),
                       minimizer_w=SKETCH_W)
-        os.remove(fa)
+        if name == "T3":
+            os.remove(fa)
+        else:
+            kept.append((name, fa, tier))
     # T3: the one window of 32 T's is a real 2^64-1 code, kept with the
     # taxid of its record
     if not (codes[-1] == SENT and got_taxids[-1] == t3[0]):
         raise SystemExit(f"T3: the 2^64-1 code was not kept with taxid "
                          f"{t3[0]}: {codes[-3:]}, {got_taxids[-3:]}")
-    return k3, t2
+    return k3, t2, kept
 
 
 # ---------------------------------------------------------------------------
@@ -1985,7 +2005,8 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> dict:
     file commands read: the ``count -t`` files of A, B and C, the codes
     of their union and of those in two of them, A's and B's codes with
     their per-code taxids, the oracle of their taxid union and A's
-    low-complexity mask."""
+    low-complexity mask; and what the mesh path reads: the CLI phase's
+    oracle, its .unik files and the CLI's seconds."""
     from unikmer_tpu_torch import KmerSet
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.ops import device_sets
@@ -2147,7 +2168,7 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> dict:
         cli_oracle = cli_setop_oracles(merged, gtax, taxdb)
     kept = {"uniks": uniks, "taxdump": d, "a": (an, ta), "b": (bn, tb),
             "a_low": low, "ab_taxids": oracle["A | B (taxids)"],
-            "a_fa": fas[0]}
+            "a_fa": fas[0], "oracle": cli_oracle}
     del cn, oracle, merged
     written = {}
     for key, (codes, taxids) in cli_oracle.items():
@@ -2224,9 +2245,10 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> dict:
     say("phase seconds: " + json.dumps({
         "grep": round(t1 - t0, 3),
         "round trip": round(time.perf_counter() - t1, 3)}))
-    for u in written.values():
-        os.remove(u)
-    kept.update(union=cli_oracle["union"][0], common=cli_oracle["common"][0])
+    kept.update(union=cli_oracle["union"][0], common=cli_oracle["common"][0],
+                written=written, cli_s={
+                    row["op"][4:].replace(" -n 2", ""): row["s"]
+                    for row in report.rows if row["op"].startswith("CLI ")})
     return kept
 
 
@@ -2292,6 +2314,14 @@ def block_bounds(path: str) -> np.ndarray:
 
     with unik.UnikReader(path) as r:
         return np.cumsum([0] + [len(c) for c, _ in r.iter_blocks()])
+
+
+def unik_number(path: str) -> int:
+    """The code count in a .unik file's header."""
+    from unikmer_tpu_torch.io import unik
+
+    with unik.UnikReader(path) as r:
+        return r.header.number
 
 
 def read_unik(path: str):
@@ -2710,7 +2740,9 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
                               the end of A, each sharing a third of its
                               bases with the next (-W's terminators) and
                               with a repeat inside (terminators without
-                              -W); without and with -W
+                              -W); without and with -W, and once with
+                              UNIKMER_TPU_MAX_ELEMS below M's bases (the
+                              host route: numpy membership, no K3)
       count -k 31 -K -H A     held to the ntHash oracle
       view -g A hq            hq: n_query of its hashes and 16 that A
                               lacks (the per-row path and its warnings)
@@ -2723,6 +2755,7 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
     recorded; the forced-host call's launches stay out of the returned
     ones.  Returns {"launches": ..., "row": the genome line}."""
     from unikmer_tpu_torch.cli.commands import locate as locate_cmd
+    from unikmer_tpu_torch.cli.commands import map as map_cmd
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.models import locate as locate_model
 
@@ -2732,13 +2765,19 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
     an, bn = sets["a"][0], sets["b"][0]
     calls, oracle_s = {}, {}
     launches = {"k1": 0, "h1": 0, "k2": 0, "k3": 0}
-    built = []
+    built, scans = [], []
     real_build = locate_model.build_genome_index
+    real_scan = map_cmd.GenomeScan
 
     def spy(*a, **kw):
         idx = real_build(*a, **kw)
         built.append(idx)
         return idx
+
+    class ScanSpy(real_scan):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            scans.append(self)
 
     def path(name):
         return os.path.join(tmp, f"gn_{name}")
@@ -2748,6 +2787,7 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
         """One CLI call, counted, its output file held to ``want``."""
         need = {key: must and on_card for key, must in need.items()}
         built.clear()
+        scans.clear()
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2760,6 +2800,8 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
             row.update(windows=len(built[0].seq_idx), route=built[0].route)
         elif windows is not None:
             row["windows"] = windows
+        if scans:
+            row["route"] = sorted(set(scans[0].routes.values()))
         if count:
             for key in launches:
                 launches[key] += got[key]
@@ -2812,6 +2854,7 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
     loc_need = {"k1": True, "h1": False, "k2": False, "k3": True}
     q1u, q2u = path("q1") + ".unik", path("q2") + ".unik"
     locate_model.build_genome_index = locate_cmd.build_genome_index = spy
+    map_cmd.GenomeScan = ScanSpy
     try:
         for name, argv in (
                 ("locate", ["-g", a_fa, q1u]),
@@ -2867,6 +2910,18 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
             call(f"map {name}", ["map", "-m", "200", *flags, "-g", genome,
                                  path("diff") + ".unik", "-o", path("out")],
                  {**map_need, "k3": name != "-M"}, wants[name], windows)
+        # past map's budget: the windows fetched, the rest numpy (no K3)
+        with max_elems(m_records * m_bases // 2):
+            call("map M (forced host)", ["map", "-m", "200", "-g", m_fa,
+                                         path("diff") + ".unik", "-o",
+                                         path("out")],
+                 {**map_need, "k3": False}, wants["M"], m_records * m_bases,
+                 count=False)
+        routes = [calls[n].get("route") for n in ("map M",
+                                                  "map M (forced host)")]
+        if routes != [["device"], ["host"]]:
+            raise SystemExit(f"genome map: routes {routes}, not device "
+                             f"then host")
         os.remove(m_fa)
         del wants
 
@@ -2905,6 +2960,7 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
     finally:
         locate_model.build_genome_index = real_build
         locate_cmd.build_genome_index = real_build
+        map_cmd.GenomeScan = real_scan
     for name in ("q1", "q2", "diff", "hq"):
         os.remove(path(name) + ".unik")
     os.remove(a_fa)
@@ -2912,6 +2968,229 @@ def genome_path(tmp, rng, sets: dict, dev, n_query: int = GENOME_QUERY,
            "diff_codes": len(diff), "M": [m_records, m_bases]}
     say(json.dumps({"genome": row}))
     return {"launches": launches, "row": row}
+
+
+# ---------------------------------------------------------------------------
+# mesh: the sharded build and set operations of parallel/sharded.py, D
+# shards on one card, each output held to its single-device twin
+
+MESH_SHARDS = 4
+MESH_KEYS = ("k1", "h1", "s1", "k2", "k3")
+
+
+def mesh_path(tmp, inputs: dict, dev, shards: int = MESH_SHARDS) -> dict:
+    """``count --mesh 1`` through the CLI and the sharded library entries
+    over ``shards`` shards on ``dev`` (make_mesh(devices=[dev] * shards)),
+    each output held to the single-device output of the same input (which
+    the earlier phases hold to their oracles), beside that run's time:
+
+      count --mesh 1       the main path's CLI count; byte-equal to its
+                           .unik (``inputs["k23"]``)
+      stream k23, k23 -d   mesh_count_stream_packed over the main FASTA
+                           against count_stream_packed
+      stream -H, -W 15     the same over its first record (k = 31)
+      -T T1, -T T2         mesh_count_taxids against
+                           count_taxids_from_packed (paths, table tier)
+      union ... common 2   mesh_set_op over the sets path's A, B and C
+                           against KmerSet's union_all, &, - and common
+      taxid ops            mesh_set_op_taxids over the same files with
+                           their global taxids, both LCA tiers, against
+                           the sets path's CLI oracle (the table tier's
+                           union also against union_taxids_device)
+      CLI --mesh 1         union -s, inter, diff -s, common -n 2 over
+                           the files: byte-equal to the sets path's
+                           oracle files, the --mesh 0 outputs
+
+    ``inputs``: "fa", "k23", "taxdump", "taxid" ([(name, FASTA, tier)]),
+    "uniks", "oracle" ({op: (codes, taxids)}) and "written" ({op: the
+    oracle .unik}); the FASTA files of "taxid" and the "written" files are
+    removed.  Every run's K1/H1/S1/K2/K3 launches are counted (those of
+    the single-device twins apart); returns {"launches": the mesh runs'
+    launches, "row": the mesh line}."""
+    from unikmer_tpu_torch import KmerSet
+    from unikmer_tpu_torch.io.fastx import pack_files, pack_records, read_fastx
+    from unikmer_tpu_torch.models.count import (
+        CountConfig, count_stream_packed, count_taxids_from_packed,
+        parse_taxid_records,
+    )
+    from unikmer_tpu_torch.ops.device_sets import union_taxids_device
+    from unikmer_tpu_torch.parallel import sharded
+    from unikmer_tpu_torch.parallel.mesh import make_mesh
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
+
+    on_card = dev.type == "cuda"
+    mesh = make_mesh(devices=[dev] * shards)
+    added = dict.fromkeys(MESH_KEYS, 0)
+    runs = {}
+
+    def timed(fn):
+        """(result, seconds, peak bytes above what was resident, launches)."""
+        wrappers = encode_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - resident
+        return out, secs, peak, {k: w.launches for k, w in wrappers.items()}
+
+    def run(name, mesh_fn, single, need, same, codes=len):
+        """The mesh run, then its single-device twin (a function, or a
+        time taken elsewhere), each timed; raises unless the mesh run
+        launched exactly the kernels ``need`` names (on the card) and
+        same(mesh output, twin's output)."""
+        got, secs, peak, launches = timed(mesh_fn)
+        wrong = {key for key in MESH_KEYS
+                 if (launches[key] > 0) != (key in need and on_card)}
+        if wrong:
+            raise SystemExit(f"mesh {name}: launches {launches}, expected "
+                             f"{sorted(need)}")
+        for key in added:
+            added[key] += launches[key]
+        row = {"s": round(secs, 4), "peak_bytes": peak}
+        want = None
+        if callable(single):
+            want, s_secs, s_peak, s_launches = timed(single)
+            row.update(single_s=round(s_secs, 4), single_peak_bytes=s_peak,
+                       single_launches={k: v for k, v in s_launches.items()
+                                        if v})
+        else:
+            row["single_s"] = single
+        if not same(got, want):
+            raise SystemExit(f"mesh {name}: differs from the single-device "
+                             f"output")
+        if not callable(single):
+            row["single_from"] = "the sets line's --mesh 0 CLI run"
+        row.update(codes=codes(got),
+                   launches={k: v for k, v in launches.items() if v})
+        runs[name] = row
+        say(f"mesh {name}: " + json.dumps(row))
+
+    def arrays_equal(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return len(got) == len(want) and all(
+            np.array_equal(g, w) for g, w in zip(got, want))
+
+    t_phase = time.perf_counter()
+    # count --mesh 1 through the CLI, byte-equal to the main path's output
+    out = os.path.join(tmp, "mesh1")
+    argv = ["count", "-k", "23", "-K", "-s", "-C", inputs["fa"], "-o"]
+    run("count --mesh 1", lambda: run_cli([*argv, out, "--mesh", "1"]),
+        lambda: run_cli([*argv, out + ".single"]), ("k1", "k2"),
+        lambda *_: same_bytes(out + ".unik", inputs["k23"])
+        and same_bytes(out + ".single.unik", inputs["k23"]),
+        codes=lambda _: unik_number(out + ".unik"))
+    for f in (out + ".unik", out + ".single.unik"):
+        os.remove(f)
+
+    # the streamed build over the main FASTA, then its first record
+    packed = pack_files([inputs["fa"]], 23)
+    for name, mode in (("k23", "distinct"), ("k23 -d", "repeated")):
+        cfg = CountConfig(k=23, canonical=True, mode=mode)
+        run(f"stream {name}",
+            lambda cfg=cfg: sharded.mesh_count_stream_packed([packed], cfg,
+                                                             mesh),
+            lambda cfg=cfg: count_stream_packed([packed], cfg, device=dev),
+            ("k1", "k2"), arrays_equal)
+    del packed
+    first = next(iter(read_fastx(inputs["fa"])))
+    packed = pack_records([first], 31)
+    del first
+    for name, cfg, need in (
+            ("-k 31 -K -H", CountConfig(k=31, canonical=True, hashed=True),
+             ("h1", "k2")),
+            ("-k 31 -W 15", CountConfig(k=SKETCH_K, minimizer_w=SKETCH_W),
+             ("h1", "s1", "k2"))):
+        run(f"stream {name}",
+            lambda cfg=cfg: sharded.mesh_count_stream_packed([packed], cfg,
+                                                             mesh),
+            lambda cfg=cfg: count_stream_packed([packed], cfg, device=dev),
+            need, arrays_equal)
+    del packed
+
+    # count -T, the paths tier (T1) and the table tier (T2)
+    taxdb = load_taxonomy(inputs["taxdump"])
+    re_t = re.compile(RE_TAXID.encode())
+    cfg = CountConfig(k=23, canonical=True)
+    for name, fa, tier in inputs["taxid"]:
+        packed, rec_taxids = parse_taxid_records(read_fastx(fa), cfg, re_t)
+        os.remove(fa)
+        run(f"-T {name} ({tier} tier)",
+            lambda: sharded.mesh_count_taxids(packed, rec_taxids, taxdb, cfg,
+                                              mesh),
+            lambda: count_taxids_from_packed(packed, rec_taxids, cfg, taxdb,
+                                             dev),
+            ("k1", "k3"), arrays_equal, codes=lambda r: len(r[0]))
+    del packed, rec_taxids
+
+    # the set operations over A, B and C
+    files = [read_unik(u) for u in inputs["uniks"]]
+    codes = [c for _, c, _ in files]
+    taxids = [np.full(len(c), h.global_taxid, np.uint32) for h, c, _ in files]
+    del files
+    kw = dict(canonical=True, assume_sorted_unique=True, device=dev)
+    a, b, c = (KmerSet.from_codes(x, 23, **kw) for x in codes)
+    single = {"union": lambda: KmerSet.union_all([a, b, c]).to_numpy(),
+              "inter": lambda: (a & b & c).to_numpy(),
+              "diff": lambda: (a - KmerSet.union_all([b, c])).to_numpy(),
+              "common": lambda: KmerSet.common([a, b, c], 2).to_numpy()}
+    oracle = inputs["oracle"]
+    for op, fn in single.items():
+        run(f"{op} ({shards} shards)",
+            lambda op=op: sharded.mesh_set_op(op, codes, mesh, 46,
+                                              threshold=2),
+            fn, ("k2",),
+            lambda got, want, op=op: np.array_equal(got, want)
+            and np.array_equal(got, oracle[op][0]))
+    del a, b, c, single
+    cli_s = inputs.get("cli_s", {})
+    for tier, vocab_max in (("table", None), ("paths", "0")):
+        if vocab_max is not None:
+            os.environ["UNIKMER_TPU_TAXID_VOCAB_MAX"] = vocab_max
+        try:
+            for op in ("union", "inter", "diff", "common"):
+                twin = cli_s.get(op if op != "union" else f"union ({tier} tier)")
+                if op == "union":
+                    twin = lambda: union_taxids_device(codes, taxids, taxdb,
+                                                       46, dev)
+                run(f"{op} taxids ({tier} tier, {shards} shards)",
+                    lambda op=op: sharded.mesh_set_op_taxids(
+                        op, codes, taxids, taxdb, mesh, 46, threshold=2),
+                    twin, ("k2",) if op == "diff" else ("k3",),
+                    lambda got, want, op=op: arrays_equal(got, oracle[op])
+                    and (want is None or arrays_equal(got, want)),
+                    codes=lambda r: len(r[0]))
+        finally:
+            os.environ.pop("UNIKMER_TPU_TAXID_VOCAB_MAX", None)
+    del codes, taxids
+
+    # the set-op CLI with --mesh 1: the --mesh 0 outputs' bytes
+    out = os.path.join(tmp, "mesh_cli")
+    for op, cmd in (("union", ["union", "-s"]), ("inter", ["inter"]),
+                    ("diff", ["diff", "-s"]),
+                    ("common", ["common", "-n", "2"])):
+        run(f"CLI {' '.join(cmd)} --mesh 1",
+            lambda cmd=cmd: run_cli([*cmd, "-C", "--data-dir",
+                                     inputs["taxdump"], *inputs["uniks"],
+                                     "-o", out, "--mesh", "1"]),
+            cli_s.get(op if op != "union" else "union (table tier)"),
+            ("k2",) if op == "diff" else ("k3",),
+            lambda *_, op=op: same_bytes(out + ".unik",
+                                         inputs["written"][op]),
+            codes=lambda _: unik_number(out + ".unik"))
+        os.remove(out + ".unik")
+    for f in inputs["written"].values():
+        os.remove(f)
+    row = {"shards": shards, "devices": [str(d) for d in mesh],
+           "runs": runs, "launches": added,
+           "seconds": round(time.perf_counter() - t_phase, 3)}
+    say(json.dumps({"mesh": row}))
+    return {"launches": added, "row": row}
 
 
 # ---------------------------------------------------------------------------
@@ -3353,9 +3632,9 @@ def main() -> int:
     report = SetsReport()
     with tempfile.TemporaryDirectory(prefix="unikmer-torch-smoke-") as tmp:
         t0 = time.perf_counter()
-        launches = main_path(tmp, rng, report)
+        launches, mesh_in = main_path(tmp, rng, report)
         t = [time.perf_counter()]
-        launches["k3"], t2 = taxid_path(tmp, rng)
+        launches["k3"], t2, mesh_in["taxid"] = taxid_path(tmp, rng)
         t.append(time.perf_counter())
         linear_hashed_path(tmp, rng)
         compat_path(tmp, rng)
@@ -3366,17 +3645,25 @@ def main() -> int:
         del t2
         t.append(time.perf_counter())
         genome = genome_path(tmp, rng, kept, dev)
+        mesh_in.update({key: kept[key] for key in (
+            "taxdump", "uniks", "oracle", "written", "cli_s")})
         del kept
+        t.append(time.perf_counter())
+        mesh = mesh_path(tmp, mesh_in, dev)
+        del mesh_in
         t.append(time.perf_counter())
     say(f"path seconds: main {t[0] - t0:.3f}, count -T {t[1] - t[0]:.3f}, "
         f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}, "
-        f"file commands {t[4] - t[3]:.3f}, genome {t[5] - t[4]:.3f}")
+        f"file commands {t[4] - t[3]:.3f}, genome {t[5] - t[4]:.3f}, "
+        f"mesh {t[6] - t[5]:.3f}")
     say(json.dumps({"sets": report.rows}))
     say(json.dumps({"admission": report.admission}))
     say(json.dumps({"file_commands": file_commands}))
     launches["k2"] += report.launches["k2"]
     launches["k3"] += report.launches["k3"]
     for key, n in genome["launches"].items():
+        launches[key] += n
+    for key, n in mesh["launches"].items():
         launches[key] += n
     launches.update(probe_path())
     say(json.dumps({"kernels": [

@@ -274,7 +274,7 @@ def test_from_reference_carries_a_jax_set(taxdbs):
 @pytest.mark.parametrize("mode", ["distinct", "unique", "repeated"])
 def test_from_fasta_matches_jax(tmp_path, monkeypatch, mode):
     """One piece, then pieces of 4,096 bases (distinct: a device union of
-    the pieces; unique/repeated: the capped host merge)."""
+    the pieces; unique/repeated: the capped host merge), then mesh=2."""
     rng = np.random.default_rng(16)
     seq = rng.choice(list(b"ACGTN"), size=30000,
                      p=[.245, .245, .245, .245, .02]).astype(np.uint8)
@@ -288,8 +288,12 @@ def test_from_fasta_matches_jax(tmp_path, monkeypatch, mode):
     monkeypatch.setattr(port_api, "_stream_chunk_bases", lambda dev: 4096)
     assert_same(JK.from_fasta(str(fa), 15, **kw),
                 PK.from_fasta(str(fa), 15, device="cpu", **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PK.from_fasta(str(fa), 15, mesh=2, device="cpu")
+    # mesh=2: the sharded build over 2 CPU shards, the same set
+    from unikmer_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "device_count", lambda: 8)
+    assert_same(JK.from_fasta(str(fa), 15, **kw),
+                PK.from_fasta(str(fa), 15, mesh=2, device="cpu", **kw))
 
 
 def test_devices_and_flags_must_match():
@@ -446,7 +450,7 @@ ROUTES = ["from_fasta", "from_codes", "union", "union_one_sided",
           "union_taxids", "intersect", "intersect_one_sided",
           "intersect_taxids", "subtract", "subtract_taxids", "union_all",
           "common", "union_taxids_table", "union_taxids_paths", "membership",
-          "genome_index"]
+          "genome_index", "map"]
 
 
 @pytest.mark.parametrize("route", ROUTES)

@@ -330,6 +330,82 @@ def test_map_matches_jax_cli(inputs, host, tmp_path, caplog, capsysbinary,
         assert rc != 0 or len(stdout) + sum(map(len, files.values())) > 20
 
 
+MAP_HOST_CASES = [
+    ["map", "-g", "g1", "-m", "30", "q21"],
+    ["map", "-g", "g1", "-g", "g2", "-m", "30", "q21"],
+    ["map", "-g", "g1", "-g", "g2", "-W", "-m", "30", "q21"],
+    ["map", "-g", "g3", "-g", "g1", "-g", "g2", "-W", "-m", "30", "q21"],
+    ["map", "-g", "g1", "-g", "g2", "-m", "21", "-x", "3", "-X", "2",
+     "-a", "q21"],
+    ["map", "-g", "g1", "--circular", "-M", "-m", "30", "q21"],
+    ["map", "-B", "plasmid", "-g", "g1", "-g", "g2", "-m", "30", "h31"],
+]
+
+
+def joined_len(inputs, name: str, k: int = 21) -> int:
+    recs = locate.read_genome_records([inputs[name]], k, False, None)
+    return len(locate.joined_bases([s for _, _, s in recs])[0])
+
+
+@pytest.mark.parametrize("budget", ["none", "between"])
+@pytest.mark.parametrize("argv", MAP_HOST_CASES, ids=" ".join)
+def test_map_past_the_budget_takes_the_host_route(inputs, host, tmp_path,
+                                                  caplog, capsysbinary,
+                                                  monkeypatch, argv, budget):
+    """Past element_budget('map') a genome file's windows are fetched and
+    its membership, hit runs and terminators run in numpy (no K3), with
+    the JAX CLI's bytes: every file on the host route (budget 'none'), or
+    g2 on the card and g1 on the host ('between', so -W reads a
+    multiply-mapped set across the two routes)."""
+    from unikmer_tpu_torch.cli.commands import map as map_cmd
+
+    g1, g2 = joined_len(inputs, "g1"), joined_len(inputs, "g2")
+    limit = 1000 if budget == "none" else (g1 + g2) // 2
+    assert limit < g2 if budget == "none" else g2 <= limit < g1
+    routes = []
+
+    class Spy(map_cmd.GenomeScan):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            routes.append(self.routes)
+
+    def boom(*a, **kw):
+        raise AssertionError("K3 ran on the host route")
+
+    monkeypatch.setattr(map_cmd, "GenomeScan", Spy)
+    if budget == "none":
+        monkeypatch.setattr(map_cmd, "radix_sort_kv_u64", boom)
+    rc, _, stdout, files = run_both(
+        argv, inputs, tmp_path, caplog, capsysbinary,
+        port_env=CPU + (("UNIKMER_TPU_MAX_ELEMS", str(limit)),))
+    assert rc == 0 and len(stdout) + sum(map(len, files.values())) > 20
+    want = {"g1": "host", "g2": "host" if budget == "none" else "device"}
+    genomes = [argv[i + 1] for i, a in enumerate(argv) if a == "-g"]
+    assert routes[0] == {i: want[g] for i, g in enumerate(genomes)
+                         if g != "g3"}
+
+
+def test_map_budget_counts_the_joined_bases(inputs, monkeypatch):
+    """The route turns at element_budget('map') slots, one a base of a
+    genome file's joined records, less the query set's bytes."""
+    from unikmer_tpu_torch.cli.commands import map as map_cmd
+    from unikmer_tpu_torch.models.count import CountConfig
+
+    recs = [(rec, seq) for _, rec, seq in locate.read_genome_records(
+        [inputs["g1"]], 21, False, None)]
+    slots = joined_len(inputs, "g1")
+    query = torch.arange(100, dtype=torch.int64)
+    per = device_sets.SLOT_BYTES["map"]
+    for free, route in (((slots * per + 800) / device_sets.ADMIT_SHARE + per,
+                         "device"), (slots * per + 800 - 1, "host")):
+        monkeypatch.setattr(device_sets, "_device_free_bytes",
+                            lambda device, free=free: int(free))
+        scan = map_cmd.GenomeScan([recs], CountConfig(k=21, canonical=True),
+                                  query, torch.device("cpu"), False)
+        scan.masks(0, 0)
+        assert scan.routes == {0: route}
+
+
 def test_map_terminates_regions_at_repeats(inputs, tmp_path, caplog,
                                            capsysbinary):
     """The queries hit chr1's stretch 300-600, which chr1 repeats at
@@ -444,8 +520,8 @@ def test_genome_commands_need_a_card_or_the_cpu(inputs, monkeypatch,
 def test_chip_smoke_genome_path_on_the_cpu(tmp_path, cuda_calls_on_cpu):
     """genome_path over records made as the sets path makes A and B:
     every call's output equals its oracle (terminators within records
-    and, under -W, across them), each call is timed with its route and
-    the files it made are removed."""
+    and, under -W, across them; map once forced to its host route), each
+    call is timed with its route and the files it made are removed."""
     import chip_smoke
 
     rng = np.random.default_rng(44)
@@ -462,12 +538,34 @@ def test_chip_smoke_genome_path_on_the_cpu(tmp_path, cuda_calls_on_cpu):
     assert set(calls) == {
         "locate", "locate --circular", "locate q1 q2",
         "locate (forced host)", "map -x 5 -X 2", "map -M", "map -a",
-        "map M", "map M -W", "count -k 31 -K -H", "view -g"}
+        "map M", "map M -W", "map M (forced host)", "count -k 31 -K -H",
+        "view -g"}
     assert calls["locate"]["route"] == calls["view -g"]["route"] == "device"
     assert calls["locate (forced host)"]["route"] == "host"
+    assert calls["map M"]["route"] == ["device"]
+    assert calls["map M (forced host)"]["route"] == ["host"]
     assert calls["locate"]["windows"] == 60000 - 22
     assert {"index encode", "index sort", "index fetch",
             "lookup"} <= set(calls["locate"]["stages"])
     assert {"map query", "map encode", "map member", "map multi",
             "map fetch"} <= set(calls["map M"]["stages"])
     assert not list(tmp_path.iterdir())
+
+
+def test_slot_bytes_measures_map_on_the_cpu(tmp_path, monkeypatch):
+    """slot_bytes.map_peak (the card's measurement of SLOT_BYTES['map'])
+    runs map's device route over a FASTA's records, every window in the
+    query set: (the joined bases, the peak less the query set's bytes)."""
+    from unikmer_tpu_torch import slot_bytes
+
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **kw: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **kw: 1 << 20)
+    rng = np.random.default_rng(46)
+    fa = tmp_path / "g.fa"
+    fa.write_bytes(fasta([(b"r%d" % i, dna(rng, 3000)) for i in range(2)]))
+    slots, peak = slot_bytes.map_peak(str(fa), torch.device("cpu"))
+    assert slots == 2 * 3001
+    assert (1 << 20) - 8 * 2 * 2978 <= peak < (1 << 20) - 8 * 5000

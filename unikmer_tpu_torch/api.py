@@ -172,13 +172,11 @@ class KmerSet:
                    mode="distinct", taxdb=None, mesh=None, device=None):
         """Count the k-mers of FASTA/Q file(s) straight into a device set
         (models/count.py); only the 8-byte count comes to the host.
-        ``mesh`` >= 2 is not ported yet."""
+        ``mesh=N`` (N >= 2) counts through the N-device sharded build
+        (parallel/sharded.mesh_count_stream, the CLI's count --mesh) and
+        uploads the codes to ``device``."""
         from .io.fastx import pack_files
 
-        if mesh is not None and int(mesh) >= 2:
-            raise NotImplementedError(
-                "KmerSet.from_fasta(mesh=...) is not ported yet: multi-GPU "
-                "is ROADMAP.md queue 1 item 9")
         device = get_device(device)
         if isinstance(paths, (str, bytes)):
             paths = [paths]
@@ -187,6 +185,14 @@ class KmerSet:
                           syncmer_s=syncmer_s, circular=circular, mode=mode)
         flags = dict(canonical=cfg.canonical, hashed=cfg.hashed, scale=scale,
                      taxdb=taxdb, device=device)
+        if mesh is not None and int(mesh) >= 2:
+            from .io.fastx import read_fastx
+            from .parallel.sharded import mesh_count_stream
+
+            records = (rec for p in paths for rec in read_fastx(p))
+            codes = _spilled(mesh_count_stream(records, cfg, int(mesh)))
+            return cls.from_codes(codes, k, assume_sorted_unique=True,
+                                  **flags)
         packed = pack_files(paths, cfg.k, circular)
         if packed.bases.size == 0:
             return cls.from_codes(np.zeros(0, np.uint64), k, **flags)

@@ -11,7 +11,7 @@ import numpy as np
 from ...io.unik import INCLUDE_TAXID, UnikReader, UnikWriter
 from ...utils.log import die, log
 from ..opts import (
-    MESH_NOT_PORTED, add_global_flags, check_file_suffix, ensure_unik_suffix,
+    add_global_flags, check_file_suffix, ensure_unik_suffix,
     get_file_list, get_options, out_binary_stream,
 )
 
@@ -33,15 +33,21 @@ def add_files_arg(p: argparse.ArgumentParser) -> None:
 
 
 def unik_inputs(args, check_suffix: bool = True):
-    """(options, file list) with existence and suffix checks; --mesh,
-    not ported yet, exits naming ROADMAP.md."""
+    """(options, file list) with existence and suffix checks."""
     opt = get_options(args)
     files = get_file_list(args, check_exists=not opt.skip_file_check)
     if check_suffix:
         check_file_suffix(files, skip=opt.skip_file_check)
-    if opt.mesh >= 1:
-        die(f"not supported by unikmer_tpu_torch yet: {MESH_NOT_PORTED}")
     return opt, files
+
+
+def check_mesh_devices(opt) -> None:
+    """--mesh N needs N devices (parallel/mesh.device_count)."""
+    from ...parallel import mesh
+
+    if mesh.device_count() < opt.mesh:
+        die(f"--mesh {opt.mesh} needs {opt.mesh} devices, "
+            f"found {mesh.device_count()}")
 
 
 def open_reader(file: str) -> UnikReader:

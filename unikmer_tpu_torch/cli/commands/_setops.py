@@ -1,6 +1,6 @@
-"""Shared input loading and output of the set-operation subcommands (the
-port's copy of unikmer_tpu/cli/commands/_setops.py, without the mesh
-routes: --mesh is not ported yet)."""
+"""Shared input loading, output and ``--mesh`` routes of the
+set-operation subcommands (the port's copy of
+unikmer_tpu/cli/commands/_setops.py)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from ...io import unik
 from ...io.unik import check_compatibility
 from ...utils.log import check_error, die, log
 from ..opts import ensure_unik_suffix, out_binary_stream
-from ._common import effective_taxids, open_reader
+from ._common import check_mesh_devices, effective_taxids, open_reader
 
 
 def load_inputs(
@@ -106,3 +106,48 @@ def write_result(
     ) as w:
         w.write_codes(codes, taxids)
     return out_file
+
+
+def mesh_codes(op, code_arrays, h0, opt, threshold=None):
+    """A taxid-free set op through the sharded engine
+    (parallel/sharded.mesh_set_op; --mesh N).  Returns the codes, or
+    None past the shards' element budget: the caller then takes the
+    route without --mesh."""
+    check_mesh_devices(opt)
+    from ...parallel.sharded import mesh_set_op
+
+    return mesh_set_op(
+        op, code_arrays, opt.mesh,
+        code_bits=64 if h0.is_hashed else 2 * h0.k,
+        threshold=threshold,
+    )
+
+
+def mesh_codes_taxids(op, code_arrays, taxid_arrays, h0, opt,
+                      threshold=None):
+    """A set op with taxids through the sharded engine
+    (parallel/sharded.mesh_set_op_taxids; --mesh N).  Returns (codes,
+    taxids), or None where the route without --mesh owns the work
+    (unknown nonzero taxids, or shards past their element budget)."""
+    check_mesh_devices(opt)
+    from ...parallel.sharded import mesh_set_op_taxids
+
+    taxdb = maybe_taxonomy(opt, True)
+    return mesh_set_op_taxids(
+        op, code_arrays, taxid_arrays, taxdb, opt.mesh,
+        code_bits=64 if h0.is_hashed else 2 * h0.k,
+        threshold=threshold,
+    )
+
+
+def mesh_route(op, code_arrays, taxid_arrays, h0, opt, threshold=None):
+    """(codes, taxids or None) of a set op under --mesh N (N >= 1), or
+    None without --mesh and where the sharded engine declines: the
+    caller then takes its route without --mesh."""
+    if opt.mesh < 1:
+        return None
+    if taxid_arrays is not None:
+        return mesh_codes_taxids(op, code_arrays, taxid_arrays, h0, opt,
+                                 threshold)
+    codes = mesh_codes(op, code_arrays, h0, opt, threshold)
+    return None if codes is None else (codes, None)

@@ -1,5 +1,6 @@
 """common: k-mers shared by most of the binary files (port of
-unikmer_tpu/cli/commands/common.py; the host engine, ops/sets.common).
+unikmer_tpu/cli/commands/common.py; the host engine, ops/sets.common;
+``--mesh N`` the sharded engine first, parallel/sharded.py).
 
 The threshold comes from -n, or from the proportion -p of the files;
 taxids merge by LCA across files; the output is sorted.
@@ -13,7 +14,7 @@ from ... import native
 from ...ops import sets
 from ...utils.log import die
 from ._common import add_files_arg, log_saved, new_command, unik_inputs
-from ._setops import load_inputs, maybe_taxonomy, write_result
+from ._setops import load_inputs, maybe_taxonomy, mesh_route, write_result
 
 
 def register(subparsers):
@@ -54,7 +55,13 @@ def run(args) -> int:
                 )
             else:
                 code_arrays[i] = native.host_sort(code_arrays[i])
-    codes, taxids = sets.common(code_arrays, taxid_arrays, threshold, taxdb)
+    res = mesh_route("common", code_arrays, taxid_arrays, headers[0], opt,
+                     threshold)
+    if res is not None:
+        codes, taxids = res
+    else:
+        codes, taxids = sets.common(code_arrays, taxid_arrays, threshold,
+                                    taxdb)
     out_file = write_result(
         args.out_prefix, opt, headers[0], codes, taxids, sort_flag=True
     )

@@ -8,8 +8,8 @@ and messages, and the same ``.unik`` header flags and writer settings.
 (per-record taxids, LCA-merged, read with --data-dir's nodes.dmp) and
 -l (genome order, with or without -T) always run on the device through
 models/count.py; there is no size-based routing to the host engine.
---mesh, not ported yet, exits with an error that names the ROADMAP item
-bringing it.
+--mesh N (not with -l or the compat syncmer) runs the hash-range sharded
+build of parallel/sharded.py over N devices.
 """
 
 from __future__ import annotations
@@ -27,19 +27,20 @@ from ...io.fastx import (
 )
 from ...models.count import (
     CountConfig, SpilledCount, _stream_chunk_bases, count_linear,
-    count_packed_taxids, count_stream, count_stream_packed, linear_codes_all,
-    parse_taxid_records,
+    count_packed_taxids, count_stream, count_stream_packed,
+    count_taxids_from_packed, linear_codes_all, parse_taxid_records,
 )
 from ...ops.codec import MAX_K_ENCODED, MAX_K_HASHED
+from ...parallel.sharded import (
+    mesh_count_stream, mesh_count_stream_packed, mesh_count_taxids,
+)
 from ...taxonomy.taxdump import load_taxonomy
 from ...utils.log import die, log
 from ...utils.stages import stage
 from ..opts import (
-    MESH_NOT_PORTED, ensure_unik_suffix, get_file_list, get_options,
-    out_binary_stream,
+    ensure_unik_suffix, get_file_list, get_options, out_binary_stream,
 )
-from ._common import log_saved, new_command
-
+from ._common import check_mesh_devices, log_saved, new_command
 
 
 def register(subparsers):
@@ -72,12 +73,6 @@ def register(subparsers):
     p.add_argument("-l", "--linear", action="store_true",
                    help="output k-mers in linear order, duplicate k-mers are not removed")
     p.set_defaults(func=run)
-
-
-def _not_ported(args, opt) -> str | None:
-    if opt.mesh >= 1 and not args.linear:  # -l runs on one device anyway
-        return MESH_NOT_PORTED
-    return None
 
 
 def _reference_checks(args) -> bool:
@@ -130,9 +125,6 @@ def run(args) -> int:
     opt = get_options(args)
     k = args.kmer_len
     hashed, canonical = _reference_checks(args)
-    todo = _not_ported(args, opt)
-    if todo:
-        die(f"not supported by unikmer_tpu_torch yet: {todo}")
     re_taxid = (re.compile(args.parse_taxid_regexp.encode())
                 if args.parse_taxid else None)
     try:
@@ -221,10 +213,24 @@ def run(args) -> int:
     if args.linear:
         return _run_linear(args, opt, cfg, records, re_taxid, files, name_res,
                            out_file, flag, writer_kw, device)
+    mesh = opt.mesh >= 1 and not cfg.needs_record_sep
     if args.parse_taxid:
         taxdb = load_taxonomy(opt.data_dir, verbose=opt.verbose)
-        codes, taxids = count_packed_taxids(records(), cfg, re_taxid, taxdb,
-                                            device)
+        if mesh:
+            check_mesh_devices(opt)
+            # falls back to the single-device -T where the sharded build
+            # declines (unknown nonzero taxids)
+            with stage("ingest", torch.device("cpu")):
+                packed, rec_taxids = parse_taxid_records(records(), cfg,
+                                                         re_taxid)
+            res = mesh_count_taxids(packed, rec_taxids, taxdb, cfg, opt.mesh)
+            if res is None:
+                res = count_taxids_from_packed(packed, rec_taxids, cfg, taxdb,
+                                               device)
+            codes, taxids = res
+        else:
+            codes, taxids = count_packed_taxids(records(), cfg, re_taxid,
+                                                taxdb, device)
         with stage("write", torch.device("cpu")):
             out, _ = out_binary_stream(out_file)
             with unik.UnikWriter(out, flag=flag, number=len(codes),
@@ -232,7 +238,14 @@ def run(args) -> int:
                 w.write_codes(codes, taxids)
         log_saved(opt, len(codes), out_file)
         return 0
-    if not name_res and all(_native_ingest_ok(f) for f in files):
+    native_ingest = not name_res and all(_native_ingest_ok(f) for f in files)
+    if mesh:
+        check_mesh_devices(opt)
+    if mesh and native_ingest:
+        codes = mesh_count_stream_packed(packed_stream(), cfg, opt.mesh)
+    elif mesh:
+        codes = mesh_count_stream(records(), cfg, opt.mesh)
+    elif native_ingest:
         codes = count_stream_packed(packed_stream(), cfg, device=device)
     else:
         codes = count_stream(records(), cfg, device=device)

@@ -1,11 +1,15 @@
 """diff: set difference of multiple binary files (port of
-unikmer_tpu/cli/commands/diff.py; the host engine, ops/sets.subtract).
+unikmer_tpu/cli/commands/diff.py; the host engine, ops/sets.subtract;
+``--mesh N`` without --compare-taxid the sharded engine first,
+parallel/sharded.py, keeping the query's taxids).
 
 The first file must be sorted; --compare-taxid keeps a matched query
 k-mer when the target taxid equals the query's or is its descendant.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ...io.unik import check_compatibility
 from ...ops import sets
@@ -14,7 +18,7 @@ from ._common import (
     add_files_arg, effective_taxids, log_saved, new_command, open_reader,
     unik_inputs,
 )
-from ._setops import maybe_taxonomy, write_result
+from ._setops import maybe_taxonomy, mesh_route, write_result
 
 
 def register(subparsers):
@@ -63,14 +67,22 @@ def run(args) -> int:
             other_codes.append(codes)
             other_tax.append(taxids)
 
-    codes, taxids = sets.subtract(
-        q_codes,
-        q_tax,
-        other_codes,
-        other_tax if has_taxid else None,
-        compare_taxid=args.compare_taxid,
-        taxdb=taxdb,
-    )
+    res = None if args.compare_taxid else mesh_route(
+        "diff", [q_codes] + other_codes,
+        None if q_tax is None else [q_tax] + [
+            t if t is not None else np.zeros(len(c), np.uint32)
+            for c, t in zip(other_codes, other_tax)], h0, opt)
+    if res is not None:
+        codes, taxids = res
+    else:
+        codes, taxids = sets.subtract(
+            q_codes,
+            q_tax,
+            other_codes,
+            other_tax if has_taxid else None,
+            compare_taxid=args.compare_taxid,
+            taxdb=taxdb,
+        )
     out_file = write_result(
         args.out_prefix, opt, h0, codes, taxids, sort_flag=args.sort
     )

@@ -19,6 +19,16 @@ record, or a file under -W): one stable K3 sort of (hit code, hit
 ordinal), in which a unit's hits of one code sit together.  The region
 state machine then runs on the host over match runs, as in the JAX
 package.
+
+Admission: a genome file whose joined buffer passes
+``element_budget("map", device)`` (a slot a base, less the query set's
+sign-flipped copy that the search makes) takes the JAX package's route:
+its windows come from models/count.linear_codes_all (one piece on the
+card at a time, fetched), and membership, hit runs and terminators are
+computed on the host against the fetched query set (np.searchsorted
+over the windows in sorted order, the native stable argsort), as
+unikmer_tpu/cli/commands/map.py does.  The output bytes are the same on
+both routes.
 """
 
 from __future__ import annotations
@@ -28,11 +38,14 @@ import sys
 import numpy as np
 import torch
 
+from ... import native
 from ..._device import get_device
-from ...models.count import CountConfig, linear_codes_device
+from ...models.count import (
+    CountConfig, linear_codes_all, linear_codes_device,
+)
 from ...models.locate import joined_bases, read_genome_records
 from ...ops.codec import SENTINEL
-from ...ops.device_sets import _first, _lookup, _to_device
+from ...ops.device_sets import _first, _lookup, _to_device, element_budget
 from ...ops.radix_sort import radix_sort_kv_u64
 from ...ops.sort import collapse_sorted
 from ...utils.log import die, log
@@ -42,6 +55,7 @@ from ._common import add_files_arg, new_command, open_reader, unik_inputs
 from .locate import HOST, name_filters
 
 MAX_HITS = 1 << 32  # K3's values are u32 hit ordinals
+SENT = np.uint64((1 << 64) - 1)  # CODE_SENTINEL on the host route
 
 
 def register(subparsers):
@@ -124,6 +138,8 @@ def run(args) -> int:
             else:
                 multi_of = nonempty[fi] if fi < len(nonempty) else -1
             match, term, starts = scan.masks(fi, multi_of)
+            if opt.verbose:
+                log.info(f"map route of {gf}: {scan.routes[fi]}")
             with stage("map regions", HOST):
                 for (rec, seq), s in zip(by_file[fi], starts):
                     n = len(seq) - k + 1
@@ -156,17 +172,27 @@ class GenomeScan:
                  device: torch.device, whole_file: bool):
         self.by_file, self.cfg, self.query = by_file, cfg, query
         self.device, self.whole_file = device, whole_file
-        self._multi: dict[int, torch.Tensor] = {}
+        self._multi: dict[int, torch.Tensor | np.ndarray] = {}
+        self._host_query: np.ndarray | None = None
+        self.routes: dict[int, str] = {}  # "device" or "host", a file
 
     def _windows(self, fi: int):
         """(codes, match, hit positions, starts) of file fi: each
         window's code over the joined records (CODE_SENTINEL where
         invalid or across records), its membership in the query set, the
-        in-record windows that match, and the records' starts."""
+        in-record windows that match, and the records' starts; tensors on
+        the device route, numpy arrays on the host route."""
         dev, k = self.device, self.cfg.k
         seqs = [seq for _, seq in self.by_file[fi]]
         bases, starts = joined_bases(seqs)
         n = len(bases)
+        ends = starts + np.fromiter((len(s) for s in seqs), np.int64,
+                                    len(seqs)) - k + 1
+        if n > element_budget("map", dev,
+                              table_bytes=8 * self.query.shape[0]):
+            self.routes[fi] = "host"
+            return self._windows_host(bases, starts, ends)
+        self.routes[fi] = "device"
         with stage("map encode", dev):
             codes, pos = linear_codes_device(bases, self.cfg, device=dev)
             dense = torch.full((n,), SENTINEL, dtype=torch.int64, device=dev)
@@ -175,8 +201,6 @@ class GenomeScan:
         with stage("map member", dev):
             _, match = _lookup(self.query, dense)
             # the windows inside a record: [start, start + len - k]
-            ends = starts + np.fromiter((len(s) for s in seqs), np.int64,
-                                        len(seqs)) - k + 1
             edge = torch.zeros(n + 1, dtype=torch.int32, device=dev)
             edge[torch.from_numpy(starts).to(dev)] = 1
             edge[torch.from_numpy(ends).to(dev)] = -1
@@ -184,10 +208,44 @@ class GenomeScan:
             hits = torch.nonzero(match & inrec).squeeze(1)
         return dense, match, hits, starts
 
+    def _windows_host(self, bases, starts, ends):
+        """:meth:`_windows` on the host route: the windows fetched a piece
+        at a time, the rest numpy."""
+        n = len(bases)
+        with stage("map encode", self.device):
+            codes, pos = linear_codes_all(bases, self.cfg, device=self.device)
+        with stage("map member", HOST):
+            dense = np.full(n, SENT, np.uint64)
+            dense[pos] = codes
+            del codes, pos
+            if self._host_query is None:
+                q = self.query.cpu()
+                self._host_query = q.numpy().view(np.uint64)
+            match = _member_np(self._host_query, dense)
+            edge = np.zeros(n + 1, np.int32)
+            edge[starts] = 1
+            edge[ends] = -1
+            inrec = np.cumsum(edge)[:n] > 0
+            hits = np.flatnonzero(match & inrec)
+        return dense, match, hits, starts
+
     def _hit_runs(self, dense, hits, starts):
         """(sorted hit codes, their hit ordinals as int64, mask of hits
         whose (code, unit) is hit at least twice): K3 over (code,
-        ordinal), stable, so a unit's hits of one code sit together."""
+        ordinal), stable, so a unit's hits of one code sit together (the
+        host's stable argsort on the host route)."""
+        if isinstance(dense, np.ndarray):
+            with stage("map multi", HOST):
+                sc, so = native.host_argsort(dense[hits])
+                so = so.astype(np.int64)
+                same = sc[1:] == sc[:-1]
+                if not self.whole_file:
+                    unit = np.searchsorted(starts, hits[so], side="right")
+                    same &= unit[1:] == unit[:-1]
+                multi = np.zeros(len(hits), bool)
+                multi[1:] |= same
+                multi[:-1] |= same
+            return sc, so, multi
         dev = self.device
         m = hits.shape[0]
         if m >= MAX_HITS:
@@ -208,13 +266,17 @@ class GenomeScan:
             multi[:-1] |= same
         return sc, so, multi
 
-    def multi_set(self, fi: int) -> torch.Tensor:
-        """The sorted codes hit at least twice in file fi (-W's unit)."""
+    def multi_set(self, fi: int):
+        """The sorted codes hit at least twice in file fi (-W's unit): a
+        tensor where fi took the device route, else numpy."""
         if fi not in self._multi:
             dense, _, hits, starts = self._windows(fi)
             sc, _, multi = self._hit_runs(dense, hits, starts)
             sc = sc[multi]
-            self._multi[fi] = sc[_first(sc)]
+            if isinstance(sc, np.ndarray):
+                self._multi[fi] = np.unique(sc)
+            else:
+                self._multi[fi] = sc[_first(sc)]
         return self._multi[fi]
 
     def masks(self, fi: int, multi_of: int | None):
@@ -224,19 +286,45 @@ class GenomeScan:
         multi_of, or none (multi_of None or -1)."""
         dev = self.device
         dense, match, hits, starts = self._windows(fi)
+        host = isinstance(dense, np.ndarray)
         if multi_of == fi:
             _, so, multi = self._hit_runs(dense, hits, starts)
-            term = torch.zeros_like(match)
+            term = np.zeros_like(match) if host else torch.zeros_like(match)
             term[hits[so]] = multi
         elif multi_of is not None and multi_of >= 0:
-            term = _lookup(self.multi_set(multi_of), dense)[1] & match
+            ms = self.multi_set(multi_of)
+            if host:
+                if isinstance(ms, torch.Tensor):
+                    ms = ms.cpu().numpy().view(np.uint64)
+                term = _member_np(ms, dense) & match
+            else:
+                if isinstance(ms, np.ndarray):
+                    ms = _to_device(ms, dev)
+                term = _lookup(ms, dense)[1] & match
         else:
             term = None
+        if host:
+            return match, (np.zeros(len(match), bool) if term is None
+                           else term), starts
         with stage("map fetch", dev):
             match_np = match.cpu().numpy()
             term_np = (np.zeros(len(match_np), bool) if term is None
                        else term.cpu().numpy())
         return match_np, term_np, starts
+
+
+def _member_np(ref: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """Membership of vals in the sorted ``ref``: np.searchsorted over the
+    values in sorted order (the host's stable radix argsort first), so
+    the searches walk ``ref`` in order instead of missing the cache at
+    nearly every step."""
+    if len(ref) == 0:
+        return np.zeros(len(vals), bool)
+    s, order = native.host_argsort(vals)
+    idx = np.minimum(np.searchsorted(ref, s), len(ref) - 1)
+    out = np.empty(len(vals), bool)
+    out[order] = ref[idx] == s
+    return out
 
 
 def _map_one(rec, k, seq, match, term, args, out):

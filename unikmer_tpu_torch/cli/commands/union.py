@@ -6,14 +6,15 @@ ops/device_sets.union_taxids_device: one K3 sort and the compact-id LCA
 rounds, on the card and on the CPU alike.  The host engine
 (ops/sets.union) answers where that route returns None (unknown nonzero
 taxids, a real 2^64-1 code) and for inputs without taxids; the bytes are
-the JAX CLI's either way.
+the JAX CLI's either way.  ``--mesh N`` takes the sharded engine
+(parallel/sharded.py) first, these routes where it returns None.
 """
 
 from __future__ import annotations
 
 from ...ops import sets
 from ._common import add_files_arg, log_saved, new_command, unik_inputs
-from ._setops import load_inputs, maybe_taxonomy, write_result
+from ._setops import load_inputs, maybe_taxonomy, mesh_route, write_result
 
 
 def register(subparsers):
@@ -30,9 +31,9 @@ def register(subparsers):
 def run(args) -> int:
     opt, files = unik_inputs(args)
     headers, code_arrays, taxid_arrays, has_taxid = load_inputs(files, opt)
+    res = mesh_route("union", code_arrays, taxid_arrays, headers[0], opt)
     taxdb = maybe_taxonomy(opt, has_taxid and len(files) > 1)
-    res = None
-    if taxdb is not None:
+    if res is None and taxdb is not None:
         from ...ops.device_sets import union_taxids_device
 
         h0 = headers[0]

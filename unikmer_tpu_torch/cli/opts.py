@@ -30,11 +30,7 @@ class Options:
     data_dir: str = DEFAULT_DATA_DIR
     skip_flag_check: bool = False
     skip_file_check: bool = False
-    mesh: int = 0
-
-
-# --mesh is parsed but not ported: the subcommands exit with this
-MESH_NOT_PORTED = "--mesh (multi-GPU over NCCL): ROADMAP.md queue 1 item 9"
+    mesh: int = 0  # >= 1: shard count/union/inter/diff/common over N devices
 
 
 def add_global_flags(p: argparse.ArgumentParser) -> None:
@@ -62,8 +58,11 @@ def add_global_flags(p: argparse.ArgumentParser) -> None:
                    help="skip checking input file existence")
     g.add_argument("--mesh", type=int,
                    default=int(os.environ.get("UNIKMER_TPU_MESH", "0")),
-                   help="shard across a mesh of this many devices (not "
-                        "ported yet: only 0)")
+                   help="shard count/union/inter/diff across a device mesh "
+                        "of this many chips (0 = single-device path; 1 = "
+                        "trivial 1-device mesh, same sharded programs; "
+                        "needs >= N attached devices; no TPU scope: taxid "
+                        "columns, sketches, -l/linear order)")
 
 
 def get_options(args: argparse.Namespace) -> Options:

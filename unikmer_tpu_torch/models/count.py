@@ -493,21 +493,22 @@ def count_stream(records, cfg: CountConfig, chunk_bases: int | None = None,
     device = get_device(device)
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
+    return count_stream_packed(packed_chunks(records, cfg, chunk_bases), cfg,
+                               chunk_bases, device)
 
-    def packed_chunks():
-        buf: list = []
-        buffered = 0
-        for rec in records:
-            buf.append(rec)
-            buffered += len(rec.seq)
-            if buffered >= chunk_bases:
-                yield pack_records(buf, cfg.k, cfg.circular,
-                                   gap=cfg.record_gap)
-                buf, buffered = [], 0
-        if buf:
+
+def packed_chunks(records, cfg: CountConfig, chunk_bases: int):
+    """FASTA/Q records packed in chunks of about ``chunk_bases`` bases."""
+    buf: list = []
+    buffered = 0
+    for rec in records:
+        buf.append(rec)
+        buffered += len(rec.seq)
+        if buffered >= chunk_bases:
             yield pack_records(buf, cfg.k, cfg.circular, gap=cfg.record_gap)
-
-    return count_stream_packed(packed_chunks(), cfg, chunk_bases, device)
+            buf, buffered = [], 0
+    if buf:
+        yield pack_records(buf, cfg.k, cfg.circular, gap=cfg.record_gap)
 
 
 # ---------------------------------------------------------------------
@@ -692,14 +693,28 @@ def count_taxids_stream_device(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
         chunk_bases = _stream_chunk_bases(device)
     dplan = upload_plan(plan, device)
     rec_ctax = compact_ids(plan[1], rec_taxids)
+
+    def collapse(piece, off, modes):
+        return _device_taxid_collapse(packed, rec_ctax, piece, off, cfg,
+                                      dplan, device, modes)
+
+    return stream_taxid_pieces(packed, cfg, taxdb, chunk_bases, collapse)
+
+
+def stream_taxid_pieces(packed: PackedSeqs, cfg: CountConfig, taxdb,
+                        chunk_bases: int, collapse):
+    """The -T reduction of a packed input in pieces of ``chunk_bases``:
+    ``collapse(piece, offset, modes)`` gives a piece's host (codes,
+    taxids) for each of ``modes`` (its distinct set, LCA-merged, and for
+    -u/-d its within-piece repeated codes); the pieces merge on the
+    host with one lca_reduce and the capped-multiplicity rule."""
     capped = cfg.mode in ("unique", "repeated")
     modes = ("distinct", "repeated") if capped else ("distinct",)
     parts_c, parts_t, parts_rep = [], [], []
     for piece, off in split_packed(packed, chunk_bases,
                                    cfg.k if cfg.segmentable else 0,
                                    yield_offsets=True):
-        res = _device_taxid_collapse(packed, rec_ctax, piece, off, cfg,
-                                     dplan, device, modes)
+        res = collapse(piece, off, modes)
         parts_c.append(res[0][0])
         parts_t.append(res[0][1])
         if capped:

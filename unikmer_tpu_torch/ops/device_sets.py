@@ -56,13 +56,15 @@ _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
 # result included), from torch.cuda.reset_peak_memory_stats and
 # max_memory_allocated, rounded up: ``python -m unikmer_tpu_torch.slot_bytes``
 # on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6).  A
-# slot is a base for from_fasta and for the genome index (of the buffer
-# that joins its records), a code of the concatenated inputs for the
-# taxid union, a padded query slot for membership, else a slot of the
-# input capacities (their sum; for common, the largest times the set
-# count).  The taxid union's tiers are measured with every code in 8
-# inputs (each slot takes part in the merge rounds) and without their
-# uploaded table, which element_budget takes off the free bytes.
+# slot is a base for from_fasta, and for the genome index and map of the
+# buffer that joins a genome file's records; a code of the concatenated
+# inputs for the taxid union, a padded query slot for membership, else a
+# slot of the input capacities (their sum; for common, the largest times
+# the set count).  map's peak excludes its query set, which it takes off
+# the free bytes as a table.  The taxid union's tiers are measured with
+# every code in 8 inputs (each slot takes part in the merge rounds) and
+# without their uploaded table, which element_budget takes off the free
+# bytes.
 SLOT_BYTES = {
     "from_fasta": 54,
     "from_codes": 46,
@@ -80,6 +82,7 @@ SLOT_BYTES = {
     "union_taxids_paths": 100,
     "membership": 18,
     "genome_index": 45,
+    "map": 47,
 }
 # The paths tier's merge rounds gather an (m, Dp) int32 path row for each
 # merging slot and make temporaries of that shape, so its bytes a slot
@@ -312,18 +315,28 @@ def union_with_taxids(a, ta, b, tb, parent, depth, max_depth: int,
     return _compact_mask_with(s_codes, s_tax, keep)
 
 
-def union_taxids_compact(codes, ctax, lca_tab, kind: str = "table",
-                         code_bits: int = 64):
-    """N-way union with an LCA-merged compact-id column: feed the
-    concatenation of the (each deduplicated) inputs, sentinel-padded with
-    ctax 0 on padding; one K3 sort and the compact-id LCA rounds
+def setop_taxids_compact(codes, ctax, lca_tab, kind: str = "table",
+                         threshold: int = 1, code_bits: int = 64):
+    """Threshold set algebra with an LCA-merged compact-id column: feed
+    the concatenation of the (each deduplicated) inputs, sentinel-padded
+    with ctax 0 on padding; one K3 sort and the compact-id LCA rounds
     (taxonomy/lca.collapse_keyed_taxids, ``kind`` 'table' or 'paths')
-    merge each run, and every run with a valid member is kept.  The merge
-    rounds are counted from the data, so no ``rounds`` is passed.
-    Returns (codes, compact ids, n)."""
+    merge each run, and a run with at least ``threshold`` valid members
+    is kept: 1 is the union, the input count the intersection, n
+    ``common -n``.  The merge rounds are counted from the data, so no
+    ``rounds`` is passed.  Returns (codes, compact ids, n)."""
     s_codes, tax, first, run_valid, _ = collapse_keyed_taxids(
         codes, ctax, codes != SENTINEL, lca_tab, kind, code_bits)
-    return _compact_mask_with(s_codes, tax, first & (run_valid > 0))
+    return _compact_mask_with(s_codes, tax,
+                              first & (run_valid >= max(int(threshold), 1)))
+
+
+def union_taxids_compact(codes, ctax, lca_tab, kind: str = "table",
+                         code_bits: int = 64):
+    """N-way union with an LCA-merged compact-id column: the threshold-1
+    case of :func:`setop_taxids_compact`.  Returns (codes, compact ids,
+    n)."""
+    return setop_taxids_compact(codes, ctax, lca_tab, kind, 1, code_bits)
 
 
 def union_taxids_device(code_arrays, taxid_arrays, taxdb,

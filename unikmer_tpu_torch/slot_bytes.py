@@ -4,16 +4,21 @@
 
 For every key of ops/device_sets.SLOT_BYTES this builds the route's
 inputs on the card (sets of about 2^25 codes, as chip_smoke.py's sets
-path; from_fasta and the genome index over 4 seeded records of 2^25
-bases, 4 pieces), lets the caching allocator start clean
+path; from_fasta, the genome index and map over 4 seeded records of
+2^25 bases, 4 pieces), lets the caching allocator start clean
 (``torch.cuda.empty_cache`` and ``reset_peak_memory_stats``), runs the
 route once through its public entry (a KmerSet operator,
 ``KmerSet.from_fasta`` / ``from_codes``, ``union_taxids_device``,
-``DeviceMembership``, ``build_genome_index``), and reads
+``DeviceMembership``, ``build_genome_index``, map's
+``GenomeScan.masks``), and reads
 ``max_memory_allocated`` less what was allocated before: the inputs that
 were already resident are not counted, the result is.  Dividing by the
 route's slots (device_sets.SLOT_BYTES says which) gives the bytes a slot
-that the element budget divides the free bytes by.
+that the element budget divides the free bytes by.  map runs with every
+window of the genome in its resident query set (every window a hit, so
+its terminator sort takes them all), and its peak is counted less the
+query set's bytes, which the route takes off the free bytes as a table
+(the sign-flipped copy its search makes).
 
 The taxid union runs over 2^24 slots, every code in 8 inputs so that
 every slot merges, with taxids from a chain taxonomy (a paths table as
@@ -145,10 +150,33 @@ def measure(dev, log2_codes: int = 25, seed: int = 20261017) -> dict:
         # the joined buffer: the 4 records and a separator after each
         out["genome_index"] = (4 * (n + 1), peak_above(
             lambda: build_genome_index([fa], 23, hashed=False, device=dev)))
+        out["map"] = map_peak(fa, dev)
     missing = set(device_sets.SLOT_BYTES) - {
         key.split("@")[0] for key in out}
     assert not missing, missing
     return out
+
+
+def map_peak(fa: str, dev) -> tuple:
+    """(joined bases, peak bytes less the query set's) of map's device
+    route over the records of ``fa``, every window in the query set."""
+    from .api import KmerSet
+    from .cli.commands.map import GenomeScan, query_set
+    from .models.count import CountConfig
+    from .models.locate import read_genome_records
+
+    codes = KmerSet.from_fasta(fa, 23, canonical=True, device=dev).to_numpy()
+    query = query_set([codes], dev)
+    del codes
+    recs = [(rec, seq) for _, rec, seq in read_genome_records([fa], 23, False,
+                                                         None)]
+    scan = GenomeScan([recs], CountConfig(k=23, canonical=True), query, dev,
+                      whole_file=False)
+    slots = sum(len(seq) + 1 for _, seq in recs)
+    peak = peak_above(lambda: scan.masks(0, 0))
+    if scan.routes[0] != "device":
+        raise SystemExit(f"map took the {scan.routes[0]} route")
+    return slots, peak - 8 * query.shape[0]
 
 
 def chain_taxonomy(depth: int):
