@@ -93,6 +93,22 @@ holds their results against oracles:
             output is held to its single-device twin's (``mesh_path``),
             each run timed with its peak beside the twin in the ``mesh``
             line;
+  distributed
+            pipeline/distributed.py in rank processes of this script
+            (``chip_smoke.py --rank``), 4 shards in all: one NCCL rank
+            with 4 shards on the card, ``sharded_count_distinct -k 23
+            -K`` of the main FASTA written as 4 files, and
+            ``sharded_union_counts`` / ``sharded_union_taxids`` of the
+            sets path's A and B; two gloo ranks sharing the card, 2
+            shards each, for the same count, ``-k 31 -W 15`` of the
+            first file alone (the second rank reads none) and T1's -T
+            build from its global rows.  Each shard is held to its range
+            of the main path's .unik, the single-device output or
+            KmerSet's union; each rank prints its start-up split
+            (interpreter and imports, CUDA context, kernel load,
+            init_process_group), its stages and peak, and the
+            ``distributed`` line times each run beside its
+            single-process twin (``distributed_path``);
   probes    ``python -m unikmer_tpu_torch.probes``: P1a-P2b at the sizes
             of scripts/exp_pallas_dma*.py, each kernel held to its plain
             version inside the entry point.
@@ -3194,6 +3210,452 @@ def mesh_path(tmp, inputs: dict, dev, shards: int = MESH_SHARDS) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# distributed: rank processes over torch.distributed (pipeline/distributed.py)
+
+DIST_SHARDS = 4  # D of every run; L = D / W local shards a rank
+RANK_TIMEOUT = 300  # seconds a rank process may take
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_reference(run: dict):
+    """(codes, taxids or None) a run's shards must hold: a .unik file's
+    codes, or .npy files the parent wrote."""
+    if run["ref"].endswith(".unik"):
+        return read_unik(run["ref"])[1], None
+    codes = np.load(run["ref"])
+    return codes, (np.load(run["ref_taxids"]) if "ref_taxids" in run
+                   else None)
+
+
+def rank_count(run, group, mesh, dev):
+    """(a)-(c): sharded_count_distinct over the run's files ->
+    {shard: (codes, None)} of this rank's shards, fetched."""
+    from unikmer_tpu_torch.models.count import CountConfig
+    from unikmer_tpu_torch.pipeline import distributed
+    from unikmer_tpu_torch.utils.stages import stage
+
+    res = distributed.sharded_count_distinct(
+        run["files"], CountConfig(**run["cfg"]), mesh, group=group)
+    with stage("d2h", dev):
+        return {g: (c[: int(n)].cpu().numpy().view(np.uint64), None)
+                for g, c, n in res}
+
+
+def rank_taxids(run, group, mesh, dev):
+    """(d): every rank makes T1's global halo rows and LCA plan, then
+    supplies its own rows to build_sharded_taxids -> {shard: (codes,
+    taxids)}."""
+    from unikmer_tpu_torch.models.count import CountConfig
+    from unikmer_tpu_torch.parallel import sharded
+    from unikmer_tpu_torch.taxonomy.lca import (
+        compact_ids, device_lca_plan, upload_plan,
+    )
+    from unikmer_tpu_torch.utils.stages import stage
+
+    cfg = CountConfig(**run["cfg"])
+    packed, rec_taxids, taxdb = run["inputs"]
+    plan = device_lca_plan(taxdb, rec_taxids)
+    spans = np.diff(np.append(packed.starts, len(packed.bases)))
+    pos_ctax = np.repeat(compact_ids(plan[1], rec_taxids), spans)
+    d, first = sharded.group_shards(mesh, group)
+    front, back = sharded.shard_halos(cfg)
+    mine = slice(first, first + len(mesh))
+    rows = sharded.pack_host_shards(packed.bases, d, cfg.k, front, back)[mine]
+    trows = sharded.pack_host_rows(pos_ctax, d, front, back,
+                                   np.int32(0))[mine]
+    (res,) = sharded.build_sharded_taxids(
+        rows, trows, cfg, mesh, {dev: upload_plan(plan, dev)}, group)
+    with stage("d2h", dev):
+        return {first + i: (c[: int(n)].cpu().numpy().view(np.uint64),
+                            plan[1][t[: int(n)].cpu().numpy()])
+                for i, (c, t, n) in enumerate(res)}
+
+
+def rank_unions(run, group, mesh, dev):
+    """(e): sharded_union_counts, or with taxids sharded_union_taxids,
+    over A and B partitioned into this rank's shards -> {shard: (codes,
+    taxids or None)}, and the total."""
+    from unikmer_tpu_torch.parallel import sharded
+    from unikmer_tpu_torch.taxonomy.lca import device_tables
+    from unikmer_tpu_torch.utils.stages import stage
+
+    (a, ta), (b, tb), taxdb = run["inputs"]
+    d, first = sharded.group_shards(mesh, group)
+    mine = slice(first, first + len(mesh))
+    with stage("partition", dev):
+        (ra, rta), (rb, rtb) = sharded._partition(
+            [a, b], d, run["code_bits"], [ta, tb])[0]
+        sa, sb = (sharded._upload(mesh, r[mine]) for r in (ra, rb))
+    if run["taxids"]:
+        sta, stb = (sharded._upload(mesh, r[mine].view(np.int32), np.int32)
+                    for r in (rta, rtb))
+        parent, depth, max_depth = device_tables(taxdb, dev)
+        res, total = sharded.sharded_union_taxids(sa, sta, sb, stb, parent,
+                                                  depth, max_depth, group)
+    else:
+        res, total = sharded.sharded_union_counts(sa, sb, run["code_bits"],
+                                                  group)
+        res = [(c, None, n) for c, n in res]
+    with stage("d2h", dev):
+        out = {first + i: (c[: int(n)].cpu().numpy().view(np.uint64),
+                           None if t is None
+                           else t[: int(n)].cpu().numpy().astype(np.uint32))
+               for i, (c, t, n) in enumerate(res)}
+        return out, int(total)
+
+
+def rank_setup(run: dict, dev):
+    """Load what a run reads before its timed part: T1 parsed with the
+    taxonomy, or the sets A and B with their twin (KmerSet's union, timed
+    here) as the reference."""
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
+
+    if run["kind"] == "taxids":
+        from unikmer_tpu_torch.io.fastx import read_fastx
+        from unikmer_tpu_torch.models.count import (
+            CountConfig, parse_taxid_records,
+        )
+
+        packed, rec_taxids = parse_taxid_records(
+            read_fastx(run["fa"]), CountConfig(**run["cfg"]),
+            re.compile(RE_TAXID.encode()))
+        run["inputs"] = packed, rec_taxids, load_taxonomy(run["taxdump"])
+        return rank_reference(run), None
+    if run["kind"] == "unions":
+        from unikmer_tpu_torch import KmerSet
+
+        taxdb = load_taxonomy(run["taxdump"])
+        ab = [(np.load(c), np.load(t)) for c, t in run["sets"]]
+        run["inputs"] = (*ab, taxdb)
+        kw = dict(canonical=True, assume_sorted_unique=True, device=dev)
+        sets = [KmerSet.from_codes(c, 23, taxids=t if run["taxids"] else None,
+                                   taxdb=taxdb, **kw) for c, t in ab]
+        sync_card(dev)
+        t0 = time.perf_counter()
+        u = sets[0] | sets[1]
+        want = (u.to_numpy(), u.taxids_to_numpy())
+        return want, round(time.perf_counter() - t0, 4)
+    return rank_reference(run), None
+
+
+def sync_card(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rank_run(run, group, mesh, dev) -> dict:
+    """One run of a rank: set-up, then the run timed with its launches
+    zeroed just before and read just after, its stages and its peak;
+    each of this rank's shards held to the reference's codes of the
+    shard's range (for (e): the whole union, all 4 shards lie here)."""
+    import torch.distributed as dist
+
+    from unikmer_tpu_torch.models.count import CountConfig
+    from unikmer_tpu_torch.parallel.sharded import partition_boundaries
+    from unikmer_tpu_torch.utils.stages import record_stages
+
+    (want, want_t), single_s = rank_setup(run, dev)
+    fn = {"count": rank_count, "taxids": rank_taxids,
+          "unions": rank_unions}[run["kind"]]
+    wrappers = encode_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier(group)
+    with record_stages() as st:
+        t0 = time.perf_counter()
+        got = fn(run, group, mesh, dev)
+        sync_card(dev)
+        secs = time.perf_counter() - t0
+    row = {"s": round(secs, 4),
+           "stages": {k: round(v, 4) for k, v in st.seconds.items()},
+           "launches": {k: w.launches for k, w in wrappers.items()}}
+    if dev.type == "cuda":
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - resident
+    if single_s is not None:
+        row["single_s"] = single_s
+    if run["kind"] == "unions":
+        got, row["total"] = got
+        gc = np.concatenate([got[g][0] for g in sorted(got)])
+        exact = row["total"] == len(want) and np.array_equal(gc, want)
+        if run["taxids"]:
+            exact = exact and np.array_equal(
+                np.concatenate([got[g][1] for g in sorted(got)]), want_t)
+    else:
+        cfg = CountConfig(**run["cfg"])
+        bnd = partition_boundaries(DIST_SHARDS, cfg, cfg.code_bits)
+        cuts = np.append(np.searchsorted(want, bnd), len(want))
+        exact = all(
+            np.array_equal(c, want[cuts[g]: cuts[g + 1]])
+            and (t is None or np.array_equal(
+                t.astype(np.uint32), want_t[cuts[g]: cuts[g + 1]]))
+            for g, (c, t) in got.items())
+    row["exact"] = bool(exact)
+    row["shards"] = {int(g): len(c) for g, (c, _) in got.items()}
+    return row
+
+
+def rank_main(spec_path: str, rank: int) -> int:
+    """A rank process of the distributed phase: its start-up split, then
+    each run of the spec (module docstring) over its local shards;
+    prints its lines and one RANK json line."""
+    import torch.distributed as dist
+
+    from unikmer_tpu_torch import _kernels
+    from unikmer_tpu_torch.parallel.mesh import make_mesh
+    from unikmer_tpu_torch.pipeline import distributed
+
+    spawn = float(os.environ["CHIP_SMOKE_SPAWN"])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    split = {"interpreter and imports": time.time() - spawn}
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.empty(1, device=dev)
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    if dev.type == "cuda":
+        _kernels.load()
+    t2 = time.perf_counter()
+    group = distributed.initialize(f"127.0.0.1:{spec['port']}",
+                                   spec["world"], rank, spec["backend"])
+    t3 = time.perf_counter()
+    split.update({"cuda context": t1 - t0, "kernels load": t2 - t1,
+                  "init_process_group": t3 - t2})
+    split = {k: round(v, 4) for k, v in split.items()}
+    backend = dist.get_backend(group)
+    say(f"rank {rank}/{spec['world']} ({backend}) start-up s: "
+        + json.dumps(split))
+    mesh = make_mesh(devices=[dev] * (DIST_SHARDS // spec["world"]))
+    runs = {}
+    for run in spec["runs"]:
+        runs[run["name"]] = rank_run(run, group, mesh, dev)
+        say(f"rank {rank} {run['name']}: " + json.dumps(runs[run["name"]]))
+    dist.destroy_process_group()
+    say("RANK " + json.dumps({"rank": rank, "backend": backend,
+                              "start_up_s": split, "runs": runs}))
+    return 0
+
+
+def start_ranks(tmp: str, name: str, world: int, backend, runs, dev):
+    """Run ``world`` rank processes of this script over ``runs``.  A rank
+    that exits non-zero, or runs past RANK_TIMEOUT, stops the others and
+    fails the phase.  Prints the ranks' lines; returns their RANK lines."""
+    spec = os.path.join(tmp, f"ranks_{name}.json")
+    with open(spec, "w") as f:
+        json.dump({"port": free_port(), "world": world, "backend": backend,
+                   "device": str(dev), "runs": runs}, f)
+    env = dict(os.environ, UNIKMER_TPU_TORCH_DEVICE=dev.type,
+               LOCAL_RANK=str(dev.index or 0),
+               CHIP_SMOKE_SPAWN=repr(time.time()))
+    logs = [os.path.join(tmp, f"ranks_{name}.{r}.log") for r in range(world)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", spec,
+                 str(r)], stdout=out, stderr=subprocess.STDOUT, env=env))
+    deadline = time.time() + RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    lines = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as f:
+            out = f.read().splitlines()
+        os.remove(log)
+        for ln in out:
+            if not ln.startswith("RANK "):
+                say(f"  [{name} rank {r}] {ln}")
+        if p.returncode != 0:
+            raise SystemExit(f"distributed {name}: rank {r} exited "
+                             f"{p.returncode} (timeout {RANK_TIMEOUT} s)")
+        lines.append(json.loads([ln for ln in out
+                                 if ln.startswith("RANK ")][0][5:]))
+    os.remove(spec)
+    return lines
+
+
+def distributed_path(tmp, inputs: dict, dev) -> dict:
+    """pipeline/distributed.py in rank processes of this script, D = 4
+    shards in every run, each output held exactly to its reference:
+
+      (a)  one rank (NCCL on the card, gloo on the CPU), 4 local shards:
+           sharded_count_distinct -k 23 -K over the main FASTA's records
+           written as 4 files; the main path's .unik codes, shard by
+           shard (its range)
+      (b)  two gloo ranks on the same device, 2 shards each: as (a),
+           rank r reading files r and r + 2
+      (c)  as (b), -k 31 -W 15 over the first record alone (rank 1 reads
+           no file): the single-device count of it
+      (d)  as (b), T1's -T build: every rank makes T1's 4 global rows
+           and LCA plan and supplies its own two (build_sharded_taxids):
+           count_taxids_from_packed's output
+      (e)  as (a): sharded_union_counts and sharded_union_taxids of the
+           sets path's A and B (their per-code taxids): KmerSet's A | B,
+           the tree walk for the taxids, and the totals
+
+    The single-process twins of (a)-(d) run here first, timed: (a) and
+    (b) the same sharded_count_distinct with no group over 4 shards,
+    (c) count_packed, (d) count_taxids_from_packed; (e)'s, KmerSet's
+    union, in the rank process.  ``inputs``: "fa", "k23", "taxdump",
+    "t1" (T1's FASTA, removed here) and "a", "b" ((codes, taxids)).
+    Returns {"launches": the rank processes' launches, "row": the
+    distributed line}."""
+    from unikmer_tpu_torch.io.fastx import pack_files, read_fastx
+    from unikmer_tpu_torch.models.count import (
+        CountConfig, count_packed, count_taxids_from_packed,
+        parse_taxid_records,
+    )
+    from unikmer_tpu_torch.parallel.mesh import make_mesh
+    from unikmer_tpu_torch.pipeline import distributed
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
+    from unikmer_tpu_torch.utils.stages import record_stages, stage
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    files = []
+    for i, rec in enumerate(read_fastx(inputs["fa"])):
+        files.append(os.path.join(tmp, f"dist{i}.fa"))
+        with open(files[-1], "wb") as f:
+            f.write(b">" + rec.name + b"\n" + rec.seq + b"\n")
+    k23 = dict(k=23, canonical=True)
+    sketch = dict(k=SKETCH_K, minimizer_w=SKETCH_W)
+    twins = {}
+
+    def twin(name, fn):
+        """fn() timed with its stages recorded, as a rank records its run."""
+        sync_card(dev)
+        with record_stages() as st:
+            t0 = time.perf_counter()
+            out = fn()
+            sync_card(dev)
+        twins[name] = {"s": round(time.perf_counter() - t0, 4), "stages": {
+            k: round(v, 4) for k, v in st.seconds.items()}}
+        return out
+
+    def count_4_shards():
+        res = distributed.sharded_count_distinct(
+            files, CountConfig(**k23), make_mesh(devices=[dev] * DIST_SHARDS))
+        with stage("d2h", dev):
+            return np.concatenate([c[: int(n)].cpu().numpy().view(np.uint64)
+                                   for _, c, n in res])
+
+    # the twins, and the references the rank processes read
+    want = read_unik(inputs["k23"])[1]
+    if not np.array_equal(twin("4 shards, no group", count_4_shards), want):
+        raise SystemExit("distributed: the 4-shard count without a group "
+                         "differs from the main path's .unik")
+    del want
+    refs = {}
+    w15 = twin("-W 15 single device", lambda: count_packed(
+        pack_files(files[:1], SKETCH_K), CountConfig(**sketch), dev))
+    refs["w15"] = os.path.join(tmp, "dist_w15.npy")
+    np.save(refs["w15"], w15)
+    cfg_t = CountConfig(**k23)
+    taxdb = load_taxonomy(inputs["taxdump"])
+    packed, rec_taxids = parse_taxid_records(
+        read_fastx(inputs["t1"]), cfg_t, re.compile(RE_TAXID.encode()))
+    t1c, t1t = twin("T1 single device", lambda: count_taxids_from_packed(
+        packed, rec_taxids, cfg_t, taxdb, dev))
+    del packed, rec_taxids
+    refs["t1"], refs["t1_taxids"] = (os.path.join(tmp, f"dist_{n}.npy")
+                                     for n in ("t1", "t1_taxids"))
+    np.save(refs["t1"], t1c)
+    np.save(refs["t1_taxids"], t1t)
+    sets = []
+    for name in "ab":
+        paths = tuple(os.path.join(tmp, f"dist_{name}{x}.npy") for x in "ct")
+        for p, x in zip(paths, inputs[name]):
+            np.save(p, x)
+        sets.append(paths)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    one = [{"name": "(a) k23, 4 files", "kind": "count", "cfg": k23,
+            "files": files, "ref": inputs["k23"], "need": ["k1", "k2"],
+            "twin": "4 shards, no group"},
+           *({"name": f"(e) union{' taxids' if t else ''}", "kind": "unions",
+              "taxids": t, "code_bits": 46, "sets": sets,
+              "taxdump": inputs["taxdump"], "need": ["k3" if t else "k2"]}
+             for t in (False, True))]
+    two = [{"name": "(b) k23, 4 files", "kind": "count", "cfg": k23,
+            "files": files, "ref": inputs["k23"], "need": ["k1", "k2"],
+            "twin": "4 shards, no group"},
+           {"name": "(c) -k 31 -W 15, 1 file", "kind": "count",
+            "cfg": sketch, "files": files[:1], "ref": refs["w15"],
+            "need": ["h1", "s1", "k2"], "twin": "-W 15 single device"},
+           {"name": "(d) -T T1", "kind": "taxids", "cfg": k23,
+            "fa": inputs["t1"], "taxdump": inputs["taxdump"],
+            "ref": refs["t1"], "ref_taxids": refs["t1_taxids"],
+            "need": ["k1", "k3"], "twin": "T1 single device"}]
+    ranks = {"1 rank": (one, start_ranks(tmp, "one", 1, None, one, dev)),
+             "2 ranks": (two, start_ranks(tmp, "two", 2, "gloo", two, dev))}
+    launches = dict.fromkeys(MESH_KEYS, 0)
+    runs = {}
+    for group, (specs, lines) in ranks.items():
+        for spec in specs:
+            rows = [ln["runs"][spec["name"]] for ln in lines]
+            shards = {}
+            for r in rows:
+                shards.update({int(g): n for g, n in r["shards"].items()})
+            if not all(r["exact"] for r in rows) or sorted(shards) != list(
+                    range(DIST_SHARDS)):
+                raise SystemExit(f"distributed {spec['name']}: not exact, "
+                                 f"or shards missing: {rows}")
+            got = {k: sum(r["launches"][k] for r in rows) for k in MESH_KEYS}
+            if any((got[k] > 0) != (k in spec["need"] and on_card)
+                   for k in MESH_KEYS):
+                raise SystemExit(f"distributed {spec['name']}: launches "
+                                 f"{got}, expected {spec['need']}")
+            for k in MESH_KEYS:
+                launches[k] += got[k]
+            runs[spec["name"]] = {
+                "ranks": group, "backend": lines[0]["backend"],
+                "s": max(r["s"] for r in rows),
+                "single_s": rows[0].get("single_s") or twins[
+                    spec["twin"]]["s"],
+                "exchange_s": [r["stages"].get("exchange") for r in rows],
+                "peak_bytes": [r.get("peak_bytes") for r in rows],
+                "shard_codes": [shards[g] for g in sorted(shards)],
+                "launches": {k: v for k, v in got.items() if v},
+                "stages": [r["stages"] for r in rows],
+                **({"total": rows[0]["total"]} if "total" in rows[0] else {})}
+    for f in [*files, *refs.values(), *(p for s in sets for p in s),
+              inputs["t1"]]:
+        os.remove(f)
+    row = {"shards": DIST_SHARDS, "device": str(dev), "twins_s": twins,
+           "start_up_s": {f"{g} rank {ln['rank']} ({ln['backend']})":
+                          ln["start_up_s"]
+                          for g, (_, lines) in ranks.items() for ln in lines},
+           "runs": runs, "launches": launches,
+           "seconds": round(time.perf_counter() - t_phase, 3)}
+    say(json.dumps({"distributed": row}))
+    return {"launches": launches, "row": row}
+
+
+# ---------------------------------------------------------------------------
 # P1/P2: the probe kernels against their plain versions, then their entry
 # point
 
@@ -3647,15 +4109,25 @@ def main() -> int:
         genome = genome_path(tmp, rng, kept, dev)
         mesh_in.update({key: kept[key] for key in (
             "taxdump", "uniks", "oracle", "written", "cli_s")})
+        # the mesh path removes T1's FASTA once read: a second name keeps
+        # it for the distributed path
+        t1 = mesh_in["taxid"][0][1]
+        os.link(t1, t1 + ".dist")
+        dist_in = {"fa": mesh_in["fa"], "k23": mesh_in["k23"],
+                   "taxdump": kept["taxdump"], "t1": t1 + ".dist",
+                   "a": kept["a"], "b": kept["b"]}
         del kept
         t.append(time.perf_counter())
         mesh = mesh_path(tmp, mesh_in, dev)
         del mesh_in
         t.append(time.perf_counter())
+        dist = distributed_path(tmp, dist_in, dev)
+        del dist_in
+        t.append(time.perf_counter())
     say(f"path seconds: main {t[0] - t0:.3f}, count -T {t[1] - t[0]:.3f}, "
         f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}, "
         f"file commands {t[4] - t[3]:.3f}, genome {t[5] - t[4]:.3f}, "
-        f"mesh {t[6] - t[5]:.3f}")
+        f"mesh {t[6] - t[5]:.3f}, distributed {t[7] - t[6]:.3f}")
     say(json.dumps({"sets": report.rows}))
     say(json.dumps({"admission": report.admission}))
     say(json.dumps({"file_commands": file_commands}))
@@ -3664,6 +4136,8 @@ def main() -> int:
     for key, n in genome["launches"].items():
         launches[key] += n
     for key, n in mesh["launches"].items():
+        launches[key] += n
+    for key, n in dist["launches"].items():
         launches[key] += n
     launches.update(probe_path())
     say(json.dumps({"kernels": [
@@ -3679,4 +4153,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # a rank process of distributed_path
+        sys.exit(rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -7,11 +7,16 @@ order; parallel/sharded.py runs each shard's step on its device in turn
 and moves data between shards with tensor copies (a peer copy between
 cards, a plain copy on one card).  A device may appear more than once,
 so D shards can share one card, as the JAX tests put 8 shards on one
-CPU.  Multi-process NCCL is the counterpart of ``jax.distributed``
-(pipeline/distributed.py), not of this mesh.
+CPU.  ``jax.distributed``'s counterpart is a torch.distributed group
+(pipeline/distributed.py): each rank holds a mesh of its local shards
+(:func:`rank_mesh` by default, its own card) and the shards exchange
+across the ranks by NCCL, or gloo on the CPU and for ranks that share
+a card.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -55,3 +60,14 @@ def as_mesh(mesh) -> Mesh:
     either a Mesh or a device count (None: every device), where the JAX
     package's take ``n_devices``."""
     return mesh if isinstance(mesh, Mesh) else make_mesh(mesh)
+
+
+def rank_mesh() -> Mesh:
+    """A rank's default mesh: one shard on its own card,
+    cuda:LOCAL_RANK (the launcher's local rank, 0 when unset), or on the
+    CPU when the port's device is the CPU."""
+    base = get_device()
+    if base.type == "cuda":
+        return Mesh([torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             "0")))])
+    return Mesh([base])

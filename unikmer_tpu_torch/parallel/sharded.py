@@ -16,13 +16,21 @@ shard order, make the globally sorted set.
     (:func:`_exchange`, the counterpart of ``jax.lax.all_to_all``).  Each
     shard collapses what it received (ops/sort, or the LCA collapse of
     taxonomy/lca), and the host concatenates the shards' results.
+    :func:`build_sharded_distinct` and :func:`build_sharded_taxids` are
+    that step over given rows.
+  * across processes (pipeline/distributed.py): with a torch.distributed
+    group of W ranks, each holding L local shards, shard g = rank * L + l
+    of D = W * L owns range g as above, and the exchange is one
+    ``all_to_all_single`` a plane between the ranks
+    (:func:`_exchange_group`: NCCL between cards, gloo on the CPU or for
+    ranks sharing a card); each rank keeps its own shards' results.
   * set operations (``union``/``inter``/``diff``/``common --mesh``): the
     deduplicated inputs are range-partitioned on the host
     (:func:`partition_host_set`) and reduced shard by shard with the
     single-device routes of ops/device_sets.
 
-The shards run one after another from this process; a shard on
-``cuda:i`` launches its kernels there.  Buckets are sized exactly from
+A process runs its shards one after another; a shard on ``cuda:i``
+launches its kernels there.  Buckets are sized exactly from
 each shard's split, so the JAX package's static capacity, dropped count
 and retry loop (``_cap_quantum``, ``_default_capacity``) are not
 ported, nor its packed-key taxid exchange and staged programs: they
@@ -209,12 +217,16 @@ def _bucket_edges(s: torch.Tensor, bnd: np.ndarray) -> list[int]:
     return edges.tolist() + [s.shape[0]]
 
 
-def _exchange(parts, edges, mesh: Mesh):
-    """parts[i]: a tuple of aligned 1-D tensors on shard i sorted by code,
-    edges[i] their bucket edges.  Returns for each shard b the tuple of
-    range b of every shard, in shard order, on mesh[b].  torch.cat
-    copies, so no shard's input aliases another's buffer, though
-    t.to(dev) returns t itself where t lies on dev already."""
+def _exchange(parts, edges, mesh: Mesh, group=None):
+    """parts[i]: a tuple of aligned 1-D tensors on local shard i sorted by
+    code, edges[i] their D+1 bucket edges.  Returns for each local shard
+    b the tuple of range b of every shard, in global shard order, on
+    mesh[b].  Without a group every shard is local (D = len(mesh)) and
+    the ranges are tensor copies; with one, :func:`_exchange_group`.
+    torch.cat copies, so no shard's input aliases another's buffer,
+    though t.to(dev) returns t itself where t lies on dev already."""
+    if group is not None:
+        return _exchange_group(parts, edges, mesh, group)
     out = []
     for b, dev in enumerate(mesh):
         with stage("exchange", dev):
@@ -225,18 +237,99 @@ def _exchange(parts, edges, mesh: Mesh):
     return out
 
 
-def _build(bases: np.ndarray, cfg: CountConfig, mesh: Mesh,
-           modes=("distinct",)) -> list[np.ndarray]:
-    """The sharded count of one flat packed base array: for each of
-    ``modes`` ('distinct', 'unique' or 'repeated'; or the pair
-    ('distinct', 'repeated'), from one sort a shard) the sorted kept
-    codes.  Every occurrence of a code reaches its owner shard, so the
+def group_shards(mesh: Mesh, group=None) -> tuple[int, int]:
+    """(D, first global shard) of this rank's ``mesh`` in ``group``: W
+    ranks of len(mesh) local shards each, shard g = rank * L + l."""
+    if group is None:
+        return len(mesh), 0
+    import torch.distributed as dist
+
+    n_local = len(mesh)
+    return (dist.get_world_size(group) * n_local,
+            dist.get_rank(group) * n_local)
+
+
+def all_reduce_sum(n: torch.Tensor, group=None) -> torch.Tensor:
+    """An int64 scalar summed over the ranks of ``group`` (the psum of
+    the JAX package), on n's device; n itself without a group."""
+    if group is None:
+        return n
+    import torch.distributed as dist
+
+    t = n.to(torch.int64).reshape(1).clone()
+    dist.all_reduce(t, group=group)
+    return t.reshape(())
+
+
+def _exchange_group(parts, edges, mesh: Mesh, group):
+    """:func:`_exchange` across the ranks of a torch.distributed group
+    (the counterpart of jax.lax.all_to_all between processes): an
+    all_gather of every local shard's bucket sizes gives each rank the
+    D x D matrix of sizes, then one all_to_all_single a plane moves the
+    ranges, on the first local shard's device (NCCL and gloo both take
+    tensors on the card; gloo copies them through host memory).  The
+    send buffer holds, for each rank q, for each shard b of q, for each
+    local shard l, range b of shard l; the receiver cuts its buffer by
+    source rank, then by its own shard, then by the sender's shard, and
+    joins each shard's ranges in global shard order.  Every rank enters
+    the same collectives, with empty ranges where it has nothing to
+    send."""
+    import torch.distributed as dist
+
+    n_local = len(mesh)
+    w = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    d = w * n_local
+    home = mesh[0]
+    with stage("exchange", home):
+        sizes = torch.tensor([[e[b + 1] - e[b] for b in range(d)]
+                              for e in edges], dtype=torch.int64,
+                             device=home)
+        gathered = [torch.empty_like(sizes) for _ in range(w)]
+        dist.all_gather(gathered, sizes, group=group)
+        # m[p, l, q, j]: the codes shard p * L + l sends to shard q * L + j
+        m = torch.cat(gathered).cpu().numpy().reshape(w, n_local, w, n_local)
+        in_splits = m[rank].sum(axis=(0, 2)).tolist()
+        out_splits = m[:, :, rank].sum(axis=(1, 2)).tolist()
+        # the received ranges in buffer order: source rank p, my shard j,
+        # p's shard l
+        recv_sizes = m[:, :, rank].transpose(0, 2, 1)
+        offs = (np.cumsum(recv_sizes.reshape(-1)) - recv_sizes.reshape(-1)
+                ).reshape(recv_sizes.shape)
+        out = [[] for _ in range(n_local)]
+        for j in range(len(parts[0])):
+            send = torch.cat([
+                p[j][e[b]: e[b + 1]].to(home)
+                for b in range(d) for p, e in zip(parts, edges)])
+            buf = torch.empty(sum(out_splits), dtype=send.dtype,
+                              device=home)
+            dist.all_to_all_single(buf, send, out_splits, in_splits,
+                                   group=group)
+            del send
+            for jj, dev in enumerate(mesh):
+                out[jj].append(torch.cat([
+                    buf[int(offs[p, jj, l]):
+                        int(offs[p, jj, l] + recv_sizes[p, jj, l])]
+                    for p in range(w) for l in range(n_local)]).to(dev))
+    return [tuple(o) for o in out]
+
+
+def build_sharded_distinct(rows: np.ndarray, cfg: CountConfig, mesh: Mesh,
+                           group=None, modes=None):
+    """The sharded count's step over halo rows (:func:`pack_host_shards`
+    with :func:`shard_halos`), one row a local shard of ``mesh``: each
+    shard encodes its row, keeps the valid windows it owns, sorts them
+    (K2) and sends range b to shard b; each shard collapses what it
+    received.  Without a group ``rows`` are all D rows; with one, this
+    rank's L rows, and the D = W * L shards exchange across the ranks.
+    Returns for each of ``modes`` (default (cfg.mode,); or the pair
+    ('distinct', 'repeated'), from one sort a shard) the (codes, n) of
+    each local shard: codes[:n] its sorted kept codes, on its device.
+    Every occurrence of a code reaches its owner shard, so the
     multiplicity modes are exact."""
-    if len(bases) < cfg.k:
-        return [np.zeros(0, np.uint64) for _ in modes]
-    d = len(mesh)
+    modes = tuple(modes or (cfg.mode,))
+    d, _ = group_shards(mesh, group)
     front, back = shard_halos(cfg)
-    rows = pack_host_shards(bases, d, cfg.k, front, back)
     bnd = partition_boundaries(d, cfg, cfg.code_bits)
     parts, edges = [], []
     for row, dev in zip(rows, mesh):
@@ -246,10 +339,10 @@ def _build(bases: np.ndarray, cfg: CountConfig, mesh: Mesh,
         del keyed
         edges.append(_bucket_edges(s, bnd))
         parts.append((s,))
-    recv = _exchange(parts, edges, mesh)
+    recv = _exchange(parts, edges, mesh, group)
     del parts
     outs = [[] for _ in modes]
-    dual = tuple(modes) == ("distinct", "repeated")
+    dual = modes == ("distinct", "repeated")
     for (mine,), dev in zip(recv, mesh):
         ones = torch.ones(mine.shape, dtype=torch.bool, device=dev)
         if dual:
@@ -260,6 +353,19 @@ def _build(bases: np.ndarray, cfg: CountConfig, mesh: Mesh,
                    for m in modes]
         for o, r in zip(outs, res):
             o.append(r)
+    return outs
+
+
+def _build(bases: np.ndarray, cfg: CountConfig, mesh: Mesh,
+           modes=("distinct",)) -> list[np.ndarray]:
+    """The sharded count of one flat packed base array in this process:
+    for each of ``modes`` (:func:`build_sharded_distinct`) the sorted
+    kept codes on the host."""
+    if len(bases) < cfg.k:
+        return [np.zeros(0, np.uint64) for _ in modes]
+    front, back = shard_halos(cfg)
+    rows = pack_host_shards(bases, len(mesh), cfg.k, front, back)
+    outs = build_sharded_distinct(rows, cfg, mesh, modes=modes)
     with stage("d2h", mesh[0]):
         return [_collect_sharded([o for o, _ in r], [n for _, n in r])
                 for r in outs]
@@ -312,17 +418,23 @@ def mesh_count_stream(records, cfg: CountConfig, mesh=None,
                                     cfg, mesh, chunk_bases)
 
 
-def _taxid_build(bases: np.ndarray, pos_ctax: np.ndarray, cfg: CountConfig,
-                 mesh: Mesh, plans: dict, modes):
-    """The sharded ``count -T`` of one flat packed base array with each
-    position's compact taxid id: for each of ``modes`` the host (codes,
-    taxids), LCA-merged.  Each shard sorts its owned (code, id) pairs
-    with K3 and sends them by code range; the owner collapses them with
-    the single-device LCA collapse (models/count.count_taxids_step)."""
-    d = len(mesh)
+def build_sharded_taxids(rows: np.ndarray, trows: np.ndarray,
+                         cfg: CountConfig, mesh: Mesh, plans: dict,
+                         group=None, modes=None):
+    """The sharded ``count -T`` step over halo rows of bases and of each
+    position's compact taxid id (:func:`pack_host_rows`), one row a local
+    shard: each shard sorts its owned (code, id) pairs with K3 and sends
+    them by code range; the owner collapses them with the single-device
+    LCA collapse (models/count.count_taxids_step).  ``plans``: the
+    uploaded :func:`device_lca_plan` of each device.  With a group,
+    ``rows`` and ``trows`` are this rank's L rows, and every rank must
+    hold the same plan, since compact ids are positions in its closure:
+    build it from the global taxids, not a rank's own.  Returns for each
+    of ``modes`` (default (cfg.mode,)) the (codes, ids, n) of each local
+    shard, the ids compact."""
+    modes = tuple(modes or (cfg.mode,))
+    d, _ = group_shards(mesh, group)
     front, back = shard_halos(cfg)
-    rows = pack_host_shards(bases, d, cfg.k, front, back)
-    trows = pack_host_rows(pos_ctax, d, front, back, np.int32(0))
     bnd = partition_boundaries(d, cfg, cfg.code_bits)
     parts, edges = [], []
     for row, trow, dev in zip(rows, trows, mesh):
@@ -334,20 +446,33 @@ def _taxid_build(bases: np.ndarray, pos_ctax: np.ndarray, cfg: CountConfig,
         del keyed, ids
         edges.append(_bucket_edges(s, bnd))
         parts.append((s, sv))
-    recv = _exchange(parts, edges, mesh)
+    recv = _exchange(parts, edges, mesh, group)
     del parts
-    per_mode = [([], [], []) for _ in modes]
+    per_mode = [[] for _ in modes]
     for (codes, ids), dev in zip(recv, mesh):
         ones = torch.ones(codes.shape, dtype=torch.bool, device=dev)
         for acc, res in zip(per_mode, count_taxids_step(
                 codes, ones, ids, plans[dev], cfg, modes)):
-            for a, x in zip(acc, res):
-                a.append(x)
+            acc.append(res)
+    return per_mode
+
+
+def _taxid_build(bases: np.ndarray, pos_ctax: np.ndarray, cfg: CountConfig,
+                 mesh: Mesh, plans: dict, modes):
+    """The sharded ``count -T`` of one flat packed base array with each
+    position's compact taxid id in this process: for each of ``modes``
+    the host (codes, taxids), LCA-merged (:func:`build_sharded_taxids`)."""
+    front, back = shard_halos(cfg)
+    d = len(mesh)
+    rows = pack_host_shards(bases, d, cfg.k, front, back)
+    trows = pack_host_rows(pos_ctax, d, front, back, np.int32(0))
+    per_mode = build_sharded_taxids(rows, trows, cfg, mesh, plans,
+                                    modes=modes)
     closure = plans[mesh[0]][1]
     out = []
     with stage("d2h", mesh[0]):
-        for out_c, out_t, n in per_mode:
-            codes, ids = _collect_sharded_taxids(out_c, out_t, n)
+        for res in per_mode:
+            codes, ids = _collect_sharded_taxids(*zip(*res))
             out.append((codes, closure[ids].astype(np.uint32)))
     return out
 
@@ -413,6 +538,35 @@ def sharded_set_op(op: str, a: list, b: list, code_bits: int = 64):
     if op == "diff":
         return [device_sets.subtract(x, y) for x, y in zip(a, b)]
     raise ValueError(f"unknown sharded set op: {op}")
+
+
+def _total(counts: list, group=None) -> torch.Tensor:
+    """The shards' counts summed, and over the ranks of ``group``."""
+    dev = counts[0].device
+    return all_reduce_sum(torch.stack([n.to(dev) for n in counts]).sum(),
+                          group)
+
+
+def sharded_union_counts(a: list, b: list, code_bits: int = 64, group=None):
+    """Per shard: the union of two aligned range-partitioned padded
+    sorted sets (device_sets.union) -> ([(codes, n)], total), the total
+    the kept codes of every shard, summed over the ranks of ``group``
+    (the JAX package's psum)."""
+    res = sharded_set_op("union", a, b, code_bits)
+    return res, _total([n for _, n in res], group)
+
+
+def sharded_union_taxids(a: list, ta: list, b: list, tb: list, parent,
+                         depth, max_depth: int, group=None):
+    """Per shard: the LCA-merging union of aligned (codes, taxids) shards
+    by the tree walk (device_sets.union_with_taxids; ``parent``,
+    ``depth`` and ``max_depth`` of taxonomy/lca.device_tables, moved to
+    each shard's device) -> ([(codes, taxids, n)], total), the total as
+    :func:`sharded_union_counts` sums it."""
+    res = [device_sets.union_with_taxids(x, tx, y, ty, parent.to(x.device),
+                                         depth.to(x.device), max_depth, 1)
+           for x, tx, y, ty in zip(a, ta, b, tb)]
+    return res, _total([n for _, _, n in res], group)
 
 
 def sharded_setop_taxids(codes: list, ids: list, tabs: list, kind: str,
