@@ -15,6 +15,19 @@ holds their results against oracles:
             and its two sketch configurations, ``count -k 31 -W 15 -s -C``
             and ``count -k 31 -S 16 -s -C`` (and -u, -d, k = 32 and
             k = 64 -H -u over one 37.7 Mbp record, 2 pieces);
+  start-up  fresh processes of the CLI (``python -c`` around its main()):
+            ``num``, ``info`` and ``view`` of the 134 Mbp .unik, none of
+            which may import torch; ``count -k 23 -K -s -C`` at 4, 32 and
+            134 Mbp with UNIKMER_TPU_HOST_COUNT 0 and 1 (device, host,
+            host, device), every output equal to the numpy oracle's, the
+            host route's processes without torch, each device process
+            launching K1 and K2; the resident server (--warm --pretouch)
+            answering the 134 Mbp count, ``union`` and ``view`` through
+            the client as local calls do, element_budget("union") read
+            before and after, then stopped by SIGTERM; and one device
+            count under UNIKMER_TPU_PROFILE, whose Chrome trace must name
+            K1's and K2's kernels (``startup_path``, the ``startup``
+            line);
   count -T  over a synthetic 100,000-node taxonomy written as nodes.dmp:
             T1, 8,192 records of 4,000 bases, each with its own taxid,
             one piece of ~2^25 windows on the 'paths' LCA tier, 2-bit,
@@ -28,7 +41,7 @@ holds their results against oracles:
             records of 1 to 7,000 bases;
   sets      ``KmerSet.from_fasta(k=23, canonical=True)`` of the 134 Mbp
             FASTA (4 pieces merged by union_all) and of three seeded
-            2^25-base records A, B and C that share large parts; then
+            2^24-base records A, B and C that share large parts; then
             ``A | B``, ``A & B``, ``A - B``, ``union_all``, ``common``
             (2 of 3), ``contains`` and ``DeviceMembership`` over 2^24
             queries, ``head``, ``sample`` and ``filter_low_complexity``;
@@ -60,8 +73,8 @@ holds their results against oracles:
   file commands
             over the sets path's ``count -t`` files of A, B and C (about
             3.3 x 10^7 codes each) and T2's ``count -T`` output: ``sort -u
-            -I`` in memory and with ``-m 16M -M 4`` (a cascade, gzip
-            temporaries), ``split -m 16M -u -I`` then ``merge -D -u -I -M
+            -I`` in memory and with ``-m 8M -M 4`` (a cascade, gzip
+            temporaries), ``split -m 8M -u -I`` then ``merge -D -u -I -M
             4`` (sort -m's bytes), ``sort -d -I``, ``sort -u`` of A's and
             B's codes with the taxid phase's per-code taxids (its LCA
             oracle), ``tsplit`` of T2, ``rfilter -E species`` and ``-L
@@ -146,6 +159,12 @@ held to them here; the CPU tests hold the numpy branches to the JAX
 package.  Nothing of the port's device code enters the oracle.  The
 script imports nothing of unikmer_tpu or jax.
 
+Every phase but the start-up one runs count's device route
+(UNIKMER_TPU_HOST_COUNT=0; the compat run without the native library,
+so on its device twin).  An early ``machine:`` line names the driver,
+the CUDA versions, the card's uncorrected ECC errors, its UUID and the
+host.
+
 Exits non-zero, printing no result, without a CUDA device or outside
 the repository.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -170,6 +189,7 @@ import numpy as np
 import torch
 
 SEED = 20261016
+ROOT = os.path.dirname(os.path.abspath(__file__))
 K1_KS = (1, 5, 23, 31, 32)
 K1_NS = (0, 1, 7, 4099, (1 << 25) + 3)
 H1_KS = (1, 2, 31, 32, 33, 63, 64)
@@ -189,7 +209,7 @@ T1_RECORDS, T1_BASES = 8192, 4000  # one taxid each: the paths tier
 T2_TAXIDS, T2_BASES = 512, 49152  # two records each: the table tier
 T3_BASES = 1 << 20
 RECORD_BASES = 1 << 25
-SETS_BASES = 1 << 25  # each of the sets path's records A, B and C
+SETS_BASES = 1 << 24  # each of the sets path's records A, B and C
 LINEAR_BASES = 1 << 20  # the -l -H and -l -W runs' two records
 SKETCH_K, SKETCH_W, SKETCH_S = 31, 15, 16  # bench.py's sketch cells
 COMPAT_RECORDS, COMPAT_MAX_BASES = 1200, 7000  # the compat run's input
@@ -316,8 +336,14 @@ def check_k1(dev, rng, first):
                     err = max(err, e)
                     cases += 1
                     if e or not torch.equal(kv, pv):
-                        raise SystemExit(f"K1 ({which}) mismatch: n={n} k={k} "
-                                         f"canonical={canonical} err={e}")
+                        i = int(torch.nonzero((kk != pk) | (kv != pv))[0])
+                        raise SystemExit(
+                            f"K1 ({which}) mismatch: n={n} k={k} canonical="
+                            f"{canonical} err={e}; first differing window "
+                            f"{i}: kernel code {int(kk[i]) & (2**64 - 1):#x} "
+                            f"valid {int(kv[i])}, plain code "
+                            f"{int(pk[i]) & (2**64 - 1):#x} valid "
+                            f"{int(pv[i])}")
     # poly-T: the k=32 non-canonical code of TTTT... is 2^64-1
     poly = np.full(4099, 3, np.uint8)
     poly[[100, 2000]] = 255
@@ -1336,8 +1362,12 @@ def compat_path(tmp, rng):
     out = os.path.join(tmp, "compat")
     argv = ["count", "-k", str(k), "-S", str(s), "--syncmer-impl", "compat",
             "-s", "-C", fa, "-o", out]
-    secs, launches, _ = counted_cli(argv, {"h1": True, "s1": True,
-                                           "k1": False, "k2": True})
+    # the compat syncmer prefers the host kernel whatever
+    # UNIKMER_TPU_HOST_COUNT says: without the native library it runs on
+    # its device twin
+    with numpy_host():
+        secs, launches, _ = counted_cli(argv, {"h1": True, "s1": True,
+                                               "k1": False, "k2": True})
     t0 = time.perf_counter()
     with numpy_host():
         codes, _ = compat_oracle(pack_records(read_fastx(fa), k), k, s)
@@ -1353,6 +1383,327 @@ def compat_path(tmp, rng):
         f"{secs:.3f} s, launches {launches}")
     os.remove(fa)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the start-up path: what a user's call pays before its work, each call
+# a process of its own
+
+
+STARTUP_BASES = (1 << 22, 1 << 25)  # the 4 and 32 Mbp inputs (134: main)
+STARTUP_TIMEOUT = 600  # seconds a fresh process of the phase may take
+K1_KERNEL, K2_KERNEL = "encode_2bit_kernel", "radix_onesweep_pass"
+KERNEL_EVENT = "kernel"  # the trace category of a CUDA kernel's events
+STARTUP_NEED = ("k1", "k2")  # what each device process must launch
+STARTUP_AIM_S = 120  # the phase's seconds, with room on a slow host
+SMOKE_AIM_S = 800  # the script's, with room under the 1,200 s limit
+# a user's call of the CLI, which then prints on stderr its wrappers'
+# launches (when it imported torch) and, last, whether it imported torch
+FRESH = ("import json, sys\n"
+         "from unikmer_tpu_torch.cli.main import main\n"
+         "rc = main(sys.argv[1:])\n"
+         "sys.stdout.flush()\n"
+         "imported = 'torch' in sys.modules\n"
+         "if imported:\n"
+         "    import chip_smoke\n"
+         "    print('launches:', json.dumps({key: w.launches for key, w in\n"
+         "          chip_smoke.encode_wrappers().items()}), file=sys.stderr)\n"
+         "print('torch imported:', imported, file=sys.stderr)\n"
+         "sys.exit(rc)\n")
+
+
+def fresh(argv, env: dict | None = None, digest: bool = False):
+    """Run the port's CLI on ``argv`` in a fresh interpreter from the
+    repository's root, with os.environ updated by ``env`` (None values
+    removed).  Returns (wall seconds, exit code, whether torch was
+    imported, stderr, the sha256 and length of stdout when ``digest``,
+    else None: the output is hashed as it streams, inside the time).
+    The process's kernel launches are in fresh_launches(stderr)."""
+    import hashlib
+
+    full = dict(os.environ)
+    for name, value in (env or {}).items():
+        if value is None:
+            full.pop(name, None)
+        else:
+            full[name] = value
+    err_path = os.path.join(tempfile.gettempdir(), f"fresh.{os.getpid()}.err")
+    with open(err_path, "w+") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", FRESH, *argv],
+                                cwd=ROOT, env=full, stderr=err,
+                                stdout=subprocess.PIPE if digest
+                                else subprocess.DEVNULL)
+        out = None
+        try:
+            if digest:
+                h, size = hashlib.sha256(), 0
+                while chunk := proc.stdout.read(1 << 22):
+                    h.update(chunk)
+                    size += len(chunk)
+                out = (h.hexdigest(), size)
+            rc = proc.wait(timeout=STARTUP_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        secs = time.perf_counter() - t0
+        err.seek(0)
+        text = err.read()
+    os.remove(err_path)
+    last = text.strip().splitlines()[-1] if text.strip() else ""
+    if not last.startswith("torch imported:"):
+        raise SystemExit(f"start-up {' '.join(argv)}: exited {rc} without "
+                         f"its last line: {text[-2000:]}")
+    return secs, rc, last.endswith("True"), text, out
+
+
+def fresh_launches(err: str) -> dict:
+    """The launches a fresh process's wrappers counted (none without
+    torch)."""
+    found = re.findall(r"^launches: (.*)$", err, re.M)
+    return json.loads(found[-1]) if found else {}
+
+
+def routes_of(err: str) -> list:
+    return re.findall(r"count: the (\w+) route", err)
+
+
+def served_launches(log_path: str) -> dict:
+    """The launches the server logged for its last request."""
+    found = re.findall(r"^\[server\] done rc=.* launches (\{.*\})$",
+                       open(log_path).read(), re.M)
+    return json.loads(found[-1]) if found else {}
+
+
+def startup_path(tmp, rng, main_in: dict, dev, card: str) -> dict:
+    """(a) num and info of the main path's .unik and view of the 32 Mbp
+    one as fresh processes, none of which may import torch; (b) fresh
+    ``count -k 23 -K -s -C`` processes at 4 and 32 Mbp (device, host,
+    host) and 134 Mbp (device, host, host, device), UNIKMER_TPU_HOST_COUNT
+    0 for the device and 1 for the host, their bytes equal to the numpy
+    oracle's (the main path's .unik for 134 Mbp), the host route's
+    processes without torch; (c) the resident server with --warm
+    --pretouch: through the client, the 134 Mbp count under
+    UNIKMER_TPU_HOST_COUNT 0, auto (the device in the server) and 1, the
+    32 Mbp count under 0 and 1, ``union`` of the first count's output and
+    ``view`` of the 32 Mbp one, each equal to a local call's (or the
+    oracle's) bytes and exit code, each device count with K1 and K2 in
+    the launches the server logged for it, element_budget("union") read
+    before and after the requests, then SIGTERM and the server's exit;
+    (d) a device count under UNIKMER_TPU_PROFILE, whose Chrome trace must
+    name K1's and K2's kernels.  Every device process of (b) and (d) must
+    launch K1 and K2 (its wrappers' counts, printed at its end).  Returns
+    the start-up line, with the launches of those processes and of the
+    server's device counts."""
+    from unikmer_tpu_torch.cli.main import main as cli_main
+    from unikmer_tpu_torch.ops.device_sets import element_budget
+
+    t_phase = time.perf_counter()
+    fa, k23 = main_in["fa"], main_in["k23"]
+    row = {"card": card}
+    launches = {"k1": 0, "h1": 0, "s1": 0, "k2": 0, "k3": 0}
+
+    def add_launches(got, what):
+        if any(got.get(key, 0) < 1 for key in STARTUP_NEED):
+            raise SystemExit(f"start-up {what}: launches {got}, "
+                             f"{STARTUP_NEED} expected")
+        for key, n in got.items():
+            launches[key] += n
+
+    inputs = [(f"{n / (1 << 20):g} Mbp", os.path.join(tmp, f"startup{n}.fa"), n)
+              for n in STARTUP_BASES]
+    for _, path, n in inputs:
+        write_fasta(path, rng, 1, n)
+    oracles = {}
+    for label, path, _ in inputs:
+        oracles[label] = path + ".oracle.unik"
+        say(f"start-up {label} oracle: " + oracle_unik(
+            path, oracles[label], 23, True, "distinct"))
+    mid, mid_fa = inputs[-1][:2]  # 32 Mbp: view's, and the server's
+
+    # (a) host-only commands
+    cmds = {}
+    for name, argv in (("num", ["num", k23]), ("info", ["info", k23]),
+                       (f"view {mid}", ["view", oracles[mid]])):
+        secs, rc, imported, err, out = fresh(argv, digest=True)
+        if rc != 0 or imported:
+            raise SystemExit(f"start-up {name}: exit {rc}, torch imported "
+                             f"{imported}: {err[-2000:]}")
+        cmds[name] = {"s": round(secs, 4), "stdout_bytes": out[1]}
+    view_digest = out  # the view's, held to the server's below
+    row["host_only"] = cmds
+    say(f"start-up host-only commands (no torch imported): "
+        + json.dumps(cmds))
+
+    # (b) the host engine against the device route
+    inputs.append(("134 Mbp", fa, 4 * RECORD_BASES))
+    oracles["134 Mbp"] = k23  # held to the oracle by the main path
+    routes = {}
+    for label, path, n in inputs:
+        runs = {"host": [], "device": []}
+        knobs = ("0", "1", "1", "0") if path == fa else ("0", "1", "1")
+        for knob in knobs:
+            route = "host" if knob == "1" else "device"
+            out = os.path.join(tmp, f"startup_{route}")
+            secs, rc, imported, err, _ = fresh(
+                ["count", "-k", "23", "-K", "-s", "-C", "-V", path, "-o",
+                 out], {"UNIKMER_TPU_HOST_COUNT": knob})
+            if (rc != 0 or routes_of(err) != [route]
+                    or imported != (route == "device")
+                    or not same_bytes(out + ".unik", oracles[label])):
+                raise SystemExit(
+                    f"start-up count {label} UNIKMER_TPU_HOST_COUNT={knob}: "
+                    f"exit {rc}, routes {routes_of(err)}, torch imported "
+                    f"{imported}, or bytes unlike the oracle's: "
+                    f"{err[-2000:]}")
+            os.remove(out + ".unik")
+            runs[route].append(round(secs, 4))
+            if route == "device":
+                add_launches(fresh_launches(err), f"count {label}")
+        routes[label] = {
+            "bases": n, **{f"{r}_s": v for r, v in runs.items()},
+            "host_wins": max(runs["host"]) < min(runs["device"])}
+        say(f"start-up count {label}, fresh processes "
+            f"({', '.join('host' if x == '1' else 'device' for x in knobs)}"
+            f"), every .unik equal to the oracle's: "
+            + json.dumps(routes[label]))
+    row["count"] = routes
+    os.remove(oracles[inputs[0][0]])
+    small = inputs[0][1]
+
+    # (c) the resident server
+    sock = os.path.join(tmp, "server.sock")
+    log_path = os.path.join(tmp, "server.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "unikmer_tpu_torch.server", "--socket",
+             sock, "--warm", "--pretouch"], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT,
+            env={k: v for k, v in os.environ.items()
+                 if k != "UNIKMER_TPU_SERVER"})
+    try:
+        while "listening on" not in open(log_path).read():
+            if srv.poll() is not None or (time.perf_counter() - t0
+                                          > STARTUP_TIMEOUT):
+                raise SystemExit(f"start-up server: not listening: "
+                                 f"{open(log_path).read()[-2000:]}")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        warm = [ln for ln in open(log_path).read().splitlines()
+                if " in " in ln]
+        say(f"start-up server ready in {ready_s:.3f} s: " + "; ".join(warm))
+        before = element_budget("union", dev)
+        requests, served = {}, {}
+        # (input, its oracle, the knob, the route the server must take)
+        counts = (("134 Mbp", fa, "0", "device"),
+                  ("134 Mbp", fa, "auto", "device"),
+                  ("134 Mbp", fa, "1", "host"),
+                  (mid, mid_fa, "0", "device"),
+                  (mid, mid_fa, "1", "host"))
+        for label, path, knob, route in counts:
+            what = f"count {label} UNIKMER_TPU_HOST_COUNT={knob}"
+            out = os.path.join(tmp, f"served_{len(requests)}")
+            secs, rc, imported, err, _ = fresh(
+                ["count", "-k", "23", "-K", "-s", "-C", "-V", path, "-o",
+                 out], {"UNIKMER_TPU_SERVER": sock,
+                        "UNIKMER_TPU_HOST_COUNT": knob})
+            got = served_launches(log_path)
+            if (rc != 0 or imported or routes_of(err) != [route]
+                    or not same_bytes(out + ".unik", oracles[label])):
+                raise SystemExit(f"start-up server {what}: exit {rc}, the "
+                                 f"client imported torch {imported}, routes "
+                                 f"{routes_of(err)}, or bytes unlike the "
+                                 f"oracle's: {err[-2000:]}")
+            if route == "device":
+                add_launches(got, f"server {what}")
+            elif any(got.values()):
+                raise SystemExit(f"start-up server {what}: the host route "
+                                 f"launched {got}")
+            requests[what] = {"s": round(secs, 4), "launches": got}
+            if (label, knob) in (("134 Mbp", "0"), (mid, "0")):
+                served[label] = out + ".unik"  # union's and view's input
+            else:
+                os.remove(out + ".unik")
+        client = {"UNIKMER_TPU_SERVER": sock}
+        union = ["union", "-s", "-C", served["134 Mbp"], "-o"]
+        secs, rc, imported, err, _ = fresh(
+            union + [os.path.join(tmp, "served_union")], client)
+        requests["union"] = {"s": round(secs, 4),
+                             "launches": served_launches(log_path)}
+        local_rc = cli_main(union + [os.path.join(tmp, "local_union")])
+        if (rc, imported) != (local_rc, False) or not same_bytes(
+                os.path.join(tmp, "served_union.unik"),
+                os.path.join(tmp, "local_union.unik")):
+            raise SystemExit(f"start-up server union: exit {rc} against the "
+                             f"local {local_rc}, or other bytes: "
+                             f"{err[-2000:]}")
+        secs, rc, imported, err, digest = fresh(
+            ["view", served[mid]], client, digest=True)
+        if (rc, imported, digest) != (0, False, view_digest):
+            raise SystemExit(f"start-up server view: exit {rc}, or its "
+                             f"output unlike the local view's: {err[-2000:]}")
+        requests[f"view {mid}"] = {"s": round(secs, 4),
+                                   "launches": served_launches(log_path)}
+        after = element_budget("union", dev)
+        if after < 0.9 * before:
+            raise SystemExit(f"start-up server: element_budget('union') "
+                             f"{after} after the requests, {before} before")
+    finally:
+        srv.terminate()
+        try:
+            srv_rc = srv.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.wait()
+            srv_rc = None
+    if srv_rc != 0 or os.path.exists(sock):
+        raise SystemExit(f"start-up server: exit {srv_rc} on SIGTERM, socket "
+                         f"left {os.path.exists(sock)}")
+    for path in (*served.values(), oracles[mid],
+                 os.path.join(tmp, "served_union.unik"),
+                 os.path.join(tmp, "local_union.unik")):
+        os.remove(path)
+    row["server"] = {
+        "ready_s": round(ready_s, 4), "warm": warm, "requests": requests,
+        "cold_local_count_s": routes["134 Mbp"]["device_s"][0],
+        "union_budget": {"before": before, "after": after},
+        "exit": srv_rc}
+    say("start-up server: every request equal to a local call; "
+        + json.dumps(row["server"]))
+
+    # (d) the profiler knob
+    trace_dir = os.path.join(tmp, "trace")
+    secs, rc, _, err, _ = fresh(
+        ["count", "-k", "23", "-K", "-s", "-C", small, "-o",
+         os.path.join(tmp, "traced")],
+        {"UNIKMER_TPU_HOST_COUNT": "0", "UNIKMER_TPU_PROFILE": trace_dir})
+    traces = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+    if rc != 0 or len(traces) != 1:
+        raise SystemExit(f"start-up profile: exit {rc}, traces {traces}: "
+                         f"{err[-2000:]}")
+    add_launches(fresh_launches(err), "profile")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {name: sum(1 for ev in events if ev.get("cat") == KERNEL_EVENT
+                         and name in ev.get("name", ""))
+               for name in (K1_KERNEL, K2_KERNEL)}
+    if min(kernels.values()) < 1:
+        raise SystemExit(f"start-up profile: the trace names no K1 or K2 "
+                         f"kernel: {kernels}")
+    row["profile"] = {"s": round(secs, 4), "events": len(events),
+                      "kernel_events": kernels}
+    say("start-up profile: " + json.dumps(row["profile"]))
+    shutil.rmtree(trace_dir)
+    os.remove(os.path.join(tmp, "traced.unik"))
+    for _, path, _ in inputs[:-1]:
+        os.remove(path)
+    row["launches"] = launches  # (b), the server's device counts, (d)
+    row["seconds"] = round(time.perf_counter() - t_phase, 3)
+    say(f"start-up phase seconds: {row['seconds']} (aim at most "
+        f"{STARTUP_AIM_S})")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2373,7 +2724,7 @@ def same_inflated(a: str, b: str) -> bool:
                 return True
 
 
-def file_commands_path(tmp, sets: dict, t2: dict, dev, chunk: str = "16M",
+def file_commands_path(tmp, sets: dict, t2: dict, dev, chunk: str = "8M",
                        max_open: int = 4, head_n: int = 1 << 20) -> dict:
     """The file commands over the sets path's ``count -t`` files of A, B
     and C and T2's ``count -T`` output, each run through the CLI (no
@@ -2596,7 +2947,7 @@ def file_commands_path(tmp, sets: dict, t2: dict, dev, chunk: str = "16M",
 
 GENOME_QUERY = 1 << 20  # codes of locate's and view -g's query files
 MAP_RECORDS = 1024  # the multi-record genome cut from A
-MAP_RECORD_BASES = 24576
+MAP_RECORD_BASES = 12288
 ORACLE_LUT = np.full(256, 4, np.uint8)  # ACGT -> 0-3, any other byte 4
 ORACLE_LUT[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
 
@@ -3024,10 +3375,11 @@ def mesh_path(tmp, inputs: dict, dev, shards: int = MESH_SHARDS) -> dict:
     the single-device twins apart); returns {"launches": the mesh runs'
     launches, "row": the mesh line}."""
     from unikmer_tpu_torch import KmerSet
-    from unikmer_tpu_torch.io.fastx import pack_files, pack_records, read_fastx
+    from unikmer_tpu_torch.io.fastx import (
+        pack_files, pack_records, parse_taxid_records, read_fastx,
+    )
     from unikmer_tpu_torch.models.count import (
         CountConfig, count_stream_packed, count_taxids_from_packed,
-        parse_taxid_records,
     )
     from unikmer_tpu_torch.ops.device_sets import union_taxids_device
     from unikmer_tpu_torch.parallel import sharded
@@ -3134,7 +3486,8 @@ def mesh_path(tmp, inputs: dict, dev, shards: int = MESH_SHARDS) -> dict:
     re_t = re.compile(RE_TAXID.encode())
     cfg = CountConfig(k=23, canonical=True)
     for name, fa, tier in inputs["taxid"]:
-        packed, rec_taxids = parse_taxid_records(read_fastx(fa), cfg, re_t)
+        packed, rec_taxids = parse_taxid_records(
+            read_fastx(fa), cfg.k, cfg.circular, cfg.record_gap, re_t)
         os.remove(fa)
         run(f"-T {name} ({tier} tier)",
             lambda: sharded.mesh_count_taxids(packed, rec_taxids, taxdb, cfg,
@@ -3318,13 +3671,12 @@ def rank_setup(run: dict, dev):
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
     if run["kind"] == "taxids":
-        from unikmer_tpu_torch.io.fastx import read_fastx
-        from unikmer_tpu_torch.models.count import (
-            CountConfig, parse_taxid_records,
-        )
+        from unikmer_tpu_torch.io.fastx import parse_taxid_records, read_fastx
+        from unikmer_tpu_torch.models.count import CountConfig
 
+        cfg = CountConfig(**run["cfg"])
         packed, rec_taxids = parse_taxid_records(
-            read_fastx(run["fa"]), CountConfig(**run["cfg"]),
+            read_fastx(run["fa"]), cfg.k, cfg.circular, cfg.record_gap,
             re.compile(RE_TAXID.encode()))
         run["inputs"] = packed, rec_taxids, load_taxonomy(run["taxdump"])
         return rank_reference(run), None
@@ -3458,7 +3810,7 @@ def start_ranks(tmp: str, name: str, world: int, backend, runs, dev):
         json.dump({"port": free_port(), "world": world, "backend": backend,
                    "device": str(dev), "runs": runs}, f)
     env = dict(os.environ, UNIKMER_TPU_TORCH_DEVICE=dev.type,
-               LOCAL_RANK=str(dev.index or 0),
+               UNIKMER_TPU_HOST_COUNT="0", LOCAL_RANK=str(dev.index or 0),
                CHIP_SMOKE_SPAWN=repr(time.time()))
     logs = [os.path.join(tmp, f"ranks_{name}.{r}.log") for r in range(world)]
     procs = []
@@ -3523,10 +3875,11 @@ def distributed_path(tmp, inputs: dict, dev) -> dict:
     "t1" (T1's FASTA, removed here) and "a", "b" ((codes, taxids)).
     Returns {"launches": the rank processes' launches, "row": the
     distributed line}."""
-    from unikmer_tpu_torch.io.fastx import pack_files, read_fastx
+    from unikmer_tpu_torch.io.fastx import (
+        pack_files, parse_taxid_records, read_fastx,
+    )
     from unikmer_tpu_torch.models.count import (
         CountConfig, count_packed, count_taxids_from_packed,
-        parse_taxid_records,
     )
     from unikmer_tpu_torch.parallel.mesh import make_mesh
     from unikmer_tpu_torch.pipeline import distributed
@@ -3576,7 +3929,8 @@ def distributed_path(tmp, inputs: dict, dev) -> dict:
     cfg_t = CountConfig(**k23)
     taxdb = load_taxonomy(inputs["taxdump"])
     packed, rec_taxids = parse_taxid_records(
-        read_fastx(inputs["t1"]), cfg_t, re.compile(RE_TAXID.encode()))
+        read_fastx(inputs["t1"]), cfg_t.k, cfg_t.circular, cfg_t.record_gap,
+        re.compile(RE_TAXID.encode()))
     t1c, t1t = twin("T1 single device", lambda: count_taxids_from_packed(
         packed, rec_taxids, cfg_t, taxdb, dev))
     del packed, rec_taxids
@@ -3913,6 +4267,33 @@ def old_transpose_launch(x, skip=()):
     return call
 
 
+def machine_facts(dev) -> dict:
+    """The driver, the CUDA versions, the card's uncorrected ECC errors,
+    its UUID and the host's name: what tells one machine of a fault from
+    another."""
+    import ctypes
+    import socket
+
+    torch.zeros(1, device=dev)  # the context, so libcudart is loaded
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version,"
+         "ecc.errors.uncorrected.volatile.total,uuid",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    driver, ecc, uuid = q.stdout.strip().splitlines()[0].split(", ")
+    runtime = "not found"
+    with open("/proc/self/maps") as f:
+        libs = {ln.split()[-1] for ln in f if "libcudart" in ln}
+    for lib in sorted(libs):
+        v = ctypes.c_int()
+        if ctypes.CDLL(lib).cudaRuntimeGetVersion(ctypes.byref(v)) == 0:
+            runtime = f"{v.value // 1000}.{v.value % 1000 // 10} ({lib})"
+            break
+    return {"driver_version": driver, "torch_cuda": torch.version.cuda,
+            "cuda_runtime": runtime,
+            "ecc_uncorrected_volatile_total": ecc, "card_uuid": uuid,
+            "host": socket.gethostname()}
+
+
 def smi_clocks(when: str) -> None:
     """Print the card's clocks and power draw as nvidia-smi reads them."""
     q = subprocess.run(
@@ -4062,9 +4443,14 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    say(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
+    say("machine: " + json.dumps(machine_facts(dev)))
+    # every phase but the start-up one runs count's device route: small
+    # inputs would otherwise take the host engine (its own phase)
+    os.environ["UNIKMER_TPU_HOST_COUNT"] = "0"
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     _kernels.load()
@@ -4095,6 +4481,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="unikmer-torch-smoke-") as tmp:
         t0 = time.perf_counter()
         launches, mesh_in = main_path(tmp, rng, report)
+        t_main = time.perf_counter()
+        startup = startup_path(tmp, rng, mesh_in, dev, card)
         t = [time.perf_counter()]
         launches["k3"], t2, mesh_in["taxid"] = taxid_path(tmp, rng)
         t.append(time.perf_counter())
@@ -4124,13 +4512,15 @@ def main() -> int:
         dist = distributed_path(tmp, dist_in, dev)
         del dist_in
         t.append(time.perf_counter())
-    say(f"path seconds: main {t[0] - t0:.3f}, count -T {t[1] - t[0]:.3f}, "
+    say(f"path seconds: main {t_main - t0:.3f}, start-up {t[0] - t_main:.3f}, "
+        f"count -T {t[1] - t[0]:.3f}, "
         f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}, "
         f"file commands {t[4] - t[3]:.3f}, genome {t[5] - t[4]:.3f}, "
         f"mesh {t[6] - t[5]:.3f}, distributed {t[7] - t[6]:.3f}")
     say(json.dumps({"sets": report.rows}))
     say(json.dumps({"admission": report.admission}))
     say(json.dumps({"file_commands": file_commands}))
+    say(json.dumps({"startup": startup}))
     launches["k2"] += report.launches["k2"]
     launches["k3"] += report.launches["k3"]
     for key, n in genome["launches"].items():
@@ -4139,13 +4529,16 @@ def main() -> int:
         launches[key] += n
     for key, n in dist["launches"].items():
         launches[key] += n
+    for key, n in startup["launches"].items():
+        launches[key] += n
     launches.update(probe_path())
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          **({"also_replaces": also} if also else {}),
          "launches": launches[key], **results[key]}
         for key, name, source, replaces, also in KERNELS]}))
-    say(f"chip_smoke total seconds: {time.perf_counter() - start:.3f}")
+    say(f"chip_smoke total seconds: {time.perf_counter() - start:.3f} (aim "
+        f"at most {SMOKE_AIM_S})")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

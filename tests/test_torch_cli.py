@@ -10,6 +10,15 @@ from unikmer_tpu.cli.main import main as jax_main
 from unikmer_tpu_torch.cli.main import main as port_main
 
 
+@pytest.fixture(scope="module", autouse=True)
+def count_device_route():
+    """The port's count on its device route (the kernels' plain versions
+    on the CPU); the host engine's cases are in test_torch_count_host.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UNIKMER_TPU_HOST_COUNT", "0")
+        yield
+
+
 @pytest.fixture(scope="module")
 def fastas(tmp_path_factory):
     d = tmp_path_factory.mktemp("fa")
@@ -108,15 +117,20 @@ SKETCH_CASES = [
 
 @pytest.mark.parametrize("flags", SKETCH_CASES, ids=" ".join)
 def test_sketch_count_bytes_match_jax_cli(sketch_fastas, envs, tmp_path,
-                                          flags):
+                                          monkeypatch, flags):
     """The sketches with each flag they combine with: the same .unik
     bytes as the JAX CLI (its compat runs may take its host engine; the
-    JAX tests hold that engine to its device twin)."""
+    JAX tests hold that engine to its device twin).  The port's compat
+    syncmer prefers its host kernel whatever UNIKMER_TPU_HOST_COUNT says:
+    UNIKMER_TPU_NO_NATIVE=1 sends it to the device twin."""
     outs = {}
     for name, main in (("jax", jax_main), ("port", port_main)):
         prefix = str(tmp_path / name)
-        assert main(["count", *flags, "-C", *sketch_fastas, "-o",
-                     prefix]) == 0
+        with monkeypatch.context() as mp:
+            if name == "port" and "compat" in flags:
+                mp.setenv("UNIKMER_TPU_NO_NATIVE", "1")
+            assert main(["count", *flags, "-C", *sketch_fastas, "-o",
+                         prefix]) == 0
         outs[name] = (tmp_path / f"{name}.unik").read_bytes()
     assert len(outs["port"]) > 400
     assert outs["port"] == outs["jax"]

@@ -36,6 +36,15 @@ TAX_PARENT = [0, 1, 1, 1, 2, 2]  # tests/distributed_worker.py's taxonomy
 TAX_DEPTH = [-1, 0, 1, 1, 2, 2]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def count_device_route():
+    """The port's count on its device route (the kernels' plain versions
+    on the CPU); the host engine's cases are in test_torch_count_host.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UNIKMER_TPU_HOST_COUNT", "0")
+        yield
+
+
 @pytest.fixture(autouse=True)
 def on_the_cpu(monkeypatch):
     monkeypatch.setenv("UNIKMER_TPU_TORCH_DEVICE", "cpu")

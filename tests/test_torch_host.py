@@ -43,6 +43,15 @@ TAXIDS = np.array([0, 511145, 585057, 349741, 562, 561, 2, 1224, 83333],
                   np.uint32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def count_device_route():
+    """The port's count on its device route (the kernels' plain versions
+    on the CPU); the host engine's cases are in test_torch_count_host.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UNIKMER_TPU_HOST_COUNT", "0")
+        yield
+
+
 def write_both(codes, taxids=None, **kw):
     """The bytes of the JAX and the port UnikWriter for the same call."""
     out = []
@@ -917,8 +926,11 @@ def test_chip_smoke_sketch_oracles_match_the_port_cli(tmp_path, monkeypatch):
     for name, flags in (("W", ["-W", "15"]), ("S", ["-S", "16"]),
                         ("C", ["-S", "16", "--syncmer-impl", "compat"])):
         out = str(tmp_path / name)
-        assert port_main(["count", "-k", "31", *flags, "-s", "-C", fa,
-                          "-o", out]) == 0
+        with monkeypatch.context() as mp:
+            if name == "C":  # compat's device twin, as chip_smoke runs it
+                mp.setenv("UNIKMER_TPU_NO_NATIVE", "1")
+            assert port_main(["count", "-k", "31", *flags, "-s", "-C", fa,
+                              "-o", out]) == 0
         chip_smoke.write_oracle(out + ".oracle.unik", 31, unik.SORTED | hashed,
                                 chip_smoke.unique_counts(want[name])[0])
         assert chip_smoke.same_bytes(out + ".unik", out + ".oracle.unik")

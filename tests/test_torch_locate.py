@@ -29,6 +29,15 @@ CPU = (("UNIKMER_TPU_TORCH_DEVICE", "cpu"),)
 CUDA = (("UNIKMER_TPU_TORCH_DEVICE", "cuda"),)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def count_device_route():
+    """The port's count on its device route (the kernels' plain versions
+    on the CPU); the host engine's cases are in test_torch_count_host.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UNIKMER_TPU_HOST_COUNT", "0")
+        yield
+
+
 def dna(rng, n: int) -> np.ndarray:
     return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=n)].copy()
 
@@ -374,7 +383,10 @@ def test_map_past_the_budget_takes_the_host_route(inputs, host, tmp_path,
 
     monkeypatch.setattr(map_cmd, "GenomeScan", Spy)
     if budget == "none":
-        monkeypatch.setattr(map_cmd, "radix_sort_kv_u64", boom)
+        # map imports K3's wrapper at the call: the spy sits in its module
+        from unikmer_tpu_torch.ops import radix_sort
+
+        monkeypatch.setattr(radix_sort, "radix_sort_kv_u64", boom)
     rc, _, stdout, files = run_both(
         argv, inputs, tmp_path, caplog, capsysbinary,
         port_env=CPU + (("UNIKMER_TPU_MAX_ELEMS", str(limit)),))

@@ -33,6 +33,15 @@ CPU = torch.device("cpu")
 RE = ["-T", "-r", r"taxid\|(\d+)"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def count_device_route():
+    """The port's count on its device route (the kernels' plain versions
+    on the CPU); the host engine's cases are in test_torch_count_host.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UNIKMER_TPU_HOST_COUNT", "0")
+        yield
+
+
 @pytest.fixture(autouse=True)
 def cpu8(monkeypatch):
     """The port on the CPU with 8 devices to make meshes of."""
@@ -320,9 +329,8 @@ def test_count_taxids_mesh_matches_jax_cli(genomes, tmp_path, caplog,
         calls.append(real(*a, **kw))
         return calls[-1]
 
-    from unikmer_tpu_torch.cli.commands import count as count_cmd
-
-    monkeypatch.setattr(count_cmd, "mesh_count_taxids", spy)
+    # count imports it at the call: the spy sits in its module
+    monkeypatch.setattr(sharded, "mesh_count_taxids", spy)
     argv = ["count", "-k", "19", "-K", "-s", *RE, *TAXDUMP,
             genomes["tagged"], "--mesh", "4", *extra]
     same_cli(tmp_path, caplog, argv, without_mesh(argv))
@@ -347,15 +355,15 @@ def test_count_taxids_mesh_declines_unknown_taxids(genomes, tmp_path, caplog):
     the single-device -T writes the JAX CLI's bytes."""
     import re
 
-    from unikmer_tpu_torch.io.fastx import read_fastx
-    from unikmer_tpu_torch.models.count import parse_taxid_records
+    from unikmer_tpu_torch.io.fastx import parse_taxid_records, read_fastx
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
     fa = tmp_path / "unknown.fa"
     fa.write_text(open(genomes["tagged"]).read().replace(
         "taxid|562", "taxid|999999"))
     cfg = CountConfig(k=19, canonical=True)
-    packed, taxids = parse_taxid_records(read_fastx(str(fa)), cfg,
+    packed, taxids = parse_taxid_records(read_fastx(str(fa)), cfg.k,
+                                         cfg.circular, cfg.record_gap,
                                          re.compile(RE[2].encode()))
     assert sharded.mesh_count_taxids(packed, taxids,
                                      load_taxonomy("tests/data/taxdump"),
@@ -698,8 +706,7 @@ def test_mesh_taxids_and_set_ops_on_the_card_match_the_cpu(
     import re
 
     from unikmer_tpu_torch.io import unik
-    from unikmer_tpu_torch.io.fastx import read_fastx
-    from unikmer_tpu_torch.models.count import parse_taxid_records
+    from unikmer_tpu_torch.io.fastx import parse_taxid_records, read_fastx
     from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
 
     card = _card()
@@ -710,7 +717,8 @@ def test_mesh_taxids_and_set_ops_on_the_card_match_the_cpu(
     taxdb = load_taxonomy("tests/data/taxdump")
     for mode in ("distinct", "unique", "repeated"):
         cfg = CountConfig(k=19, canonical=True, mode=mode)
-        p, taxids = parse_taxid_records(read_fastx(genomes["tagged"]), cfg,
+        p, taxids = parse_taxid_records(read_fastx(genomes["tagged"]), cfg.k,
+                                        cfg.circular, cfg.record_gap,
                                         re.compile(RE[2].encode()))
         for got, want in zip(
                 sharded.mesh_count_taxids(p, taxids, taxdb, cfg, on_card),

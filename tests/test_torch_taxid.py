@@ -16,7 +16,7 @@ from unikmer_tpu.models import count as jax_count
 from unikmer_tpu.taxonomy.lca import device_lca_plan as jax_plan
 from unikmer_tpu.taxonomy.taxdump import load_taxonomy
 from unikmer_tpu_torch.cli.main import main as port_main
-from unikmer_tpu_torch.io.fastx import PackedSeqs
+from unikmer_tpu_torch.io.fastx import PackedSeqs, parse_taxid_records
 from unikmer_tpu_torch.models import count as port_count
 from unikmer_tpu_torch.taxonomy.taxdump import Taxonomy as PortTaxonomy
 
@@ -24,6 +24,15 @@ CPU = torch.device("cpu")
 TAXDUMP = "tests/data/taxdump"
 RE_TAXID = re.compile(rb"taxid\|(\d+)")
 TAXIDS = (511145, 585057, 349741, 562, 511145, 561, 0, 83333)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def count_device_route():
+    """The port's count on its device route (the kernels' plain versions
+    on the CPU); the host engine's cases are in test_torch_count_host.py."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UNIKMER_TPU_HOST_COUNT", "0")
+        yield
 
 
 @pytest.fixture
@@ -127,8 +136,8 @@ def test_host_fallback_matches_jax(taxdb, port_taxdb, monkeypatch, mode):
     assert_pair_equal(got, want)
     assert 999999 in set(got[1])
     cfg = port_count.CountConfig(k=15, canonical=True, mode=mode)
-    packed, rec_taxids = port_count.parse_taxid_records(
-        iter(taxid_records(8)), cfg, RE_TAXID)
+    packed, rec_taxids = parse_taxid_records(
+        iter(taxid_records(8)), cfg.k, cfg.circular, cfg.record_gap, RE_TAXID)
     host = port_count.count_taxids_unknown(packed, rec_taxids, cfg,
                                            port_taxdb, CPU)
     device, _ = both(taxid_records(8), 15, True, mode, taxdb, port_taxdb)
@@ -237,8 +246,8 @@ def test_sketch_taxids_and_linear_match_jax(taxdb, port_taxdb, kw):
     assert_pair_equal(got, want)
     assert len(got[0]) > (0 if cfg.mode == "repeated" else 100)
     assert len(np.unique(got[1])) > 1
-    packed, rec_taxids = port_count.parse_taxid_records(iter(recs), cfg,
-                                                        RE_TAXID)
+    packed, rec_taxids = parse_taxid_records(iter(recs), cfg.k, cfg.circular,
+                                             cfg.record_gap, RE_TAXID)
     streamed = port_count.count_taxids_stream_device(
         packed, rec_taxids, cfg, jax_plan(taxdb, rec_taxids), port_taxdb,
         chunk_bases=1500, device=CPU)

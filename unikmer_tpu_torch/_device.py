@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 
-import torch
+from ._lazy import torch
 
 ENV_DEVICE = "UNIKMER_TPU_TORCH_DEVICE"
 
@@ -31,7 +31,8 @@ def get_device(name: str | None = None) -> torch.device:
     return dev
 
 
-def sync(device: torch.device) -> None:
+def sync(device: torch.device | str) -> None:
     """Wait for queued work on ``device`` (no-op on the CPU)."""
+    device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -28,7 +28,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-import torch
+from ._lazy import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"

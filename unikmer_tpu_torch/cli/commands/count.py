@@ -1,4 +1,4 @@
-"""count: generate k-mers from FASTA/Q sequences, on the port's device path.
+"""count: generate k-mers from FASTA/Q sequences, on the host engine or the card.
 
 Port of unikmer_tpu/cli/commands/count.py with the same flags, checks
 and messages, and the same ``.unik`` header flags and writer settings.
@@ -6,10 +6,24 @@ and messages, and the same ``.unik`` header flags and writer settings.
 -C), hashed configs (-H, -D scaled, k 33-64: ntHash codes), sketches
 (-W minimizer, -S closed syncmer, --syncmer-impl compat), -T/-r
 (per-record taxids, LCA-merged, read with --data-dir's nodes.dmp) and
--l (genome order, with or without -T) always run on the device through
-models/count.py; there is no size-based routing to the host engine.
---mesh N (not with -l or the compat syncmer) runs the hash-range sharded
-build of parallel/sharded.py over N devices.
+-l (genome order, with or without -T).
+
+Routing, as in the JAX CLI (``_host_count_wanted``): a small input goes
+to the host engine (models/count_host.py: the native window kernels and
+the host sort), which never imports torch; the rest runs on the device
+through models/count.py.  UNIKMER_TPU_HOST_COUNT=0 sends every call to
+the device, =1 every config the host engine supports, and ``auto`` (the
+default) those whose input files total at most
+UNIKMER_TPU_HOST_COUNT_MAX_MB (default 256) MB, except in the resident
+server (server.py), which has paid the device's start-up already; past
+UNIKMER_TPU_HOST_COUNT_MAX_BASES packed bases (default 2^28, a quarter
+of it for sketches) the host engine declines and the device streams.
+The compat syncmer prefers the host kernel whatever the knob
+(UNIKMER_TPU_NO_NATIVE=1 reaches its device twin); -T with a sketch has
+no host route.  --mesh N (not with -l or the compat syncmer) runs the
+hash-range sharded build of parallel/sharded.py over N devices, ahead of
+the host route.  -V logs the route taken.  The routing changes no
+output byte.
 """
 
 from __future__ import annotations
@@ -18,24 +32,16 @@ import os
 import re
 
 import numpy as np
-import torch
 
-from ..._device import get_device
 from ...io import unik
 from ...io.fastx import (
-    PackedSeqs, _try_native_load, pack_files, pack_records, read_fastx,
-)
-from ...models.count import (
-    CountConfig, SpilledCount, _stream_chunk_bases, count_linear,
-    count_packed_taxids, count_stream, count_stream_packed,
-    count_taxids_from_packed, linear_codes_all, parse_taxid_records,
+    PackedSeqs, _try_native_load, pack_files, pack_records,
+    parse_taxid_records, read_fastx,
 )
 from ...ops.codec import MAX_K_ENCODED, MAX_K_HASHED
-from ...parallel.sharded import (
-    mesh_count_stream, mesh_count_stream_packed, mesh_count_taxids,
-)
+from ...ops.sketch import compat_gap
 from ...taxonomy.taxdump import load_taxonomy
-from ...utils.log import die, log
+from ...utils.log import die, init_logging, log
 from ...utils.stages import stage
 from ..opts import (
     ensure_unik_suffix, get_file_list, get_options, out_binary_stream,
@@ -127,10 +133,6 @@ def run(args) -> int:
     hashed, canonical = _reference_checks(args)
     re_taxid = (re.compile(args.parse_taxid_regexp.encode())
                 if args.parse_taxid else None)
-    try:
-        device = get_device()
-    except RuntimeError as e:
-        die(str(e))
 
     name_res = []
     for kw in args.seq_name_filter:
@@ -178,12 +180,152 @@ def run(args) -> int:
         scale=args.scale if args.scale > 1 else 1,
         max_taxid=opt.max_taxid,
     )
+    sketch = args.minimizer_w > 0 or args.syncmer_s > 0
+    compat = args.syncmer_impl == "compat" and args.syncmer_s > 0
+    gap = compat_gap(k, args.syncmer_s) if compat else 1
+    # the compat syncmer prefers the host kernel, as in the JAX CLI; -T
+    # with a sketch has no host route (the sketch kernels give no window
+    # positions, so no record's taxid)
+    host_ok = ((compat or _host_count_wanted(files, k, hashed, args))
+               and not (args.parse_taxid and sketch))
+    # the native fused ingest (io/fastx) places one separator between
+    # records, not the compat syncmer's compat_gap
+    native_ingest = (not name_res and not compat
+                     and all(_native_ingest_ok(f) for f in files))
+    host_kw = dict(k=k, canonical=canonical, hashed=hashed, scale=args.scale)
+    sketch_kw = dict(minimizer_w=args.minimizer_w, syncmer_s=args.syncmer_s,
+                     syncmer_impl=args.syncmer_impl)
 
-    cfg = CountConfig(k=k, canonical=canonical, hashed=hashed,
-                      scale=args.scale, minimizer_w=args.minimizer_w,
-                      syncmer_s=args.syncmer_s,
-                      syncmer_impl=args.syncmer_impl,
-                      circular=args.circular, mode=mode)
+    def pack_all():
+        if native_ingest:
+            return pack_files(files, k, args.circular)
+        return pack_records(records(), k, args.circular, gap=gap)
+
+    def device_run():
+        """(device, CountConfig) of a device route: torch is imported
+        here and on no host route."""
+        from ..._device import get_device
+        from ...models.count import CountConfig
+
+        _log_route(args, opt, "device")
+        try:
+            device = get_device()
+        except RuntimeError as e:
+            die(str(e))
+        return device, CountConfig(
+            k=k, canonical=canonical, hashed=hashed, scale=args.scale,
+            circular=args.circular, mode=mode, **sketch_kw)
+
+    def write(codes, taxids=None, number=True):
+        """Write the .unik; ``number`` False leaves its count unknown
+        (-l's header, as the JAX CLI writes it)."""
+        with stage("write", "cpu"):
+            out, _ = out_binary_stream(out_file)
+            with unik.UnikWriter(out, flag=flag,
+                                 number=len(codes) if number else -1,
+                                 **writer_kw) as w:
+                w.write_codes(codes, taxids)
+        log_saved(opt, len(codes), out_file)
+        return 0
+
+    mesh = opt.mesh >= 1 and not compat
+    if args.linear:
+        if args.parse_taxid:
+            with stage("ingest", "cpu"):
+                # headers of records too short for one window are not
+                # parsed
+                packed, rec_taxids = parse_taxid_records(
+                    (rec for rec in records() if len(rec.seq) >= k), k,
+                    args.circular, gap, re_taxid)
+            res = None
+            if host_ok:
+                from ...models.count_host import linear_windows_host
+
+                _log_route(args, opt, "host")
+                res = linear_windows_host(packed.bases, k, canonical, hashed)
+            if res is None:
+                from ...models.count import linear_codes_all
+
+                device, cfg = device_run()
+                res = linear_codes_all(packed.bases, cfg, device=device)
+            codes, pos = res
+            taxids = rec_taxids[
+                np.searchsorted(packed.starts, pos, side="right") - 1]
+            return write(codes, taxids, number=False)
+        with stage("ingest", "cpu"):
+            packed = pack_all()
+        codes = None
+        if host_ok and (compat or len(packed.bases) <= _host_max_bases()):
+            from ...models.count_host import linear_host
+
+            _log_route(args, opt, "host")
+            codes = linear_host(packed, **host_kw, **sketch_kw)
+        if codes is None:
+            # incl. compat past the host cap: the device twin takes over
+            from ...models.count import count_linear
+
+            device, cfg = device_run()
+            codes = count_linear(packed, cfg, device)
+        return write(codes, number=False)
+
+    if args.parse_taxid:
+        taxdb = load_taxonomy(opt.data_dir, verbose=opt.verbose)
+        res = None
+        if host_ok and not mesh:
+            from ...models.count_host import count_taxids_host
+
+            _log_route(args, opt, "host")
+            res = count_taxids_host(records(), k, canonical, hashed,
+                                    args.scale, mode, args.circular,
+                                    re_taxid, taxdb)
+        if res is None:
+            from ...models.count import (
+                count_packed_taxids, count_taxids_from_packed,
+            )
+            from ...parallel.sharded import mesh_count_taxids
+
+            device, cfg = device_run()
+            if mesh:
+                check_mesh_devices(opt)
+                # falls back to the single-device -T where the sharded
+                # build declines (unknown nonzero taxids)
+                with stage("ingest", "cpu"):
+                    packed, rec_taxids = parse_taxid_records(
+                        records(), k, args.circular, gap, re_taxid)
+                res = mesh_count_taxids(packed, rec_taxids, taxdb, cfg,
+                                        opt.mesh)
+                if res is None:
+                    res = count_taxids_from_packed(packed, rec_taxids, cfg,
+                                                   taxdb, device)
+            else:
+                res = count_packed_taxids(records(), cfg, re_taxid, taxdb,
+                                          device)
+        return write(*res)
+
+    if host_ok and not mesh:
+        packed = pack_all()
+        codes = None
+        if compat or len(packed.bases) <= _host_max_bases():
+            from ...models.count_host import count_host
+
+            _log_route(args, opt, "host")
+            codes = count_host(packed, mode=mode, **host_kw, **sketch_kw)
+        if codes is not None:
+            return write(codes)
+        # a cap said no (the input's packed size past the host cap, or
+        # the sketch kernels' tighter one): the device streams the files
+        # again (stdin never routes here)
+        del packed
+
+    # the streamed device count (--mesh N: the sharded build)
+    from ...models.count import (
+        SpilledCount, _stream_chunk_bases, count_stream, count_stream_packed,
+    )
+    from ...parallel.sharded import (
+        mesh_count_stream, mesh_count_stream_packed,
+    )
+
+    device, cfg = device_run()
 
     def packed_stream():
         # the native fused ingest per file, else bounded record chunks
@@ -191,10 +333,7 @@ def run(args) -> int:
         for f in files:
             if opt.verbose:
                 log.info(f"reading sequence file: {f}")
-            # the compat syncmer needs compat_gap separator bytes between
-            # records, which the native loader's packing does not place
-            part = (None if cfg.needs_record_sep
-                    else _try_native_load(f, k, args.circular))
+            part = _try_native_load(f, k, args.circular)
             if part is not None:
                 b, s, ln, _ = part
                 yield PackedSeqs(b, s, ln)
@@ -204,41 +343,11 @@ def run(args) -> int:
                 buf.append(rec)
                 size += len(rec.seq)
                 if size >= chunk:
-                    yield pack_records(buf, k, args.circular,
-                                       gap=cfg.record_gap)
+                    yield pack_records(buf, k, args.circular)
                     buf, size = [], 0
             if buf:
-                yield pack_records(buf, k, args.circular, gap=cfg.record_gap)
+                yield pack_records(buf, k, args.circular)
 
-    if args.linear:
-        return _run_linear(args, opt, cfg, records, re_taxid, files, name_res,
-                           out_file, flag, writer_kw, device)
-    mesh = opt.mesh >= 1 and not cfg.needs_record_sep
-    if args.parse_taxid:
-        taxdb = load_taxonomy(opt.data_dir, verbose=opt.verbose)
-        if mesh:
-            check_mesh_devices(opt)
-            # falls back to the single-device -T where the sharded build
-            # declines (unknown nonzero taxids)
-            with stage("ingest", torch.device("cpu")):
-                packed, rec_taxids = parse_taxid_records(records(), cfg,
-                                                         re_taxid)
-            res = mesh_count_taxids(packed, rec_taxids, taxdb, cfg, opt.mesh)
-            if res is None:
-                res = count_taxids_from_packed(packed, rec_taxids, cfg, taxdb,
-                                               device)
-            codes, taxids = res
-        else:
-            codes, taxids = count_packed_taxids(records(), cfg, re_taxid,
-                                                taxdb, device)
-        with stage("write", torch.device("cpu")):
-            out, _ = out_binary_stream(out_file)
-            with unik.UnikWriter(out, flag=flag, number=len(codes),
-                                 **writer_kw) as w:
-                w.write_codes(codes, taxids)
-        log_saved(opt, len(codes), out_file)
-        return 0
-    native_ingest = not name_res and all(_native_ingest_ok(f) for f in files)
     if mesh:
         check_mesh_devices(opt)
     if mesh and native_ingest:
@@ -250,7 +359,7 @@ def run(args) -> int:
     else:
         codes = count_stream(records(), cfg, device=device)
 
-    with stage("write", torch.device("cpu")):
+    with stage("write", "cpu"):
         out, _ = out_binary_stream(out_file)
         if isinstance(codes, SpilledCount):
             # beyond-RAM set: stream the cascade merge into the writer
@@ -264,33 +373,47 @@ def run(args) -> int:
     return 0
 
 
-def _run_linear(args, opt, cfg, records, re_taxid, files, name_res, out_file,
-                flag, writer_kw, device) -> int:
-    """-l/--linear: every valid window in genome order, duplicates kept;
-    with -T each window carries its record's taxid."""
-    k = cfg.k
-    if args.parse_taxid:
-        with stage("ingest", torch.device("cpu")):
-            # headers of records too short for one window are not parsed
-            packed, rec_taxids = parse_taxid_records(
-                (rec for rec in records() if len(rec.seq) >= k), cfg, re_taxid)
-        codes, pos = linear_codes_all(packed.bases, cfg, device=device)
-        taxids = rec_taxids[np.searchsorted(packed.starts, pos, side="right") - 1]
-    else:
-        with stage("ingest", torch.device("cpu")):
-            if (not name_res and not cfg.needs_record_sep
-                    and all(_native_ingest_ok(f) for f in files)):
-                packed = pack_files(files, k, args.circular)
-            else:
-                packed = pack_records(records(), k, args.circular,
-                                      gap=cfg.record_gap)
-        codes, taxids = count_linear(packed, cfg, device), None
-    with stage("write", torch.device("cpu")):
-        out, _ = out_binary_stream(out_file)
-        with unik.UnikWriter(out, flag=flag, **writer_kw) as w:
-            w.write_codes(codes, taxids)
-    log_saved(opt, len(codes), out_file)
-    return 0
+def _log_route(args, opt, route: str) -> None:
+    """-V (or --verbose) logs which engine counts."""
+    if args.more_verbose or opt.verbose:
+        init_logging(True)
+        log.info(f"count: the {route} route")
+
+
+def _host_max_bases() -> int:
+    """Hard post-pack cap for the host engine: its window buffer costs
+    8 bytes a base, so bound it apart from the input's size on disk (the
+    device streaming path is memory-bounded instead)."""
+    return int(os.environ.get("UNIKMER_TPU_HOST_COUNT_MAX_BASES",
+                              str(1 << 28)))  # 268 Mbp -> ~2.1 GB codes
+
+
+def _host_count_wanted(files, k: int, hashed: bool, args) -> bool:
+    """Route to the host engine?  UNIKMER_TPU_HOST_COUNT: 0 = never, 1 =
+    whenever the config is supported, auto (default) = supported AND the
+    input files' total size at most UNIKMER_TPU_HOST_COUNT_MAX_MB
+    (default 256 MB; stdin's size is unknown, so it streams on the
+    device) AND not in the resident server: there the torch import and
+    the CUDA context are paid, which is what the host engine saves."""
+    knob = os.environ.get("UNIKMER_TPU_HOST_COUNT", "auto")
+    if knob == "0":
+        return False  # checked before supported(): get_lib() may compile
+    from ...models.count_host import supported
+
+    if not supported(k, hashed, args.scale, args.minimizer_w, args.syncmer_s):
+        return False
+    if knob == "1":
+        return True
+    if os.environ.get("UNIKMER_TPU_IN_SERVER"):
+        return False
+    if any(f == "-" for f in files):
+        return False
+    try:
+        total = sum(os.path.getsize(f) for f in files)
+    except OSError:
+        return False
+    cap_mb = float(os.environ.get("UNIKMER_TPU_HOST_COUNT_MAX_MB", "256"))
+    return total <= cap_mb * (1 << 20)
 
 
 def _native_ingest_ok(path: str) -> bool:

@@ -11,9 +11,9 @@ blocks are the JAX command's.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..._device import get_device
+from ..._lazy import torch
 from ...io import unik
 from ...ops.filter import low_complexity_mask
 from ...utils.log import die, log

@@ -24,6 +24,7 @@ import numpy as np
 from ... import native
 from ...io import unik
 from ...ops import codec
+from ...ops.device_sets import DeviceMembership, grep_device_route
 from ...ops.nthash import nthash_kmer
 from ...pipeline import extsort
 from ...utils.log import die, log
@@ -193,10 +194,6 @@ def run(args) -> int:
                     query_set = _build_query_set(
                         kmer_queries, unik_query_codes, unik_query_hashed, h
                     )
-                    from ...ops.device_sets import (
-                        DeviceMembership, grep_device_route,
-                    )
-
                     if grep_device_route(len(query_set)):
                         # device membership tier: query set resident on
                         # the device, per-block binary search + bit-packed

@@ -17,16 +17,14 @@ import re
 import sys
 
 import numpy as np
-import torch
 
-from ...models.locate import build_genome_index, lookup_ranges
 from ...utils.log import die, log
 from ...utils.stages import stage
 from ...utils.textout import _MAX_U64_DIGITS, _decimal_digits, _scatter_digits
 from ..opts import out_text_stream
 from ._common import add_files_arg, new_command, open_reader, unik_inputs
 
-HOST = torch.device("cpu")  # for the stages of host work alone
+HOST = "cpu"  # the device of the stages of host work alone
 
 
 def register(subparsers):
@@ -74,6 +72,8 @@ def run(args) -> int:
 
     if opt.verbose:
         log.info(f"indexing {len(args.genome)} genome file(s)")
+    from ...models.locate import build_genome_index, lookup_ranges
+
     index = build_genome_index(
         args.genome, k, hashed=hashed, circular=args.circular, name_filters=name_res
     )

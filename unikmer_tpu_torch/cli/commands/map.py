@@ -36,18 +36,11 @@ from __future__ import annotations
 import sys
 
 import numpy as np
-import torch
 
 from ... import native
 from ..._device import get_device
-from ...models.count import (
-    CountConfig, linear_codes_all, linear_codes_device,
-)
-from ...models.locate import joined_bases, read_genome_records
+from ..._lazy import torch
 from ...ops.codec import SENTINEL
-from ...ops.device_sets import _first, _lookup, _to_device, element_budget
-from ...ops.radix_sort import radix_sort_kv_u64
-from ...ops.sort import collapse_sorted
 from ...utils.log import die, log
 from ...utils.stages import stage
 from ..opts import out_text_stream
@@ -88,6 +81,9 @@ def register(subparsers):
 
 
 def run(args) -> int:
+    from ...models.count import CountConfig
+    from ...models.locate import read_genome_records
+
     opt, files = unik_inputs(args)
     if not args.genome:
         die("flag -g/--genome needed")
@@ -155,6 +151,9 @@ def run(args) -> int:
 def query_set(qsets, device: torch.device) -> torch.Tensor:
     """The distinct codes of every file, sorted (np.unique of their
     concatenation), on ``device``: K2 and the distinct collapse."""
+    from ...ops.device_sets import _to_device
+    from ...ops.sort import collapse_sorted
+
     codes = np.concatenate(qsets) if qsets else np.zeros(0, np.uint64)
     x = _to_device(codes, device)
     with stage("map query", device):
@@ -182,6 +181,10 @@ class GenomeScan:
         invalid or across records), its membership in the query set, the
         in-record windows that match, and the records' starts; tensors on
         the device route, numpy arrays on the host route."""
+        from ...models.count import linear_codes_device
+        from ...models.locate import joined_bases
+        from ...ops.device_sets import _lookup, element_budget
+
         dev, k = self.device, self.cfg.k
         seqs = [seq for _, seq in self.by_file[fi]]
         bases, starts = joined_bases(seqs)
@@ -211,6 +214,8 @@ class GenomeScan:
     def _windows_host(self, bases, starts, ends):
         """:meth:`_windows` on the host route: the windows fetched a piece
         at a time, the rest numpy."""
+        from ...models.count import linear_codes_all
+
         n = len(bases)
         with stage("map encode", self.device):
             codes, pos = linear_codes_all(bases, self.cfg, device=self.device)
@@ -246,6 +251,8 @@ class GenomeScan:
                 multi[1:] |= same
                 multi[:-1] |= same
             return sc, so, multi
+        from ...ops.radix_sort import radix_sort_kv_u64
+
         dev = self.device
         m = hits.shape[0]
         if m >= MAX_HITS:
@@ -269,6 +276,8 @@ class GenomeScan:
     def multi_set(self, fi: int):
         """The sorted codes hit at least twice in file fi (-W's unit): a
         tensor where fi took the device route, else numpy."""
+        from ...ops.device_sets import _first
+
         if fi not in self._multi:
             dense, _, hits, starts = self._windows(fi)
             sc, _, multi = self._hit_runs(dense, hits, starts)
@@ -284,6 +293,8 @@ class GenomeScan:
         bool over the joined buffer: terminators from the hits of fi's
         own units (multi_of == fi), from the multiply-mapped set of file
         multi_of, or none (multi_of None or -1)."""
+        from ...ops.device_sets import _lookup, _to_device
+
         dev = self.device
         dense, match, hits, starts = self._windows(fi)
         host = isinstance(dense, np.ndarray)

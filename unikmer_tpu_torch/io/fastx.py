@@ -203,6 +203,34 @@ def pack_records(
     return PackedSeqs(out, starts, lengths)
 
 
+def parse_taxid_records(records, k: int, circular: bool, gap: int,
+                        re_taxid):
+    """Parse per-record taxids from headers and pack the sequences:
+    (packed, rec_taxids) aligned (records shorter than k dropped from
+    both; every header is parsed).  The front half of both engines'
+    -T."""
+    from ..utils.log import die
+
+    records = list(records)
+    rec_taxids = np.empty(len(records), np.uint32)
+    for i, rec in enumerate(records):
+        m = re_taxid.search(rec.name)
+        if not m:
+            die(f"failed to parse taxid in header: {rec.name.decode()}")
+        try:
+            rec_taxids[i] = int(m.group(1))
+        except (ValueError, OverflowError):
+            die(
+                f"failed to parse taxid {m.group(1)!r} in header: "
+                f"{rec.name.decode()}"
+            )
+    packed = pack_records(records, k, circular, gap=gap)
+    if packed.n_records != len(records):
+        kept = [i for i, rec in enumerate(records) if len(rec.seq) >= k]
+        rec_taxids = rec_taxids[kept]
+    return packed, rec_taxids
+
+
 def pack_files(paths: Iterable[str], k: int, circular: bool = False) -> PackedSeqs:
     """Pack one or more FASTA/Q files: through the fused native loader
     (native/host_native.cpp fastx_load) where it applies, else the

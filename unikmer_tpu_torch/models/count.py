@@ -36,7 +36,7 @@ import torch
 
 from .. import native
 from .._device import get_device
-from ..io.fastx import PackedSeqs, pack_records
+from ..io.fastx import PackedSeqs, pack_records, parse_taxid_records
 from ..ops import codec
 from ..ops import sets as host_sets
 from ..ops.codec import MAX_K_ENCODED, MAX_K_HASHED
@@ -617,33 +617,6 @@ def count_taxids_step(keyed: torch.Tensor, valid: torch.Tensor,
     return out
 
 
-def parse_taxid_records(records, cfg: CountConfig, re_taxid):
-    """Parse per-record taxids from headers and pack the sequences:
-    (packed, rec_taxids) aligned (records shorter than k dropped from
-    both)."""
-    from ..utils.log import die
-
-    records = list(records)
-    rec_taxids = np.empty(len(records), np.uint32)
-    for i, rec in enumerate(records):
-        m = re_taxid.search(rec.name)
-        if not m:
-            die(f"failed to parse taxid in header: {rec.name.decode()}")
-        try:
-            rec_taxids[i] = int(m.group(1))
-        except (ValueError, OverflowError):
-            die(
-                f"failed to parse taxid {m.group(1)!r} in header: "
-                f"{rec.name.decode()}"
-            )
-    packed = pack_records(records, cfg.k, cfg.circular,
-                          gap=cfg.record_gap)
-    if packed.n_records != len(records):
-        kept = [i for i, rec in enumerate(records) if len(rec.seq) >= cfg.k]
-        rec_taxids = rec_taxids[kept]
-    return packed, rec_taxids
-
-
 def _pos_ctax(packed: PackedSeqs, rec_ctax: np.ndarray, off: int,
               length: int, device: torch.device) -> torch.Tensor:
     """Compact ids of positions [off, off+length) of packed.bases: each
@@ -786,5 +759,6 @@ def count_packed_taxids(records, cfg: CountConfig, re_taxid, taxdb,
     bytes regexp with one capture group.  Returns (codes, taxids) sorted
     by code, filtered by cfg.mode."""
     with stage("ingest", _HOST):
-        packed, rec_taxids = parse_taxid_records(records, cfg, re_taxid)
+        packed, rec_taxids = parse_taxid_records(
+            records, cfg.k, cfg.circular, cfg.record_gap, re_taxid)
     return count_taxids_from_packed(packed, rec_taxids, cfg, taxdb, device)

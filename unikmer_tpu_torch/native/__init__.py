@@ -153,6 +153,16 @@ def _bind(lib) -> None:
     lib.parse_code_lines.restype = i64
     lib.parse_code_lines.argtypes = [u8p, i64, i32, i32, i32, u64p, u32p,
                                      i64]
+    lib.encode_windows_u64.restype = i64
+    lib.encode_windows_u64.argtypes = [u8p, i64, i32, i32, u64p, i32]
+    lib.nthash_windows_u64.restype = i64
+    lib.nthash_windows_u64.argtypes = [u8p, i64, i32, i32, ctypes.c_uint32,
+                                       u64p, i32]
+    for name in ("minimizer_emit_u64", "syncmer_emit_u64",
+                 "syncmer_compat_emit_u64"):
+        fn = getattr(lib, name)
+        fn.restype = i64
+        fn.argtypes = [u8p, i64, i32, i32, u64p]
 
 
 class FastxPackStruct(ctypes.Structure):
@@ -518,3 +528,70 @@ def parse_code_lines(text: bytes, kmer_mode: bool, k: int, has_taxid: bool):
     if n < 0:
         return int(-n - 1)  # byte offset of the offending line
     return codes[:n].copy(), (taxids[:n].copy() if has_taxid else None)
+
+
+def encode_windows(bases: np.ndarray, k: int,
+                   canonical: bool) -> np.ndarray | None:
+    """All valid k-mer window codes of a packed base buffer (0..3 valid,
+    >=4 resets the window), in genome order: the host count engine's hot
+    loop (encode_windows_u64).  None without the library or for k
+    outside [1, 32]."""
+    lib = get_lib()
+    if lib is None or not (1 <= k <= 32):
+        return None
+    bases = np.ascontiguousarray(bases, np.uint8)
+    n = len(bases)
+    if n == 0:
+        return np.zeros(0, np.uint64)
+    out = np.empty(n, np.uint64)
+    m = lib.encode_windows_u64(
+        _u8p(bases), n, k, 1 if canonical else 0, _u64p(out), _threads()
+    )
+    return out[:m]
+
+
+def nthash_windows(bases: np.ndarray, k: int, canonical: bool,
+                   scale: int = 1) -> np.ndarray | None:
+    """ntHash v1 of all valid windows (genome order, invalid bases reset
+    the window); scale > 1 keeps hashes <= scaled_max_hash(scale)
+    (FracMinHash).  None without the library or for k outside [1, 64]."""
+    lib = get_lib()
+    if lib is None or not (1 <= k <= 64):
+        return None
+    bases = np.ascontiguousarray(bases, np.uint8)
+    n = len(bases)
+    if n == 0:
+        return np.zeros(0, np.uint64)
+    out = np.empty(n, np.uint64)
+    m = lib.nthash_windows_u64(
+        _u8p(bases), n, k, 1 if canonical else 0,
+        scale if scale > 1 else 1, _u64p(out), _threads()
+    )
+    if m * 2 < n:
+        return out[:m].copy()  # scaled filter kept few: release the 8n buffer
+    return out[:m]
+
+
+def sketch_emit(bases: np.ndarray, k: int, w_or_s: int,
+                kind: str) -> np.ndarray | None:
+    """Linear minimizer or closed-syncmer emission stream of canonical
+    ntHash (the host twins of ops/sketch's minimizer, closed syncmer and
+    compat rules); kind is "minimizer", "syncmer" or "syncmer_compat".
+    None without the library or for k outside [1, 64]."""
+    lib = get_lib()
+    if lib is None or not (1 <= k <= 64):
+        return None
+    bases = np.ascontiguousarray(bases, np.uint8)
+    n = len(bases)
+    if n < k:
+        return np.zeros(0, np.uint64)
+    out = np.empty(n, np.uint64)
+    fn = {
+        "minimizer": lib.minimizer_emit_u64,
+        "syncmer": lib.syncmer_emit_u64,
+        "syncmer_compat": lib.syncmer_compat_emit_u64,
+    }[kind]
+    m = fn(_u8p(bases), n, k, w_or_s, _u64p(out))
+    if m * 2 < n:
+        return out[:m].copy()
+    return out[:m]

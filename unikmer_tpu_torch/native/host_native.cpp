@@ -14,6 +14,10 @@
 //   render_u64_lines, render_u64_pair_lines,
 //   decode_codes_ascii
 //   parse_code_lines                                dump's text parse
+//   encode_windows_u64, nthash_windows_u64,         the host count engine
+//   minimizer_emit_u64, syncmer_emit_u64,           (models/count_host.py):
+//   syncmer_compat_emit_u64                         every window's code or
+//                                                   hash, the sketch streams
 //
 // It links no libdeflate: whole-file gzip inputs inflate with zlib when
 // native/__init__.py finds <zlib.h> (it then defines UKT_HAVE_ZLIB and
@@ -1218,6 +1222,409 @@ int64_t parse_code_lines(const uint8_t* text, int64_t len, int32_t mode,
         n++;
     }
     return n;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Host count engine: rolling 2-bit window encode over a packed base
+// buffer (0..3 valid, >=4 separator/invalid resets the window), the
+// same window semantics as the device pipeline (models/count
+// window_codes; reference sketches NewKmerIterator, count.go:314-367).
+// Canonical = min(code, revcomp), both maintained incrementally.
+// Two passes so threads write disjoint exact output slots:
+//   pass 1: count emit positions per chunk (validity runs only)
+//   pass 2: emit codes.
+// ---------------------------------------------------------------------
+
+namespace {
+
+// Emit positions in [lo, hi): i with >= k consecutive valid bases
+// ending at i.  Seeds the run/codes by scanning back k-1 bases.
+template <typename F>
+static inline void walk_windows(const uint8_t* bases, int64_t lo, int64_t hi,
+                                int k, F&& emit) {
+    int64_t start = lo - (k - 1);
+    if (start < 0) start = 0;
+    uint64_t code = 0, rc = 0;
+    int run = 0;
+    const int rc_shift = 2 * (k - 1);
+    for (int64_t i = start; i < hi; i++) {
+        uint8_t b = bases[i];
+        if (b > 3) {
+            run = 0;
+            continue;
+        }
+        code = (code << 2) | b;
+        rc = (rc >> 2) | ((uint64_t)(3 - b) << rc_shift);
+        if (run < k) run++;
+        if (run >= k && i >= lo) emit(i, code, rc);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// out must hold up to (n) uint64 (exact count returned).  threads<=0
+// picks the hardware count.  k in [1, 32].
+int64_t encode_windows_u64(const uint8_t* bases, int64_t n, int32_t k,
+                           int32_t canonical, uint64_t* out,
+                           int32_t threads) {
+    if (k < 1 || k > 32 || n <= 0) return 0;
+    const uint64_t mask =
+        (k == 32) ? ~0ULL : ((1ULL << (2 * k)) - 1);
+    int t = threads > 0 ? threads
+                        : (int)std::thread::hardware_concurrency();
+    if (t < 1) t = 1;
+    if ((int64_t)t > n / (1 << 16) + 1) t = (int)(n / (1 << 16) + 1);
+    std::vector<int64_t> lo(t + 1);
+    for (int i = 0; i <= t; i++) lo[i] = n * i / t;
+    std::vector<int64_t> counts(t, 0);
+
+    auto count_chunk = [&](int ci) {
+        int64_t c = 0;
+        walk_windows(bases, lo[ci], lo[ci + 1], k,
+                     [&](int64_t, uint64_t, uint64_t) { c++; });
+        counts[ci] = c;
+    };
+    auto run_pool = [&](auto&& fn) {
+        if (t == 1) {
+            fn(0);
+            return;
+        }
+        std::vector<std::thread> pool;
+        pool.reserve(t);
+        for (int i = 0; i < t; i++) pool.emplace_back(fn, i);
+        for (auto& th : pool) th.join();
+    };
+    run_pool(count_chunk);
+
+    std::vector<int64_t> offs(t + 1, 0);
+    for (int i = 0; i < t; i++) offs[i + 1] = offs[i] + counts[i];
+
+    auto emit_chunk = [&](int ci) {
+        uint64_t* p = out + offs[ci];
+        if (canonical) {
+            walk_windows(bases, lo[ci], lo[ci + 1], k,
+                         [&](int64_t, uint64_t code, uint64_t rc) {
+                             uint64_t f = code & mask;
+                             *p++ = f < rc ? f : rc;
+                         });
+        } else {
+            walk_windows(bases, lo[ci], lo[ci + 1], k,
+                         [&](int64_t, uint64_t code, uint64_t) {
+                             *p++ = code & mask;
+                         });
+        }
+    };
+    run_pool(emit_chunk);
+    return offs[t];
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// ntHash v1 window hashes (reference: will-rowe/nthash v0.4.0 via
+// unikmer/cmd call sites; same contract as ops/nthash.py):
+//   NTF64 = XOR_j rol64(seedF[s_j], k-1-j)
+//   NTR64 = XOR_j rol64(seedR[s_j], j)       (seedR = complement seeds)
+//   canonical = min(NTF, NTR); k <= 64.
+// Window validity semantics identical to encode_windows_u64 (invalid
+// base resets the run; only all-valid windows emit) — the behavior the
+// scaled-MinHash fixture pins for hashed counts.
+// ---------------------------------------------------------------------
+
+namespace {
+
+static const uint64_t kSeedF[5] = {
+    0x3C8BFBB395C60474ULL, 0x3193C18562A02B4CULL, 0x20323ED082572324ULL,
+    0x295549F54BE24456ULL, 0ULL};
+static const uint64_t kSeedR[5] = {  // complement: A<->T, C<->G
+    0x295549F54BE24456ULL, 0x20323ED082572324ULL, 0x3193C18562A02B4CULL,
+    0x3C8BFBB395C60474ULL, 0ULL};
+
+// The scaled-MinHash threshold (count.go:98 semantics), as
+// ops/nthash.scaled_max_hash computes it.
+static inline uint64_t scaled_max_hash_u64(uint32_t scale) {
+    return scale > 1 ? (uint64_t)((double)(~0ULL) / (double)scale) : ~0ULL;
+}
+
+static inline uint64_t rol64(uint64_t x, int s) {
+    s &= 63;
+    return s ? (x << s) | (x >> (64 - s)) : x;
+}
+
+// Emit (i, ntf, ntr) for each all-valid window ending at i in [lo, hi).
+template <typename F>
+static inline void walk_nthash(const uint8_t* bases, int64_t lo, int64_t hi,
+                               int k, F&& emit) {
+    int64_t start = lo - (k - 1);
+    if (start < 0) start = 0;
+    uint64_t f = 0, r = 0;
+    int run = 0;
+    for (int64_t i = start; i < hi; i++) {
+        uint8_t b = bases[i];
+        if (b > 3) {
+            run = 0;
+            continue;
+        }
+        if (run >= k) {
+            // rolling update: drop bases[i-k], admit b
+            uint8_t out = bases[i - k];
+            f = rol64(f, 1) ^ rol64(kSeedF[out], k) ^ kSeedF[b];
+            r = (rol64(r ^ kSeedR[out], 63)) ^ rol64(kSeedR[b], k - 1);
+        } else if (++run == k) {
+            // first complete window after a reset: from scratch
+            f = r = 0;
+            for (int j = 0; j < k; j++) {
+                uint8_t c = bases[i - k + 1 + j];
+                f ^= rol64(kSeedF[c], k - 1 - j);
+                r ^= rol64(kSeedR[c], j);
+            }
+        }
+        if (run >= k && i >= lo) emit(i, f, r);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// out must hold up to n uint64; returns the emit count.  scale>1 keeps
+// only hashes <= scaled_max_hash_u64(scale) (FracMinHash threshold,
+// count.go:89-98).  k in [1, 64].
+int64_t nthash_windows_u64(const uint8_t* bases, int64_t n, int32_t k,
+                           int32_t canonical, uint32_t scale, uint64_t* out,
+                           int32_t threads) {
+    if (k < 1 || k > 64 || n <= 0) return 0;
+    // Go computes uint64(float64(^uint64(0)) / float64(scale))
+    // (count.go:98): float64(2^64-1) rounds to 2^64 exactly, so the
+    // double-math threshold differs from integer division by up to a
+    // few hundred (scale=7: 146).  The device (ops/nthash.scaled_max_hash)
+    // and this kernel share the float64 rule.
+    const uint64_t max_hash = scaled_max_hash_u64(scale);
+    int t = threads > 0 ? threads
+                        : (int)std::thread::hardware_concurrency();
+    if (t < 1) t = 1;
+    if ((int64_t)t > n / (1 << 16) + 1) t = (int)(n / (1 << 16) + 1);
+    std::vector<int64_t> lo(t + 1);
+    for (int i = 0; i <= t; i++) lo[i] = n * i / t;
+    std::vector<int64_t> counts(t, 0);
+    std::vector<std::vector<uint64_t>> parts(t);
+
+    auto run_pool = [&](auto&& fn) {
+        if (t == 1) {
+            fn(0);
+            return;
+        }
+        std::vector<std::thread> pool;
+        pool.reserve(t);
+        for (int i = 0; i < t; i++) pool.emplace_back(fn, i);
+        for (auto& th : pool) th.join();
+    };
+    // hashes are filtered by value (scaled), so per-chunk counts are
+    // value-dependent: emit into per-thread buffers, then concatenate
+    auto emit_chunk = [&](int ci) {
+        auto& buf = parts[ci];
+        buf.reserve((lo[ci + 1] - lo[ci]) / (scale > 1 ? scale : 1) + 16);
+        if (canonical) {
+            walk_nthash(bases, lo[ci], lo[ci + 1], k,
+                        [&](int64_t, uint64_t f, uint64_t r) {
+                            uint64_t h = f < r ? f : r;
+                            if (h <= max_hash) buf.push_back(h);
+                        });
+        } else {
+            walk_nthash(bases, lo[ci], lo[ci + 1], k,
+                        [&](int64_t, uint64_t f, uint64_t) {
+                            if (f <= max_hash) buf.push_back(f);
+                        });
+        }
+    };
+    run_pool(emit_chunk);
+    uint64_t* p = out;
+    for (int i = 0; i < t; i++) {
+        std::memcpy(p, parts[i].data(), parts[i].size() * sizeof(uint64_t));
+        p += parts[i].size();
+    }
+    return p - out;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Sketch emission streams — host twins of ops/sketch.py (same contract:
+// sketches force hashed+canonical; invalid windows keyed to U64_MAX;
+// leftmost argmin ties; minimizer emits on selected-POSITION change
+// per run of fully-valid window groups; closed syncmer emits the k-mer
+// hash where the min s-mer sits at offset 0 or k-s).
+// Monotonic-deque sliding min replaces the device's doubling argmin.
+// ---------------------------------------------------------------------
+
+namespace {
+
+// keyed[i] = canonical ntHash of window [i, i+k) or U64MAX when any
+// base in it is invalid; valid[i] likewise.  i in [0, n-k+1).
+static void nthash_keyed(const uint8_t* bases, int64_t n, int k,
+                         uint64_t* keyed, uint8_t* valid) {
+    const int64_t n_pos = n - k + 1;
+    for (int64_t i = 0; i < n_pos; i++) {
+        keyed[i] = ~0ULL;
+        valid[i] = 0;
+    }
+    walk_nthash(bases, 0, n, k, [&](int64_t i, uint64_t f, uint64_t r) {
+        int64_t p = i - k + 1;
+        keyed[p] = f < r ? f : r;
+        valid[p] = 1;
+    });
+}
+
+struct MinDeque {
+    std::vector<std::pair<uint64_t, int64_t>> q;  // (value, index)
+    size_t head = 0;
+
+    void push(uint64_t v, int64_t i) {
+        // strict >: equal values keep the EARLIER index (leftmost tie)
+        while (q.size() > head && q.back().first > v) q.pop_back();
+        q.emplace_back(v, i);
+    }
+    void drop_before(int64_t lo) {
+        while (q.size() > head && q[head].second < lo) head++;
+    }
+    uint64_t min_value() const { return q[head].first; }
+    int64_t min_index() const { return q[head].second; }
+};
+
+}  // namespace
+
+extern "C" {
+
+// out must hold up to n uint64; returns emit count (the linear
+// minimizer stream; callers sort/dedup for count semantics).
+int64_t minimizer_emit_u64(const uint8_t* bases, int64_t n, int32_t k,
+                           int32_t w, uint64_t* out) {
+    if (k < 1 || k > 64 || w < 1 || n < k) return 0;
+    const int64_t n_pos = n - k + 1;
+    std::vector<uint64_t> keyed(n_pos);
+    std::vector<uint8_t> valid(n_pos);
+    nthash_keyed(bases, n, k, keyed.data(), valid.data());
+    if (n_pos < w) return 0;
+    MinDeque dq;
+    int64_t run = 0;  // consecutive valid k-positions ending at j
+    uint64_t* p = out;
+    bool prev_group_valid = false;
+    int64_t prev_arg = -1;
+    for (int64_t j = 0; j < n_pos; j++) {
+        dq.push(keyed[j], j);
+        run = valid[j] ? run + 1 : 0;
+        int64_t i = j - w + 1;  // window group [i, j]
+        if (i < 0) continue;
+        dq.drop_before(i);
+        bool gvalid = run >= w;
+        if (gvalid && (!prev_group_valid || dq.min_index() != prev_arg)) {
+            *p++ = dq.min_value();
+        }
+        prev_group_valid = gvalid;
+        prev_arg = dq.min_index();
+    }
+    return p - out;
+}
+
+// Closed syncmer: emit the canonical k-mer hash at every valid
+// k-position whose minimal s-mer (leftmost tie) sits at offset 0 or
+// k-s.  out must hold up to n uint64.
+int64_t syncmer_emit_u64(const uint8_t* bases, int64_t n, int32_t k,
+                         int32_t s, uint64_t* out) {
+    if (k < 1 || k > 64 || s < 1 || s > k || n < k) return 0;
+    const int64_t nk = n - k + 1;
+    const int64_t ns = n - s + 1;
+    std::vector<uint64_t> khash(nk);
+    std::vector<uint8_t> kvalid(nk);
+    nthash_keyed(bases, n, k, khash.data(), kvalid.data());
+    std::vector<uint64_t> shash(ns);
+    std::vector<uint8_t> svalid(ns);
+    nthash_keyed(bases, n, s, shash.data(), svalid.data());
+    const int w = k - s + 1;  // s-mers per k-mer
+    MinDeque dq;
+    uint64_t* p = out;
+    for (int64_t j = 0; j < ns; j++) {
+        dq.push(shash[j], j);
+        int64_t i = j - w + 1;  // k-position
+        if (i < 0 || i >= nk) continue;
+        dq.drop_before(i);
+        if (!kvalid[i]) continue;
+        int64_t off = dq.min_index() - i;
+        if (off == 0 || off == (int64_t)(k - s)) *p++ = khash[i];
+    }
+    return p - out;
+}
+
+// "Compat" closed syncmer: the forensic reconstruction of the
+// reference's actual behavior (docs/DIVERGENCES.md §2; scripts/
+// exp_syncmer_rules.py).  Select every k-position that is the leftmost
+// argmin of ANY sliding window of W = 2(k-s) s-mer hashes (tail
+// windows partial), then force an emission every T = k-s positions
+// between consecutive base selections (and backwards from the first
+// one) — reproducing the reference's gap histogram (flat interior,
+// 166k spike at 15, zero gaps > 15) and 447,951 distinct k-mers on
+// MG1655 k=31 s=16 vs the published 446,227 (+0.39%).
+int64_t syncmer_compat_emit_u64(const uint8_t* bases, int64_t n,
+                                int32_t k, int32_t s, uint64_t* out) {
+    if (k < 1 || k > 64 || s < 1 || s > k || n < k) return 0;
+    const int64_t nk = n - k + 1;
+    const int64_t ns = n - s + 1;
+    std::vector<uint64_t> khash(nk);
+    std::vector<uint8_t> kvalid(nk);
+    nthash_keyed(bases, n, k, khash.data(), kvalid.data());
+    uint64_t* p = out;
+    if (s == k) {  // degenerate: every valid k-mer is a closed syncmer
+        for (int64_t i = 0; i < nk; i++)
+            if (kvalid[i]) *p++ = khash[i];
+        return p - out;
+    }
+    std::vector<uint64_t> shash(ns);
+    std::vector<uint8_t> svalid(ns);
+    nthash_keyed(bases, n, s, shash.data(), svalid.data());
+    for (int64_t j = 0; j < ns; j++)
+        if (!svalid[j]) shash[j] = ~0ULL;
+    const int64_t W = 2 * (int64_t)(k - s);
+    const int64_t T = k - s;
+    // base set: leftmost argmin of every window [t, min(t+W, ns))
+    std::vector<uint8_t> mark(nk, 0);
+    MinDeque dq;
+    int64_t pushed = 0;
+    for (int64_t t = 0; t < ns; t++) {
+        int64_t r = t + W - 1 < ns - 1 ? t + W - 1 : ns - 1;
+        while (pushed <= r) {
+            dq.push(shash[pushed], pushed);
+            pushed++;
+        }
+        dq.drop_before(t);
+        int64_t m = dq.min_index();
+        if (dq.min_value() != ~0ULL && m < nk && kvalid[m]) mark[m] = 1;
+    }
+    int64_t b_first = -1, b_last = -1;
+    for (int64_t i = 0; i < nk; i++)
+        if (mark[i]) {
+            if (b_first < 0) b_first = i;
+            b_last = i;
+        }
+    if (b_first < 0) return 0;
+    // head fills: b_first - m*T for m = 1..(b_first-1)/T, ascending
+    for (int64_t q = b_first - T * ((b_first - 1) / T); q < b_first;
+         q += T)
+        if (kvalid[q]) *p++ = khash[q];
+    // base emissions + interior fills every T since the last base
+    int64_t last_base = -1;
+    for (int64_t i = b_first; i < nk; i++) {
+        if (mark[i]) {
+            *p++ = khash[i];
+            last_base = i;
+        } else if (i < b_last && (i - last_base) % T == 0 && kvalid[i]) {
+            *p++ = khash[i];
+        }
+    }
+    return p - out;
 }
 
 }  // extern "C"

@@ -21,7 +21,8 @@ port's own copy of those of ``unikmer_tpu/ops/codec.py``.
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+from .._lazy import torch
 
 # Invalid-base sentinel in base-code space (valid codes are 0..3).
 INVALID_BASE = np.uint8(255)

@@ -39,9 +39,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from .._device import get_device
+from .._lazy import torch
 from ..taxonomy.lca import (
     collapse_keyed_taxids, compact_ids, device_lca_plan, lca_collapse_device,
     lca_pairs_device, upload_plan,

@@ -18,9 +18,8 @@ canonical_code + where).
 
 from __future__ import annotations
 
-import torch
-
 from .. import _kernels
+from .._lazy import torch
 from . import codec
 from .codec import INVALID_BASE
 

@@ -13,7 +13,7 @@ window; reproduced bit-for-bit.)
 
 from __future__ import annotations
 
-import torch
+from .._lazy import torch
 
 _EVEN = 0x5555555555555555  # bit 0 of every 2-bit field
 

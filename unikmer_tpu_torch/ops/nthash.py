@@ -28,9 +28,9 @@ the plain version :func:`encode_nthash_plain`.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .. import _kernels
+from .._lazy import torch
 from . import codec
 from .codec import (
     BASE_LUT, MAX_K_HASHED, SENTINEL, SIGN, shr, ult,

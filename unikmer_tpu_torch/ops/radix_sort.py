@@ -36,9 +36,8 @@ digit passes its launches ran (``.passes_run``) and skipped as trivial
 
 from __future__ import annotations
 
-import torch
-
 from .. import _kernels
+from .._lazy import torch
 from .codec import SIGN
 
 RADIX_BITS = 8

@@ -35,9 +35,8 @@ raises; on a CPU tensor it runs the plain version.
 
 from __future__ import annotations
 
-import torch
-
 from .. import _kernels
+from .._lazy import torch
 from . import codec
 from .codec import SENTINEL, ult
 from .nthash import MAX_HASH, at_most, nthash_windows

@@ -17,8 +17,7 @@ a 0-dim int64 tensor (no host sync).
 
 from __future__ import annotations
 
-import torch
-
+from .._lazy import torch
 from ..utils.stages import stage
 from .codec import SENTINEL
 from .radix_sort import radix_sort_u64

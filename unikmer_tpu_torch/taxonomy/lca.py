@@ -35,8 +35,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
-
+from .._lazy import torch
 from ..ops.radix_sort import radix_sort_kv_u64
 from ..ops.sort import _run_edges
 from ..utils.stages import stage

@@ -14,10 +14,6 @@ import time
 from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
 
-import torch
-
-from .._device import sync
-
 
 class StageTimes:
     """Seconds and entry counts per stage name, in first-seen order."""
@@ -27,7 +23,9 @@ class StageTimes:
         self.calls: dict[str, int] = {}
 
     @contextmanager
-    def stage(self, name: str, device: torch.device):
+    def stage(self, name: str, device: torch.device | str):
+        from .._device import sync
+
         sync(device)
         t0 = time.perf_counter()
         try:
@@ -54,7 +52,8 @@ def record_stages():
         _ACTIVE.reset(token)
 
 
-def stage(name: str, device: torch.device):
-    """Context manager timing one stage when recording, else a no-op."""
+def stage(name: str, device: torch.device | str):
+    """Context manager timing one stage on ``device`` (a torch.device or
+    its name) when recording, else a no-op."""
     times = _ACTIVE.get()
     return nullcontext() if times is None else times.stage(name, device)
