@@ -59,7 +59,7 @@ holds their results against oracles:
             (no K3, the host engine) take the host route and are exact.
             Then ``grep -F q.unik`` over A's ``count -t`` output with
             UNIKMER_TPU_GREP_DEVICE at 1 (DeviceMembership) and at 0,
-            q.unik holding 2^22 codes of known membership, half of them
+            q.unik holding 2^21 codes of known membership, half of them
             A's; and ``view`` -> ``dump`` over a 2^20-code 2-bit and a
             2^20-code hashed file (the native text functions against
             numpy and the original bytes).
@@ -69,7 +69,8 @@ holds their results against oracles:
             difference and the codes held by 2 of 3 are read; queries of
             known membership; the LCA by the port's host Taxonomy), and
             each operation is timed (CUDA events, 5 runs) beside the
-            host engine (ops/sets, native and numpy) in the ``sets`` line;
+            host engine (ops/sets, native and numpy; not for the taxid
+            operations) in the ``sets`` line;
   file commands
             over the sets path's ``count -t`` files of A, B and C (about
             3.3 x 10^7 codes each) and T2's ``count -T`` output: ``sort -u
@@ -93,6 +94,21 @@ holds their results against oracles:
             hashes and 16 that A lacks; every output held to numpy's
             bytes (``genome_path``), each call's seconds, index stages,
             peak, windows and route in the ``genome`` line;
+  surface   the library snippet of docs/USAGE.md (``from
+            unikmer_tpu_torch import CountConfig, count_packed,
+            pack_files, UnikReader, UnikWriter``) on the card over a
+            seeded 2^24-base FASTA, k = 23 canonical, against the numpy
+            count, with the reader's and writer's accessors;
+            ``sort_codes`` against torch.sort of 2^25 keys (64 and 46
+            bits, the latter's pass count from ``sort_code_bits``) and
+            ``sort_codes_taxids`` against numpy's lexsort of 2^24
+            pairs; ``union -s -C`` of two small seeded taxid .unik files
+            in fresh processes under UNIKMER_TPU_DEVICE_TAXID auto (the
+            host engine, no torch), 1 (K3) and 0, and ``count -T`` of T1
+            under 0 (no K3) and auto, all byte-equal to their oracles;
+            a ``count`` with UNIKMER_TPU_PROFILE_STREAM=1 whose stderr
+            holds the report and one without, whose stderr is empty
+            (``surface_path``, the ``surface`` line);
   mesh      parallel/sharded.py with 4 shards on the card
             (``make_mesh(devices=[cuda:0] * 4)``): ``count --mesh 1 -k 23
             -K -s -C`` of the 134 Mbp FASTA through the CLI, byte-equal
@@ -161,9 +177,10 @@ script imports nothing of unikmer_tpu or jax.
 
 Every phase but the start-up one runs count's device route
 (UNIKMER_TPU_HOST_COUNT=0; the compat run without the native library,
-so on its device twin).  An early ``machine:`` line names the driver,
-the CUDA versions, the card's uncorrected ECC errors, its UUID and the
-host.
+so on its device twin), and every phase but the surface one the device
+taxid union (UNIKMER_TPU_DEVICE_TAXID=1).  An early ``machine:`` line
+names the driver, the CUDA versions, the card's uncorrected ECC errors,
+its UUID and the host.
 
 Exits non-zero, printing no result, without a CUDA device or outside
 the repository.  The last line of stdout is
@@ -2231,7 +2248,7 @@ def grep_oracle(path: str, unik_in: str, hit: np.ndarray, taxid: int) -> None:
 
 
 def grep_path(tmp, rng, a_codes, a_unik: str, taxid: int, dev,
-              half: int = 1 << 21):
+              half: int = 1 << 20):
     """``grep -F q.unik`` over A's ``count -t`` output, the device tier
     (UNIKMER_TPU_GREP_DEVICE=1) and then the host's (=0): q.unik holds
     2 x ``half`` codes, ``half`` of them members of A and ``half`` valid
@@ -2498,25 +2515,18 @@ def sets_path(tmp, rng, report: SetsReport, dev=None) -> dict:
                             assume_sorted_unique=True, device=dev)
     bt = KmerSet.from_codes(bn, 23, canonical=True, taxids=tb, taxdb=taxdb,
                             assume_sorted_unique=True, device=dev)
+    # the host engine's times of these operations are not taken (the
+    # untaxed operations above have them)
     report.op("A | B (taxids)", lambda: at | bt, {"k1": 0, "k2": 0, "k3": 1},
-              holds("A | B (taxids)"),
-              lambda: host_sets.union([an, bn], [ta, tb], taxdb), ("native",))
+              holds("A | B (taxids)"))
     report.op("A | B (one-sided)", lambda: at | b, one_k2,
-              holds("A | B (one-sided)"),
-              lambda: host_sets.union([an, bn],
-                                      [ta, np.zeros(len(bn), np.uint32)],
-                                      taxdb), ("native",))
+              holds("A | B (one-sided)"))
     report.op("A & B (taxids)", lambda: at & bt, no_sort,
-              holds("A & B (taxids)"),
-              lambda: host_sets.intersect([an, bn], [ta, tb], taxdb),
-              ("native",))
+              holds("A & B (taxids)"))
     report.op("A & B (one-sided)", lambda: at & b, no_sort,
-              holds("A & B (one-sided)"),
-              lambda: host_sets.intersect([an, bn], [ta, None], taxdb),
-              ("native",))
+              holds("A & B (one-sided)"))
     report.op("A - B (taxids)", lambda: at - bt, no_sort,
-              holds("A - B (taxids)"),
-              lambda: host_sets.subtract(an, ta, [bn]), ("native",))
+              holds("A - B (taxids)"))
     del a, b, at, bt
 
     # the CLI phase
@@ -4010,6 +4020,306 @@ def distributed_path(tmp, inputs: dict, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# surface: the library API of docs/USAGE.md, the public sorts, the taxid
+# route knob and the stream profiler
+
+
+SURFACE_BASES = 1 << 24  # the USAGE snippet's FASTA
+SURFACE_SORT_KEYS = 1 << 25  # sort_codes against torch.sort
+SURFACE_PAIRS = 1 << 24  # sort_codes_taxids against numpy's lexsort
+SURFACE_UNION_CODES = 1 << 17  # each small taxid .unik of the union runs
+# the surface phase holds the launches it expects (on the CPU the plain
+# versions count none, and the CPU tests turn this off)
+SURFACE_COUNTS = True
+PROFILE_HEADER = "# stream profile (exclusive wall per phase):"
+PROFILE_TOTAL = "#   TOTAL(tracked)"
+
+
+def zero_launches() -> dict:
+    wrappers = encode_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def read_launches(wrappers: dict) -> dict:
+    return {key: w.launches for key, w in wrappers.items()}
+
+
+def surface_usage(tmp, rng) -> tuple:
+    """The docs/USAGE.md library snippet on the port, on the card, over a
+    seeded FASTA of SURFACE_BASES bases (k = 23, canonical): its codes
+    equal to numpy's count; the codes through UnikWriter and back
+    through UnikReader, whose accessors must give the header.  Returns
+    (the FASTA, the oracle's codes, launches, row)."""
+    fa = os.path.join(tmp, "surface.fa")
+    write_one_record(fa, "surface", rng.integers(0, 4, size=SURFACE_BASES,
+                                                 dtype=np.uint8))
+    t0 = time.perf_counter()
+    with numpy_host():
+        from unikmer_tpu_torch.io.fastx import pack_files as np_pack
+
+        want = numpy_count(np_pack([fa], 23).bases, 23, True, "distinct")
+    oracle_s = time.perf_counter() - t0
+    from unikmer_tpu_torch import (
+        UNIK_MAIN_VERSION, CountConfig, UnikReader, UnikWriter, count_packed,
+        pack_files,
+    )
+    from unikmer_tpu_torch.io import unik
+
+    wrappers = zero_launches()
+    t0 = time.perf_counter()
+    codes = count_packed(pack_files([fa], k=23),
+                         CountConfig(k=23, canonical=True))
+    secs = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    if not np.array_equal(codes, want):
+        raise SystemExit(f"surface: the USAGE snippet gave {len(codes)} codes "
+                         f"against numpy's {len(want)}")
+    if SURFACE_COUNTS and (launches["k1"] < 1 or launches["k2"] < 1):
+        raise SystemExit(f"surface: the USAGE snippet launched {launches}")
+    path = os.path.join(tmp, "surface.unik")
+    flag = unik.SORTED | unik.CANONICAL
+    with UnikWriter(path, k=23, flag=flag, compress=False) as w:
+        w.number = len(codes)
+        w.write_codes(codes)
+        try:
+            w.number = 0
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("surface: UnikWriter.number set after a write")
+    with UnikReader(path) as r:
+        got = (r.k, r.flag, r.number, r.header.main_version)
+        back = r.read_all()[0]
+    if got != (23, flag, len(codes), UNIK_MAIN_VERSION) or not np.array_equal(
+            back, want):
+        raise SystemExit(f"surface: UnikReader read {got}")
+    os.remove(path)
+    row = {"bases": SURFACE_BASES, "codes": len(codes), "s": round(secs, 4),
+           "oracle_s": round(oracle_s, 3),
+           "launches": {k: v for k, v in launches.items() if v}}
+    say("surface USAGE snippet: exact, reader accessors " + json.dumps(row))
+    return fa, want, launches, row
+
+
+def surface_sorts(rng, dev) -> tuple:
+    """sort_codes against torch.sort of the same 2^25 keys (64 bits, then
+    46 bits with sort_code_bits(23, False) and its pass count), and of a
+    numpy array; sort_codes_taxids against numpy's lexsort of 2^24 pairs
+    with many equal codes: equal codes, and per code equal multisets of
+    taxids.  Returns (launches, row)."""
+    from unikmer_tpu_torch.ops.codec import SIGN
+    from unikmer_tpu_torch.ops.radix_sort import (
+        radix_sort_u64, radix_shifts,
+    )
+    from unikmer_tpu_torch.ops.sort import (
+        sort_code_bits, sort_codes, sort_codes_taxids,
+    )
+
+    keys = torch.from_numpy(rng.integers(0, 1 << 64, size=SURFACE_SORT_KEYS,
+                                         dtype=np.uint64).view(np.int64)
+                            ).to(dev)
+    bits = sort_code_bits(23, False)
+    keys46 = keys & ((1 << bits) - 1)
+    wrappers = zero_launches()
+    passes = radix_sort_u64.passes_run + radix_sort_u64.passes_skipped
+    got46 = sort_codes(keys46, bits)
+    passes = radix_sort_u64.passes_run + radix_sort_u64.passes_skipped - passes
+    got = sort_codes(keys)
+    codes_np = rng.integers(0, 1 << 64, size=1 << 20, dtype=np.uint64)
+    got_np = sort_codes(codes_np)
+    pc = rng.integers(0, 1 << 20, size=SURFACE_PAIRS, dtype=np.uint64)
+    pt = rng.integers(0, 1 << 32, size=SURFACE_PAIRS, dtype=np.uint32)
+    sc, st = sort_codes_taxids(torch.from_numpy(pc.view(np.int64)).to(dev),
+                               torch.from_numpy(pt.view(np.int32)).to(dev))
+    sc_np, st_np = sort_codes_taxids(pc[:1 << 20], pt[:1 << 20])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    ref = torch.sort(keys ^ SIGN).values ^ SIGN
+    ref46 = torch.sort(keys46 ^ SIGN).values ^ SIGN
+    if not (torch.equal(got, ref) and torch.equal(got46, ref46)):
+        raise SystemExit("surface: sort_codes differs from torch.sort")
+    if SURFACE_COUNTS and passes != len(radix_shifts(bits)):
+        raise SystemExit(f"surface: sort_codes at {bits} bits ran {passes} "
+                         f"passes")
+    if not np.array_equal(got_np, np.sort(codes_np)):
+        raise SystemExit("surface: sort_codes of a numpy array differs")
+    for c, t, n in ((sc.cpu().numpy().view(np.uint64),
+                     st.cpu().numpy().view(np.uint32), SURFACE_PAIRS),
+                    (sc_np, st_np, 1 << 20)):
+        want = np.lexsort((pt[:n], pc[:n]))
+        mine = np.lexsort((t, c))
+        if not (np.array_equal(c, pc[:n][want])
+                and np.array_equal(c[mine], pc[:n][want])
+                and np.array_equal(t[mine], pt[:n][want])):
+            raise SystemExit(f"surface: sort_codes_taxids of {n} pairs "
+                             f"differs from numpy's lexsort")
+    if SURFACE_COUNTS and (launches["k2"] < 3 or launches["k3"] < 2):
+        raise SystemExit(f"surface: the sorts launched {launches}")
+    row = {"sort_codes_ms": round(cuda_ms(lambda: sort_codes(keys)), 4),
+           "torch_sort_ms": round(cuda_ms(
+               lambda: torch.sort(keys ^ SIGN).values ^ SIGN), 4),
+           "keys": SURFACE_SORT_KEYS, "pairs": SURFACE_PAIRS,
+           "passes_at_46_bits": passes,
+           "launches": {k: v for k, v in launches.items() if v}}
+    say("surface sorts: exact " + json.dumps(row))
+    return launches, row
+
+
+def surface_routes(tmp, rng, taxdump: str, t1_fa: str) -> tuple:
+    """``union -s -C`` of two small seeded taxid .unik files in fresh
+    processes under UNIKMER_TPU_DEVICE_TAXID auto (below the threshold:
+    the host engine, no torch at exit), 1 (the card, K3) and 0 (the host
+    engine), each byte-equal to the oracle (the sets path's LCA merge);
+    then ``count -T`` of T1 under 0 (the host reduction: K1, no K3) and
+    auto (K3), each byte-equal to T1's oracle.  Returns (launches, row)."""
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
+
+    taxdb = load_taxonomy(taxdump)
+    known = np.flatnonzero(taxdb.depth >= 0)
+    pool = rng.choice(known[known > 0], 256, replace=False).astype(np.uint32)
+    a = np.unique(rng.integers(0, 1 << 46, size=SURFACE_UNION_CODES,
+                               dtype=np.uint64))
+    b = np.unique(np.concatenate([
+        a[rng.integers(0, len(a), size=len(a) // 2)],
+        rng.integers(0, 1 << 46, size=len(a) // 2, dtype=np.uint64)]))
+    ta = rng.choice(pool, len(a)).astype(np.uint32)
+    tb = rng.choice(pool, len(b)).astype(np.uint32)
+    flag = unik.SORTED | unik.CANONICAL | unik.INCLUDE_TAXID
+    ua, ub = (os.path.join(tmp, f"small_{n}.unik") for n in "ab")
+    want = os.path.join(tmp, "small_union.oracle.unik")
+    with numpy_host():
+        write_oracle(ua, 23, flag, a, ta)
+        write_oracle(ub, 23, flag, b, tb)
+        u, tu = taxid_set_oracles(a, ta, b, tb, taxdb)["A | B (taxids)"]
+        write_oracle(want, 23, flag, u, tu)
+    launches = {"k1": 0, "k2": 0, "k3": 0}
+    row = {"union_codes": len(u),
+           "union_input_bytes": os.path.getsize(ua) + os.path.getsize(ub)}
+    for knob, device in (("auto", False), ("1", True), ("0", False)):
+        out = os.path.join(tmp, f"small_union_{knob}")
+        secs, rc, imported, err, _ = fresh(
+            ["union", "-s", "-C", "--data-dir", taxdump, ua, ub, "-o", out],
+            {"UNIKMER_TPU_DEVICE_TAXID": knob})
+        got = fresh_launches(err)
+        if rc != 0 or not same_bytes(out + ".unik", want):
+            raise SystemExit(f"surface: union under UNIKMER_TPU_DEVICE_TAXID="
+                             f"{knob} exited {rc} or differs: {err[-2000:]}")
+        if imported != device or (
+                SURFACE_COUNTS and (got.get("k3", 0) > 0) != device):
+            raise SystemExit(f"surface: union under UNIKMER_TPU_DEVICE_TAXID="
+                             f"{knob}: torch imported {imported}, launches "
+                             f"{got}")
+        for key in launches:
+            launches[key] += got.get(key, 0)
+        row[f"union_{knob}_s"] = round(secs, 4)
+        row[f"union_{knob}_torch"] = imported
+        os.remove(out + ".unik")
+    for path in (ua, ub, want):
+        os.remove(path)
+    t1_want = os.path.join(tmp, "T1.oracle.unik")
+    for knob, k3 in (("0", False), ("auto", True)):
+        out = os.path.join(tmp, f"T1_{knob}")
+        os.environ["UNIKMER_TPU_DEVICE_TAXID"] = knob
+        try:
+            secs, got, st = counted_cli(
+                ["count", "-k", "23", "-K", "-s", "-C", "-T", "-r", RE_TAXID,
+                 "--data-dir", taxdump, t1_fa, "-o", out],
+                {"k1": True, "k3": k3, "h1": False, "s1": False}
+                if SURFACE_COUNTS else {})
+        finally:
+            os.environ["UNIKMER_TPU_DEVICE_TAXID"] = "1"
+        if not same_bytes(out + ".unik", t1_want):
+            raise SystemExit(f"surface: count -T of T1 under "
+                             f"UNIKMER_TPU_DEVICE_TAXID={knob} differs from "
+                             f"T1's oracle")
+        for key in launches:
+            launches[key] += got[key]
+        row[f"count_T1_{knob}_s"] = round(secs, 4)
+        row[f"count_T1_{knob}_stages"] = {
+            s: round(v, 4) for s, v in st.seconds.items()}
+        os.remove(out + ".unik")
+    say("surface taxid routes: every output exact " + json.dumps(row))
+    return launches, row
+
+
+def surface_profile(tmp, fa: str, want) -> tuple:
+    """A streamed ``count -k 23 -K -s -C`` of the snippet's FASTA without
+    and with UNIKMER_TPU_PROFILE_STREAM=1: the report on stderr only with
+    the knob, its header and TOTAL line present, the profiler off again
+    after each count, both outputs the oracle's bytes.  Returns
+    (launches, row)."""
+    import io
+
+    from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.utils import stages
+
+    oracle = os.path.join(tmp, "surface.oracle.unik")
+    with numpy_host():
+        write_oracle(oracle, 23, unik.SORTED | unik.CANONICAL, want)
+    launches = {"k1": 0, "k2": 0, "k3": 0}
+    row = {}
+    for knob in ("0", "1"):
+        out = os.path.join(tmp, f"surface_profile_{knob}")
+        os.environ["UNIKMER_TPU_PROFILE_STREAM"] = knob
+        wrappers = zero_launches()
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                t0 = time.perf_counter()
+                run_cli(["count", "-k", "23", "-K", "-s", "-C", fa, "-o", out])
+                secs = time.perf_counter() - t0
+        finally:
+            del os.environ["UNIKMER_TPU_PROFILE_STREAM"]
+        got = read_launches(wrappers)
+        text = err.getvalue()
+        lines = text.splitlines()
+        printed = PROFILE_HEADER in lines and any(
+            ln.startswith(PROFILE_TOTAL) for ln in lines)
+        if printed != (knob == "1") or (knob == "0" and text):
+            raise SystemExit(f"surface: UNIKMER_TPU_PROFILE_STREAM={knob} "
+                             f"printed: {text[-2000:]}")
+        if not same_bytes(out + ".unik", oracle) or (
+                SURFACE_COUNTS and got["k1"] < 1):
+            raise SystemExit(f"surface: profiled count {knob} differs from "
+                             f"the oracle or launched {got}")
+        if stages._PROFILE is not None:
+            raise SystemExit("surface: the stream profiler stayed on after "
+                             "count, so later work in the process records")
+        for key in launches:
+            launches[key] += got[key]
+        row[f"count_profile_{knob}_s"] = round(secs, 4)
+        if knob == "1":
+            row["report"] = lines
+        os.remove(out + ".unik")
+    os.remove(oracle)
+    say("surface stream profile: " + json.dumps(row))
+    return launches, row
+
+
+def surface_path(tmp, rng, dev, taxdump: str, t1_fa: str) -> dict:
+    """The surface phase (module docstring); returns its launches, to add
+    to the kernels line, and the ``surface`` row."""
+    t_phase = time.perf_counter()
+    fa, want, launches, usage = surface_usage(tmp, rng)
+    row = {"usage": usage}
+    for name, (got, part) in (
+            ("sorts", surface_sorts(rng, dev)),
+            ("routes", surface_routes(tmp, rng, taxdump, t1_fa)),
+            ("profile", surface_profile(tmp, fa, want))):
+        row[name] = part
+        for key, n in got.items():
+            launches[key] = launches.get(key, 0) + n
+    os.remove(fa)
+    row["launches"] = {k: v for k, v in launches.items() if v}
+    row["seconds"] = round(time.perf_counter() - t_phase, 3)
+    say(json.dumps({"surface": row}))
+    return {"launches": launches, "row": row}
+
+
+# ---------------------------------------------------------------------------
 # P1/P2: the probe kernels against their plain versions, then their entry
 # point
 
@@ -4448,9 +4758,12 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     say("machine: " + json.dumps(machine_facts(dev)))
-    # every phase but the start-up one runs count's device route: small
-    # inputs would otherwise take the host engine (its own phase)
+    # every phase but the start-up one runs count's device route, and
+    # every taxid union but the surface phase's the device taxid route:
+    # small inputs would otherwise take the host engine (those phases
+    # choose the routes themselves)
     os.environ["UNIKMER_TPU_HOST_COUNT"] = "0"
+    os.environ["UNIKMER_TPU_DEVICE_TAXID"] = "1"
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     _kernels.load()
@@ -4495,6 +4808,9 @@ def main() -> int:
         del t2
         t.append(time.perf_counter())
         genome = genome_path(tmp, rng, kept, dev)
+        t.append(time.perf_counter())
+        surface = surface_path(tmp, rng, dev, kept["taxdump"],
+                               mesh_in["taxid"][0][1])
         mesh_in.update({key: kept[key] for key in (
             "taxdump", "uniks", "oracle", "written", "cli_s")})
         # the mesh path removes T1's FASTA once read: a second name keeps
@@ -4516,7 +4832,8 @@ def main() -> int:
         f"count -T {t[1] - t[0]:.3f}, "
         f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}, "
         f"file commands {t[4] - t[3]:.3f}, genome {t[5] - t[4]:.3f}, "
-        f"mesh {t[6] - t[5]:.3f}, distributed {t[7] - t[6]:.3f}")
+        f"surface {t[6] - t[5]:.3f}, mesh {t[7] - t[6]:.3f}, "
+        f"distributed {t[8] - t[7]:.3f}")
     say(json.dumps({"sets": report.rows}))
     say(json.dumps({"admission": report.admission}))
     say(json.dumps({"file_commands": file_commands}))
@@ -4530,6 +4847,8 @@ def main() -> int:
     for key, n in dist["launches"].items():
         launches[key] += n
     for key, n in startup["launches"].items():
+        launches[key] += n
+    for key, n in surface["launches"].items():
         launches[key] += n
     launches.update(probe_path())
     say(json.dumps({"kernels": [

@@ -45,6 +45,9 @@ def fastas(tmp_path_factory):
 @pytest.fixture
 def envs(monkeypatch):
     monkeypatch.setenv("UNIKMER_TPU_HOST_COUNT", "0")
+    # a taxid union of these small files takes the device route only
+    # when asked (auto takes it from 32 MB of input)
+    monkeypatch.setenv("UNIKMER_TPU_DEVICE_TAXID", "1")
     monkeypatch.setenv("UNIKMER_TPU_TORCH_DEVICE", "cpu")
 
 

@@ -255,3 +255,46 @@ def test_admission_counts_memory_the_allocator_keeps(monkeypatch):
                 == state["free"] + state["reserved"] - state["allocated"])
         budgets.append(device_sets.element_budget("union", card))
     assert budgets[1] == budgets[0] > 0
+
+
+def test_profiled_count_leaves_later_requests_unrecorded(tmp_path,
+                                                          monkeypatch):
+    """The server runs every request in its own process: after a count
+    with UNIKMER_TPU_PROFILE_STREAM=1 the stream profiler is off again,
+    so a later request without the knob (locate, whose stages would
+    record) times no stage and synchronises nothing."""
+    from unikmer_tpu_torch import server
+    from unikmer_tpu_torch.utils import stages
+
+    fa = write_fa(tmp_path, 5)
+    entered = []
+    real = stages.StageTimes.stage
+
+    def counted(self, name, device):
+        entered.append(name)
+        return real(self, name, device)
+
+    monkeypatch.setattr(stages.StageTimes, "stage", counted)
+
+    def request(argv, env_extra, name):
+        env = base_env()
+        env.update(env_extra)
+        fds = [os.open(os.devnull, os.O_RDONLY),
+               os.open(tmp_path / f"{name}.out", os.O_WRONLY | os.O_CREAT),
+               os.open(tmp_path / f"{name}.err", os.O_WRONLY | os.O_CREAT)]
+        try:
+            return server._run_request(argv, str(tmp_path), env, fds)
+        finally:
+            for fd in fds:
+                os.close(fd)
+
+    assert request(["count", "-k", "23", "-K", "-s", str(fa), "-o", "o"],
+                   {"UNIKMER_TPU_PROFILE_STREAM": "1"}, "count") == 0
+    report = (tmp_path / "count.err").read_text()
+    assert "# stream profile (exclusive wall per phase):" in report
+    assert entered and stages._PROFILE is None
+    entered.clear()
+    assert request(["locate", "-g", str(fa), "o.unik"], {}, "locate") == 0
+    assert (tmp_path / "locate.out").read_text()
+    assert (tmp_path / "locate.err").read_text() == ""
+    assert entered == []

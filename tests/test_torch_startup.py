@@ -1,5 +1,6 @@
-"""The port's start-up path on the CPU: the host-only commands and a
-host-routed ``count`` run without importing torch (each in a fresh
+"""The port's start-up path on the CPU: the host-only commands, a
+host-routed ``count``, a small taxid ``union`` and the package root's
+host exports run without importing torch (each in a fresh
 interpreter), the one-command parser answers as the full one does, and
 the profiler knobs write their files (UNIKMER_TPU_CPROFILE a cProfile
 dump, UNIKMER_TPU_PROFILE a torch.profiler Chrome trace).
@@ -123,6 +124,42 @@ def test_host_routed_count_does_not_import_torch(inputs, tmp_path):
                                    "UNIKMER_TPU_TORCH_DEVICE": "cpu"})
     assert rc == 0, err
     assert imported  # the device route's plain versions run on torch
+
+
+HOST_EXPORTS = ("UnikReader", "UnikWriter", "load_taxonomy", "pack_files",
+                "pack_records", "read_fastx", "UNIK_MAIN_VERSION",
+                "UNIK_MINOR_VERSION")
+
+
+def test_host_root_exports_do_not_import_torch():
+    """The package root's exports that do no device work load without
+    torch; CountConfig (models/count) brings it in."""
+    code = ("import sys, unikmer_tpu_torch as u\n"
+            f"for name in {HOST_EXPORTS!r}:\n"
+            "    getattr(u, name)\n"
+            "print('torch' in sys.modules)\n"
+            "u.CountConfig\n"
+            "print('torch' in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "True"]
+
+
+@pytest.mark.parametrize("knob,imported", [("auto", False), ("0", False),
+                                           ("1", True)])
+def test_small_taxid_union_routes_before_torch(inputs, tmp_path, knob,
+                                               imported):
+    """``union`` of two small taxid files: under auto (below
+    UNIKMER_TPU_DEVICE_TAXID_MIN_MB) and 0 the host engine, without
+    torch; under 1 the device route (its plain versions here)."""
+    argv = ["union", "-s", "-C", "--data-dir", "{taxdump}", "{t}", "{t}",
+            "-o", f"{{out}}/u{knob}"]
+    rc, got, err = run_fresh(argv, inputs, tmp_path,
+                             {"UNIKMER_TPU_DEVICE_TAXID": knob,
+                              "UNIKMER_TPU_TORCH_DEVICE": "cpu"})
+    assert rc == 0, err
+    assert got == imported
 
 
 def help_of(parser, argv, capsys) -> tuple:

@@ -71,7 +71,27 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # KmerSet loads lazily, so importing the package stays cheap
+    """The library API, loaded at first use so that importing the package
+    stays cheap: ``CountConfig``, ``count_packed`` and ``count_linear``
+    (torch), ``UnikReader``, ``UnikWriter``, ``pack_files``,
+    ``pack_records``, ``read_fastx`` and ``load_taxonomy`` (host code, no
+    torch), ``KmerSet`` (torch)."""
+    if name in ("CountConfig", "count_packed", "count_linear"):
+        from .models import count as _m
+
+        return getattr(_m, name)
+    if name in ("UnikReader", "UnikWriter"):
+        from .io import unik as _u
+
+        return getattr(_u, name)
+    if name in ("pack_files", "pack_records", "read_fastx"):
+        from .io import fastx as _f
+
+        return getattr(_f, name)
+    if name == "load_taxonomy":
+        from .taxonomy.taxdump import load_taxonomy
+
+        return load_taxonomy
     if name == "KmerSet":
         from .api import KmerSet
 
@@ -81,3 +101,7 @@ def __getattr__(name):
 
 # Version of the reference toolkit whose behavior is reproduced.
 REFERENCE_VERSION = "0.21.0"
+# The .unik format version written (io/unik.py MAIN_VERSION and
+# MINOR_VERSION, repeated here so that reading them imports nothing).
+UNIK_MAIN_VERSION = 5
+UNIK_MINOR_VERSION = 1

@@ -32,7 +32,7 @@ def get_device(name: str | None = None) -> torch.device:
 
 
 def sync(device: torch.device | str) -> None:
-    """Wait for queued work on ``device`` (no-op on the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    """Wait for queued work on ``device`` (no-op on the CPU, where torch
+    is not imported for it)."""
+    if str(device).split(":")[0] == "cuda":
+        torch.cuda.synchronize(torch.device(device))

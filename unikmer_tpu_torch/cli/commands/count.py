@@ -23,7 +23,13 @@ The compat syncmer prefers the host kernel whatever the knob
 no host route.  --mesh N (not with -l or the compat syncmer) runs the
 hash-range sharded build of parallel/sharded.py over N devices, ahead of
 the host route.  -V logs the route taken.  The routing changes no
-output byte.
+output byte.  In -T, UNIKMER_TPU_DEVICE_TAXID=0 keeps the windows on the
+device but reduces their taxids on the host (models/count.py
+``_device_taxid_route``), as in the JAX CLI.
+
+UNIKMER_TPU_PROFILE_STREAM=1 prints the exclusive wall time of each
+stage (ingest, pack, h2d, k1, sort, collapse, d2h, merge, write, ...)
+to stderr after the run, in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -42,7 +48,9 @@ from ...ops.codec import MAX_K_ENCODED, MAX_K_HASHED
 from ...ops.sketch import compat_gap
 from ...taxonomy.taxdump import load_taxonomy
 from ...utils.log import die, init_logging, log
-from ...utils.stages import stage
+from ...utils.stages import (
+    stage, stream_profile_report, stream_profile_reset, stream_profile_stop,
+)
 from ..opts import (
     ensure_unik_suffix, get_file_list, get_options, out_binary_stream,
 )
@@ -128,6 +136,18 @@ def _reference_checks(args) -> bool:
 
 
 def run(args) -> int:
+    """The command; with UNIKMER_TPU_PROFILE_STREAM=1 its stage times
+    follow on stderr (utils/stages.py's stream profiler), which is off
+    again after the report."""
+    stream_profile_reset()
+    try:
+        return _count(args)
+    finally:
+        stream_profile_report()
+        stream_profile_stop()
+
+
+def _count(args) -> int:
     opt = get_options(args)
     k = args.kmer_len
     hashed, canonical = _reference_checks(args)
@@ -303,13 +323,15 @@ def run(args) -> int:
         return write(*res)
 
     if host_ok and not mesh:
-        packed = pack_all()
+        with stage("ingest", "cpu"):
+            packed = pack_all()
         codes = None
         if compat or len(packed.bases) <= _host_max_bases():
             from ...models.count_host import count_host
 
             _log_route(args, opt, "host")
-            codes = count_host(packed, mode=mode, **host_kw, **sketch_kw)
+            with stage("host count", "cpu"):
+                codes = count_host(packed, mode=mode, **host_kw, **sketch_kw)
         if codes is not None:
             return write(codes)
         # a cap said no (the input's packed size past the host cap, or

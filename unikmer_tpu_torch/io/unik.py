@@ -184,6 +184,18 @@ class UnikWriter:
         self._compress = compress
         self._wrote_header = False
 
+    # number may be set any time before the first write (the reference
+    # sets Number before writing for sorted outputs)
+    @property
+    def number(self) -> int:
+        return self.header.number
+
+    @number.setter
+    def number(self, v: int) -> None:
+        if self._wrote_header:
+            raise RuntimeError("number must be set before the first write")
+        self.header.number = v
+
     def _write_header(self) -> None:
         h = self.header
         buf = struct.pack(
@@ -330,6 +342,19 @@ class UnikReader:
             minor_version=nv,
         )
         self._prev_code = 0
+
+    # the header's fields as the reference reader exposes them
+    @property
+    def k(self) -> int:
+        return self.header.k
+
+    @property
+    def flag(self) -> int:
+        return self.header.flag
+
+    @property
+    def number(self) -> int:
+        return self.header.number
 
     def iter_blocks(self):
         while True:

@@ -24,6 +24,10 @@ depend on their neighbours, so a sketch piece holds whole records.
 encode, then one K3 sort of (code, compact taxid id) pairs and the
 merge rounds of taxonomy/lca.py; ``count -l`` is the encode alone, the
 valid windows kept in genome order.
+
+``stream_profile_reset``/``_table``/``_report`` (UNIKMER_TPU_PROFILE_STREAM)
+are the JAX module's profiler API over the stage records of
+utils/stages.py.
 """
 
 from __future__ import annotations
@@ -54,7 +58,9 @@ from ..ops.sort import (
 from ..taxonomy.lca import (
     collapse_keyed_taxids, compact_ids, device_lca_plan, upload_plan,
 )
-from ..utils.stages import stage
+from ..utils.stages import (  # noqa: F401 (the JAX module's profiler API)
+    stage, stream_profile_report, stream_profile_reset, stream_profile_table,
+)
 
 _HOST = torch.device("cpu")
 
@@ -711,17 +717,29 @@ def stream_taxid_pieces(packed: PackedSeqs, cfg: CountConfig, taxdb,
         return uniq[keep], merged[keep]
 
 
+def _device_taxid_route(taxdb, rec_taxids):
+    """The device LCA plan of count -T (taxonomy/lca.device_lca_plan), or
+    None for the host reduction: UNIKMER_TPU_DEVICE_TAXID=0 forces it,
+    as in the JAX package, and unknown nonzero taxids need it (their
+    merge is defined by the host's order); ``1`` and ``auto`` keep the
+    device collapse."""
+    if os.environ.get("UNIKMER_TPU_DEVICE_TAXID", "auto") == "0":
+        return None
+    return device_lca_plan(taxdb, rec_taxids)
+
+
 def count_taxids_from_packed(packed: PackedSeqs, rec_taxids, cfg: CountConfig,
                              taxdb, device=None):
     """The -T reduction over pre-parsed (packed, rec_taxids): one device
-    piece when the input fits, streamed pieces otherwise.  Only unknown
-    nonzero taxids, whose merge the host's order defines, take
-    :func:`count_taxids_unknown`."""
+    piece when the input fits, streamed pieces otherwise.  Unknown
+    nonzero taxids, whose merge the host's order defines, and
+    UNIKMER_TPU_DEVICE_TAXID=0 take :func:`count_taxids_unknown` (the
+    windows on the device, the LCA reduction on the host)."""
     device = get_device(device)
     if packed.bases.size == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.uint32)
     with stage("plan", _HOST):
-        plan = device_lca_plan(taxdb, rec_taxids)
+        plan = _device_taxid_route(taxdb, rec_taxids)
     if plan is None:
         return count_taxids_unknown(packed, rec_taxids, cfg, taxdb, device)
     if len(packed.bases) > _stream_chunk_bases(device):

@@ -10,9 +10,10 @@ int64, so every one below is masked to make it logical, and unsigned
 order is taken by flipping the sign bit (``SIGN``) before comparing.
 
 These functions are the plain version of the K1 kernel
-(ops/encode.py, csrc/encode.cu).  The host tables below (``BASE_LUT``,
-``INVALID_BASE``, ``RECORD_SEP``, the k limits) and the numpy helpers
-for text interop at the end (``max_code``, ``encode_kmer``,
+(ops/encode.py, csrc/encode.cu); ``seq_to_bases`` maps ASCII to base
+codes on a device.  The host tables below (``BASE_LUT``,
+``INVALID_BASE``, ``RECORD_SEP``, ``CODE_SENTINEL``, the k limits) and
+the numpy helpers for text interop at the end (``max_code``, ``encode_kmer``,
 ``decode_codes``, ``decode_kmer``, ``bits_string``, ``revcomp_np``,
 ``canonical_np``: the encode/decode/view/dump/grep commands) are the
 port's own copy of those of ``unikmer_tpu/ops/codec.py``.
@@ -58,7 +59,11 @@ BASE_LUT = _build_base_lut()
 # 2-bit base code -> ASCII byte.
 BASE_CHARS = np.frombuffer(b"ACGT", dtype=np.uint8)
 
-# CODE_SENTINEL (2^64-1) as an int64 bit pattern.
+# Sentinel code for masked-out slots in uint64 code space: all ones.
+# Real codes are < 4^k <= 2^64, and hashes may be any uint64, so the
+# sentinel is only used together with an explicit count or mask.
+CODE_SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
+# CODE_SENTINEL as an int64 bit pattern.
 SENTINEL = -1
 # Sign bit: x ^ SIGN maps unsigned order onto signed order.
 SIGN = -(1 << 63)
@@ -85,6 +90,24 @@ def shr(x: torch.Tensor, s: int) -> torch.Tensor:
 def ult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a < b as unsigned 64-bit integers."""
     return (a ^ SIGN) < (b ^ SIGN)
+
+
+def seq_to_bases(seq_ascii, device=None) -> torch.Tensor:
+    """Map ASCII sequence bytes to 2-bit base codes (uint8; 255 =
+    invalid).  ``seq_ascii`` is bytes, a numpy uint8 array or a uint8
+    tensor; the codes lie on the tensor's device, else on ``device``
+    (by default ``_device.get_device()``)."""
+    if isinstance(seq_ascii, torch.Tensor):
+        seq = seq_ascii.to(torch.uint8)
+    else:
+        from .._device import get_device
+
+        arr = np.frombuffer(seq_ascii, np.uint8) if isinstance(
+            seq_ascii, (bytes, bytearray, memoryview)) else seq_ascii
+        seq = torch.from_numpy(np.array(arr, np.uint8)).to(
+            get_device(device))
+    lut = torch.from_numpy(BASE_LUT).to(seq.device)
+    return lut[seq.long()]
 
 
 def _shift_up(x: torch.Tensor, s: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """NCBI taxonomy on the host (the port's copy of the parts of
-unikmer_tpu/taxonomy/taxdump.py that its commands use): nodes.dmp and
-merged.dmp loading, ranks (rfilter) and vectorized LCA.
+unikmer_tpu/taxonomy/taxdump.py that its commands and library use):
+nodes.dmp and merged.dmp loading and remapping, ranks (rfilter) and
+vectorized LCA.
 
 The tree is flattened into dense numpy arrays (parent[], depth[]) so
 LCA runs on whole arrays at once: lift the deeper side to equal depth,
@@ -50,6 +51,18 @@ class Taxonomy:
         out[ok] = self.depth[t[ok]] >= 0
         return out
 
+    def remap_merged(self, taxids: np.ndarray) -> np.ndarray:
+        """Apply merged.dmp remapping (old taxids -> current)."""
+        if not self.merged:
+            return np.asarray(taxids, dtype=np.uint32)
+        t = np.asarray(taxids, dtype=np.uint32).copy()
+        # merged.dmp is small (<100k rows); dict pass on unique values
+        uniq, inv = np.unique(t, return_inverse=True)
+        remapped = np.array(
+            [self.merged.get(int(u), int(u)) for u in uniq], dtype=np.uint32
+        )
+        return remapped[inv]
+
     def rank(self, taxid: int) -> str:
         """The rank name of ``taxid``; "" when absent or loaded without
         ranks."""
@@ -97,6 +110,10 @@ class Taxonomy:
                 y[m] = self.parent[y[m]]
             out[both] = x.astype(np.uint32)
         return out.reshape(shape)
+
+    def lca(self, a: int, b: int) -> int:
+        """LCA of two taxids (0 = identity; unknown -> 0)."""
+        return int(self.lca_pairs(np.array([a]), np.array([b]))[0])
 
     def lca_reduce(self, keys: np.ndarray, taxids: np.ndarray):
         """Segment LCA: for sorted ``keys``, reduce each run of equal keys
