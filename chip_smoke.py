@@ -12,14 +12,32 @@ holds their results against oracles:
   count     ``count -k 23 -K -s -C`` over a 134 Mbp FASTA of 4 records,
             and over the same FASTA bench.py's two ntHash configurations,
             ``count -k 31 -K -H -s -C`` and ``count -k 31 -K -D 15 -s -C``,
-            and its two sketch configurations, ``count -k 31 -W 15 -s -C``
-            and ``count -k 31 -S 16 -s -C`` (and -u, -d, k = 32 and
+            and over its first two records its two sketch configurations,
+            ``count -k 31 -W 15 -s -C`` and ``count -k 31 -S 16 -s -C``
+            (and -u, -d, k = 32 and
             k = 64 -H -u over one 37.7 Mbp record, 2 pieces);
+  pipeline  right after the count: K2 and K3 at 2^25 keys in every case
+            of their pass plan (every pass, the top three digits shared,
+            one pass, all keys equal), exact against their plain versions
+            with the passes run and skipped of the numpy reckoning of the
+            constant digits; count_packed_dispatch (2-bit, -H, -W 15, the
+            -u dual dispatch; the compat syncmer reported) and K2/K3 alone
+            under torch.cuda.set_sync_debug_mode("error"); the 134 Mbp
+            ``count -k 23 -K -s -C`` and ``-k 31 -K -H``, ``-k 31 -W 15``
+            of its first two records and ``-k 23 -K -l -C`` of the
+            37.7 Mbp record (2 pieces each), unrecorded at
+            UNIKMER_TPU_PIPELINE_DEPTH 0, 1, 1, 0, byte-equal to the
+            oracles, each with its wall seconds, peak device memory and,
+            from one torch.profiler trace a depth, the card's busy share;
+            the 134 Mbp count written gzipped and read back by read_all()
+            with the parallel inflate, by members (stream=True) and with
+            UNIKMER_TPU_INFLATE_CAP=0 in turns, and a ``union`` of the
+            gzipped file (``pipeline_path``, the ``pipeline`` line);
   start-up  fresh processes of the CLI (``python -c`` around its main()):
             ``num``, ``info`` and ``view`` of the 134 Mbp .unik, none of
             which may import torch; ``count -k 23 -K -s -C`` at 4, 32 and
             134 Mbp with UNIKMER_TPU_HOST_COUNT 0 and 1 (device, host,
-            host, device), every output equal to the numpy oracle's, the
+            host), every output equal to the numpy oracle's, the
             host route's processes without torch, each device process
             launching K1 and K2; the resident server (--warm --pretouch)
             answering the 134 Mbp count, ``union`` and ``view`` through
@@ -192,6 +210,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gzip
+import io
 import json
 import os
 import re
@@ -1062,7 +1081,10 @@ def write_oracle(out: str, k: int, flag: int, codes, taxids=None,
 def numpy_host():
     """The port's host layers on their numpy branches: its native library
     reads UNIKMER_TPU_NO_NATIVE on every call, so the oracle shares no
-    native code with the CLI it checks."""
+    native code with the CLI it checks.  The main path's large oracles
+    compute their codes here and are written outside it, by the native
+    writer, which tests/test_torch_host.py holds byte-equal to the numpy
+    branch's."""
     old = os.environ.get("UNIKMER_TPU_NO_NATIVE")
     os.environ["UNIKMER_TPU_NO_NATIVE"] = "1"
     try:
@@ -1084,9 +1106,8 @@ def oracle_unik(fa: str, out: str, k: int, canonical: bool, mode: str,
     with numpy_host():
         packed = pack_files([fa], k)
         codes = numpy_count(packed.bases, k, canonical, mode, hashed)
-        write_oracle(out, k, unik.SORTED
-                     | (unik.CANONICAL if canonical else 0)
-                     | (unik.HASHED if hashed else 0), codes)
+    write_oracle(out, k, unik.SORTED | (unik.CANONICAL if canonical else 0)
+                 | (unik.HASHED if hashed else 0), codes)
     return (f"numpy{' ntHash' if hashed else ''} "
             f"({time.perf_counter() - t0:.3f} s)")
 
@@ -1146,14 +1167,24 @@ def counted_cli(argv, need: dict):
 
 
 def check_against_oracle(tmp, fa, name, k, canonical, mode, extra,
-                         hashed=False):
+                         hashed=False, codes=None):
+    """``count`` with ``extra`` flags held to the numpy oracle, or to the
+    oracle's ``codes`` when the caller has them."""
+    from unikmer_tpu_torch.io import unik
+
     out = os.path.join(tmp, name)
     argv = ["count", "-k", str(k), *(["-K"] if canonical else []), "-s",
             "-C", *extra, fa, "-o", out]
     need = ({"h1": True, "k1": False, "k2": True, "s1": False} if hashed
             else {"k1": True, "h1": False, "k2": True, "s1": False})
     secs, launches, _ = counted_cli(argv, need)
-    which = oracle_unik(fa, out + ".oracle.unik", k, canonical, mode, hashed)
+    if codes is None:
+        which = oracle_unik(fa, out + ".oracle.unik", k, canonical, mode,
+                            hashed)
+    else:
+        write_oracle(out + ".oracle.unik", k, unik.SORTED | (
+            unik.CANONICAL if canonical else 0), codes)
+        which = "numpy (shared windows)"
     if not same_bytes(out + ".unik", out + ".oracle.unik"):
         raise SystemExit(f"{' '.join(argv)}: .unik differs from the oracle "
                          f"({which})")
@@ -1167,7 +1198,11 @@ def main_path(tmp, rng, report):
     configurations) and sketched (its two sketch configurations), then
     -u, -d, k = 32 and k = 64 -H -u over one 37.7 Mbp record; returns the
     launches of the 2-bit, the -K -H and the -W 15 run, and the FASTA's
-    and the 2-bit run's paths (for the mesh path)."""
+    and the 2-bit run's paths (for the mesh path), the 37.7 Mbp record's
+    path and k = 23 canonical windows and the -H run's .unik (for the
+    pipeline phase)."""
+    from unikmer_tpu_torch.io.fastx import pack_files
+
     fa = os.path.join(tmp, "in.fa")
     t0 = time.perf_counter()
     write_fasta(fa, rng, 4, RECORD_BASES)
@@ -1188,20 +1223,31 @@ def main_path(tmp, rng, report):
     say(f"main path .unik ({os.path.getsize(out + '.unik')} bytes) equal to "
         f"the {which} oracle")
     fasta_set_check(tmp, fa, out + ".oracle.unik", report)
-    hashed, bases, keyed, valid = hashed_main_path(tmp, fa)
-    sketched = sketch_main_path(tmp, fa, bases, keyed, valid)
+    hashed, bases, keyed, valid, k31h = hashed_main_path(tmp, fa)
+    sketched, fa2, k31w = sketch_main_path(tmp, fa, bases, keyed, valid)
     del bases, keyed, valid
     one = os.path.join(tmp, "one.fa")
     write_fasta(one, rng, 1, RECORD_BASES + (RECORD_BASES >> 3))
-    check_against_oracle(tmp, one, "u", 23, True, "unique", ["-u"])
-    check_against_oracle(tmp, one, "d", 23, True, "repeated", ["-d"])
+    t0 = time.perf_counter()
+    with numpy_host():  # one pass of windows: -u's, -d's, the pipeline's -l
+        one_windows, _ = numpy_windows(pack_files([one], 23).bases, 23, True)
+        u, counts = unique_counts(one_windows)
+    say(f"numpy windows of the 37.7 Mbp record, k = 23 canonical: "
+        f"{time.perf_counter() - t0:.3f} s")
+    check_against_oracle(tmp, one, "u", 23, True, "unique", ["-u"],
+                         codes=u[counts == 1])
+    check_against_oracle(tmp, one, "d", 23, True, "repeated", ["-d"],
+                         codes=u[counts > 1])
+    del u, counts
     check_against_oracle(tmp, one, "k32", 32, False, "distinct", [])
     check_against_oracle(tmp, one, "k64Hu", 64, False, "unique", ["-H", "-u"],
                          hashed=True)
-    os.remove(one)
     os.remove(out + ".oracle.unik")
     return ({"k1": launches["k1"], "k2": launches["k2"], "h1": hashed["h1"],
-             "s1": sketched["s1"]}, {"fa": fa, "k23": out + ".unik"})
+             "s1": sketched["s1"]}, {"fa": fa, "k23": out + ".unik",
+                                     "fa2": fa2, "k31W": k31w,
+                                     "one": one, "one_windows": one_windows,
+                                     "k31H": k31h})
 
 
 def hashed_main_path(tmp, fa):
@@ -1210,7 +1256,8 @@ def hashed_main_path(tmp, fa):
     count_scaled_s15_sort_distinct), each held to the ntHash oracle, whose
     one hash of every window serves both; returns the -H run's launches,
     the packed bases and the oracle's keyed hashes and validity (for the
-    sketch runs)."""
+    sketch runs), and the
+    -H run's .unik, equal to its oracle (for the pipeline phase)."""
     from unikmer_tpu_torch.io import unik
     from unikmer_tpu_torch.io.fastx import pack_files
 
@@ -1240,34 +1287,50 @@ def hashed_main_path(tmp, fa):
             {s: round(v, 4) for s, v in st.seconds.items()}))
         t0 = time.perf_counter()
         want = u[u <= np.uint64(scaled_max_hash_oracle(scale))]
-        with numpy_host():
-            write_oracle(out + ".oracle.unik", k, unik.SORTED | unik.CANONICAL
-                         | unik.HASHED, want, scale=scale)
+        write_oracle(out + ".oracle.unik", k, unik.SORTED | unik.CANONICAL
+                     | unik.HASHED, want, scale=scale)
         if not same_bytes(out + ".unik", out + ".oracle.unik"):
             raise SystemExit(f"{' '.join(argv)}: .unik differs from the ntHash "
                              f"oracle")
         say(f"hashed main path {' '.join(extra)} .unik ({os.path.getsize(out + '.unik')} "
             f"bytes, {len(want)} codes) equal to the ntHash oracle (written in "
             f"{time.perf_counter() - t0:.3f} s)")
-        os.remove(out + ".unik")
+        if name != "H":
+            os.remove(out + ".unik")
         os.remove(out + ".oracle.unik")
-    return first, bases, keyed, valid
+    return first, bases, keyed, valid, os.path.join(tmp, "k31H.unik")
 
 
 def sketch_main_path(tmp, fa, bases, keyed, valid):
     """``count -k 31 -W 15 -s -C`` and ``count -k 31 -S 16 -s -C`` over the
-    134 Mbp FASTA (bench.py's count_minimizer_w15_sort_distinct and
-    count_syncmer_s16_sort_distinct, whole records, no -K: the sketch
-    switches it on), each held to its oracle over the ntHash oracle's
-    keyed hashes; returns the -W 15 run's launches."""
+    first two records of the 134 Mbp FASTA (bench.py's
+    count_minimizer_w15_sort_distinct and count_syncmer_s16_sort_distinct,
+    whole records, 2 pieces, no -K: the sketch switches it on), each held
+    to its oracle over the ntHash oracle's keyed hashes of those records
+    (a prefix of the whole FASTA's); returns the -W 15 run's launches, the
+    two records' FASTA and the -W 15 run's .unik (for the pipeline
+    phase)."""
     from unikmer_tpu_torch.io import unik
+    from unikmer_tpu_torch.io.fastx import pack_files
 
     k, w, s = SKETCH_K, SKETCH_W, SKETCH_S
+    with open(fa, "rb") as f:
+        data = f.read()
+    fa = os.path.join(tmp, "in2.fa")
+    with open(fa, "wb") as f:  # up to the third record's header
+        f.write(data[:data.index(b">", data.index(b">", 1) + 1)])
+    del data
     t0 = time.perf_counter()
     with numpy_host():
-        skeyed, _ = nthash_keyed_oracle(bases, s, True)
+        two = pack_files([fa], k).bases
+        n = len(two)
+        if not np.array_equal(two, bases[:n]):
+            raise SystemExit("sketch main path: two records' bases are no "
+                             "prefix of the four records'")
+        keyed, valid = keyed[:n], valid[:n]
+        skeyed, _ = nthash_keyed_oracle(bases[:n], s, True)
     say(f"ntHash oracle at s={s}: {time.perf_counter() - t0:.3f} s")
-    windows = 4 * (RECORD_BASES - k + 1)
+    windows = 2 * (RECORD_BASES - k + 1)
     runs = (("W15", ["-W", str(w)], "minimizer",
              lambda: minimizer_oracle(keyed, valid, w)[0]),
             ("S16", ["-S", str(s)], "closed syncmer",
@@ -1290,8 +1353,8 @@ def sketch_main_path(tmp, fa, bases, keyed, valid):
         t0 = time.perf_counter()
         with numpy_host():
             u, _ = unique_counts(oracle())
-            write_oracle(out + ".oracle.unik", k, unik.SORTED | unik.CANONICAL
-                         | unik.HASHED, u)
+        write_oracle(out + ".oracle.unik", k, unik.SORTED | unik.CANONICAL
+                     | unik.HASHED, u)
         if not same_bytes(out + ".unik", out + ".oracle.unik"):
             raise SystemExit(f"{' '.join(argv)}: .unik differs from the "
                              f"{what} oracle")
@@ -1299,9 +1362,10 @@ def sketch_main_path(tmp, fa, bases, keyed, valid):
             f"{os.path.getsize(out + '.unik')} bytes, {len(u)} codes, "
             f"{len(u) / len(keyed):.4f} of the positions) equal to the "
             f"{what} oracle ({time.perf_counter() - t0:.3f} s)")
-        os.remove(out + ".unik")
+        if name != "W15":
+            os.remove(out + ".unik")
         os.remove(out + ".oracle.unik")
-    return first
+    return first, fa, os.path.join(tmp, "k31W15.unik")
 
 
 def linear_hashed_path(tmp, rng):
@@ -1403,6 +1467,347 @@ def compat_path(tmp, rng):
 
 
 # ---------------------------------------------------------------------------
+# the pipeline path: K2/K3's pass plan on the card, dispatch without a
+# wait, the streams at pipeline depths 0 and 1, the gzipped .unik reader
+
+
+PIPELINE_KEYS = 1 << 25  # K2/K3's plan cases
+PIPELINE_TURNS = ("0", "1", "1", "0")  # UNIKMER_TPU_PIPELINE_DEPTH in turns
+PIPELINE_PIECE = 1 << 25  # the bases of the dispatch checks' piece
+INFLATE_TURNS = ("parallel", "stream", "cap0", "parallel")
+# K2's and K3's host us a call when each read its pass flags back (PERF.md)
+EARLIER_HOST_US = {"k2": 151.991, "k3": 161.135}
+# the pipeline phase holds the launches it expects (the CPU tests, whose
+# plain versions count none, turn this off)
+PIPELINE_COUNTS = True
+
+
+def constant_digits(keys: np.ndarray, bits: int) -> tuple:
+    """(passes run, passes skipped) of a K2/K3 sort of ``keys``, reckoned
+    in numpy: the sentinel ranked as 2^bits below 64 bits, a pass skipped
+    when its 8-bit digit is the same in every key."""
+    ranked = keys.copy()
+    if bits < 64:
+        ranked[keys == SENT] = np.uint64(1) << np.uint64(bits)
+    passes = -(-(min(bits + 1, 64) if bits < 64 else 64) // 8)
+    # the bits in which some key differs from the first: one read
+    differ = int(np.bitwise_or.reduce(ranked ^ ranked[0])) if len(keys) else 0
+    skipped = sum((differ >> (8 * p)) & 255 == 0 for p in range(passes))
+    return passes - skipped, skipped
+
+
+def plan_cases(rng, n: int) -> list:
+    """(name, keys, code_bits) of K2/K3's pass-plan cases: every pass runs
+    (46 bits: 6, an even count; 64 bits: 8), the top three digits shared
+    (5 of 8, odd), one pass (1 of 8), and all keys equal (none: the copy
+    kernel fills the output)."""
+    two_bit = rng.integers(0, 1 << 46, size=n, dtype=np.uint64)
+    two_bit[rng.random(n) < 0.02] = SENT
+    full = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    top = np.uint64(0xABCDEF) << np.uint64(40)
+    top3 = top | (full & np.uint64((1 << 40) - 1))
+    one = np.uint64(0x0123456789ABCDEF) & ~np.uint64(0xFF << 16) | (
+        (full & np.uint64(0xFF)) << np.uint64(16))
+    equal = np.full(n, full[0], np.uint64)
+    return [("every pass, 46 bits", two_bit, 46),
+            ("every pass, 64 bits", full, 64),
+            ("top three digits shared", top3, 64),
+            ("one pass", one, 64), ("all equal", equal, 64),
+            ("all equal sentinels, 46 bits", np.full(n, SENT), 46)]
+
+
+def pipeline_sorts(dev, rng) -> dict:
+    """K2 and K3 at 2^25 keys in every plan case, exact against their
+    plain versions, their passes run and skipped equal to the numpy
+    reckoning of the constant digits."""
+    from unikmer_tpu_torch.ops.radix_sort import (
+        radix_sort_kv_u64, radix_sort_u64, sort_kv_plain, sort_u64_plain,
+    )
+
+    rows = {}
+    vals = torch.arange(PIPELINE_KEYS, dtype=torch.int32, device=dev)
+    for name, keys, bits in plan_cases(rng, PIPELINE_KEYS):
+        want_passes = constant_digits(keys, bits)
+        x = torch.from_numpy(keys.view(np.int64)).to(dev)
+        for w in (radix_sort_u64, radix_sort_kv_u64):
+            w.passes_run = w.passes_skipped = 0
+        got = radix_sort_u64(x, bits)
+        gk, gv = radix_sort_kv_u64(x, vals, bits)
+        wk, wv = sort_kv_plain(x, vals)
+        exact = (torch.equal(got, sort_u64_plain(x)) and torch.equal(gk, wk)
+                 and torch.equal(gv, wv) and got.data_ptr() != x.data_ptr())
+        passes = {w.__name__: (w.passes_run, w.passes_skipped)
+                  for w in (radix_sort_u64, radix_sort_kv_u64)}
+        if not exact or (PIPELINE_COUNTS
+                         and set(passes.values()) != {want_passes}):
+            raise SystemExit(f"pipeline: K2/K3 {name}: exact {exact}, passes "
+                             f"{passes}, the digits say {want_passes}")
+        rows[name] = {"code_bits": bits, "passes_run": want_passes[0],
+                      "passes_skipped": want_passes[1]}
+        del x, got, gk, gv, wk, wv
+    say("pipeline K2/K3 pass plan at 2^25 keys, exact, pass counts equal to "
+        "the digits: " + json.dumps(rows))
+    return rows
+
+
+def pipeline_no_waits(dev, rng) -> dict:
+    """count_packed_dispatch (2-bit, -H, -W 15, the -u dual dispatch) and
+    K2/K3 alone under torch.cuda.set_sync_debug_mode("error"), each token
+    fetched afterwards equal to a dispatch outside the mode; the compat
+    syncmer's dispatch too, which may wait (its plain-torch rule): that
+    one is reported, not failed."""
+    from unikmer_tpu_torch.io.fastx import PackedSeqs
+    from unikmer_tpu_torch.models import count
+    from unikmer_tpu_torch.ops.radix_sort import (
+        radix_sort_kv_u64, radix_sort_u64,
+    )
+
+    bases = random_bases(rng, PIPELINE_PIECE)
+    one = PackedSeqs(bases, np.zeros(1, np.int64),
+                     np.asarray([len(bases)], np.int64))
+    compat = PackedSeqs(bases[:1 << 20], np.zeros(1, np.int64),
+                        np.asarray([1 << 20], np.int64))
+    cfgs = {
+        "2bit": (count.CountConfig(k=23, canonical=True), False, one),
+        "-H": (count.CountConfig(k=31, canonical=True, hashed=True), False,
+               one),
+        "-W 15": (count.CountConfig(k=31, minimizer_w=15), False, one),
+        "-u dual": (count.CountConfig(k=23, canonical=True), True, one),
+        "compat -S 16": (count.CountConfig(k=31, syncmer_s=16,
+                                           syncmer_impl="compat"), False,
+                         compat)}
+    row = {}
+    for name, (cfg, dual, packed) in cfgs.items():
+        dispatch = (count.count_packed_dispatch_dual if dual
+                    else count.count_packed_dispatch)
+        fetch = (count.count_packed_fetch_dual if dual
+                 else count.count_packed_fetch)
+        want = fetch(dispatch(packed, cfg, dev))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            token = dispatch(packed, cfg, dev)
+            waited = None
+        except RuntimeError as e:
+            token, waited = None, str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if waited is not None:
+            if not name.startswith("compat"):
+                raise SystemExit(f"pipeline: {name} dispatch waited on the "
+                                 f"card: {waited}")
+            row[name] = f"waits: {waited}"
+            continue
+        got = fetch(token)
+        same = all(np.array_equal(g, w) for g, w in
+                   zip(got if dual else [got], want if dual else [want]))
+        if not same:
+            raise SystemExit(f"pipeline: {name} dispatched under the sync "
+                             f"check differs")
+        row[name] = "no wait"
+    keys = torch.from_numpy(random_bases(rng, PIPELINE_KEYS).astype(
+        np.int64)).to(dev)
+    vals = torch.zeros(PIPELINE_KEYS, dtype=torch.int32, device=dev)
+    radix_sort_u64(keys, 46)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        radix_sort_u64(keys, 46)
+        radix_sort_kv_u64(keys, vals, 46)
+        radix_sort_u64(keys[:1], 64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    row["K2/K3 alone"] = "no wait"
+    say("pipeline dispatch under set_sync_debug_mode('error'): "
+        + json.dumps(row))
+    return row
+
+
+def device_busy(fn) -> dict:
+    """fn() under torch.profiler (CUDA activity): its wall seconds, the
+    seconds the card was busy (the union of its kernels' and copies'
+    intervals) and their share of the wall; busy None when the trace
+    holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    if not spans:
+        return {"traced_s": round(wall, 4), "busy_s": None, "busy_share": None}
+    return {"traced_s": round(wall, 4), "busy_s": round(busy_us / 1e6, 6),
+            "busy_share": round(busy_us / 1e6 / wall, 6)}
+
+
+def pipeline_counts(tmp, runs) -> dict:
+    """Each (name, argv, want, need) streamed CLI count unrecorded at
+    UNIKMER_TPU_PIPELINE_DEPTH 0 and 1 in turns (PIPELINE_TURNS): wall s,
+    peak device memory and launches of each, every output byte-equal to
+    ``want`` (an oracle's bytes, or a file equal to one); then one
+    profiled run at each depth for the device's busy share."""
+    out = {}
+    wrappers = encode_wrappers()
+    for name, argv, want, need in runs:
+        row = {"wall_s": {"0": [], "1": []}, "peak_bytes": {"0": [], "1": []}}
+        for depth in PIPELINE_TURNS:
+            os.environ["UNIKMER_TPU_PIPELINE_DEPTH"] = depth
+            dst = os.path.join(tmp, f"pipe_{depth}")
+            before = read_launches(wrappers)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                t0 = time.perf_counter()
+                run_cli([*argv, "-o", dst])
+                secs = time.perf_counter() - t0
+            finally:
+                del os.environ["UNIKMER_TPU_PIPELINE_DEPTH"]
+            got = {key: n - before[key]
+                   for key, n in read_launches(wrappers).items()}
+            if (PIPELINE_COUNTS and any((got[key] > 0) != must
+                                        for key, must in need.items())
+                    or not same_bytes(dst + ".unik", want)):
+                raise SystemExit(f"pipeline: {name} at depth {depth}: output "
+                                 f"differs or launches {got}, {need} needed")
+            row["wall_s"][depth].append(round(secs, 4))
+            row["peak_bytes"][depth].append(torch.cuda.max_memory_allocated())
+            row["launches"] = got
+            os.remove(dst + ".unik")
+        for depth in ("0", "1"):
+            os.environ["UNIKMER_TPU_PIPELINE_DEPTH"] = depth
+            dst = os.path.join(tmp, f"pipe_trace_{depth}")
+            try:
+                row[f"trace_depth_{depth}"] = device_busy(
+                    lambda: run_cli([*argv, "-o", dst]))
+            finally:
+                del os.environ["UNIKMER_TPU_PIPELINE_DEPTH"]
+            if not same_bytes(dst + ".unik", want):
+                raise SystemExit(f"pipeline: traced {name} differs")
+            os.remove(dst + ".unik")
+        say(f"pipeline {name}: " + json.dumps(row))
+        out[name] = row
+    return out
+
+
+def pipeline_gzip(tmp, fa: str, plain_unik: str) -> dict:
+    """``count -k 23 -K -s`` of the main FASTA written gzipped (UK-indexed
+    members), read back by ``read_all()`` with the parallel inflate, with
+    ``stream=True`` (member by member) and with
+    UNIKMER_TPU_INFLATE_CAP=0, in turns (INFLATE_TURNS), every array equal
+    to the -C file's; then ``union -s -C`` of it with itself, its gzipped
+    inputs read end to end.  Fails when pgz_inflate_all returns None on
+    the file."""
+    from unikmer_tpu_torch import native
+    from unikmer_tpu_torch.io import unik
+
+    gz = os.path.join(tmp, "pipe_gz")
+    t0 = time.perf_counter()
+    run_cli(["count", "-k", "23", "-K", "-s", fa, "-o", gz])
+    row = {"count_gzip_s": round(time.perf_counter() - t0, 4),
+           "bytes": os.path.getsize(gz + ".unik")}
+    with unik.UnikReader(plain_unik) as r:
+        want = r.read_all()[0]
+    with open(gz + ".unik", "rb") as f:
+        raw = f.read()
+    t0 = time.perf_counter()
+    inflated = native.pgz_inflate_all(raw)
+    row["pgz_inflate_all_s"] = round(time.perf_counter() - t0, 4)
+    if inflated is None:
+        raise SystemExit("pipeline: pgz_inflate_all returned None on a "
+                         "UK-indexed .unik")
+    del raw, inflated
+    # below 1 MiB the reader streams by members in every mode
+    kinds = {"parallel": io.BytesIO if row["bytes"] >= 1 << 20
+             else unik._UKMemberStream, "stream": unik._UKMemberStream,
+             "cap0": unik._UKMemberStream}
+    secs = {mode: [] for mode in kinds}
+    for mode in INFLATE_TURNS:
+        if mode == "cap0":
+            os.environ["UNIKMER_TPU_INFLATE_CAP"] = "0"
+        try:
+            t0 = time.perf_counter()
+            with unik.UnikReader(gz + ".unik", stream=mode == "stream") as r:
+                kind = type(r._file.raw)
+                got = r.read_all()[0]
+            secs[mode].append(round(time.perf_counter() - t0, 4))
+        finally:
+            os.environ.pop("UNIKMER_TPU_INFLATE_CAP", None)
+        if kind is not kinds[mode] or not np.array_equal(got, want):
+            raise SystemExit(f"pipeline: read_all {mode} took {kind} or "
+                             f"differs")
+        del got
+    row["read_all_s"] = secs
+    out = os.path.join(tmp, "pipe_union")
+    t0 = time.perf_counter()
+    run_cli(["union", "-s", "-C", gz + ".unik", gz + ".unik", "-o", out])
+    row["union_gzip_s"] = round(time.perf_counter() - t0, 4)
+    with unik.UnikReader(out + ".unik") as r:
+        if not np.array_equal(r.read_all()[0], want):
+            raise SystemExit("pipeline: the union of the gzipped files "
+                             "differs")
+    os.remove(out + ".unik")
+    os.remove(gz + ".unik")
+    say("pipeline gzipped .unik: " + json.dumps(row))
+    return row
+
+
+def pipeline_path(tmp, rng, dev, inputs: dict, results: dict) -> dict:
+    """The pipeline phase: K2/K3's plan cases, the dispatch's sync check,
+    the 134 Mbp streamed count (2-bit and -H), -W 15 over its first two
+    records (a sketch piece is a whole record) and -l over the 37.7 Mbp
+    record at depths 0 and 1 (its oracle the main path's windows of that
+    record, in genome order), and the gzipped reader.  Returns the
+    launches of its counts."""
+    from unikmer_tpu_torch.io import unik
+
+    t0 = time.perf_counter()
+    row = {"plan": pipeline_sorts(dev, rng), "dispatch": pipeline_no_waits(
+        dev, rng)}
+    row["host_us"] = {key: {"plan on the card": results[key].get("host_us"),
+                            "flags read back": EARLIER_HOST_US[key]}
+                      for key in EARLIER_HOST_US}
+    lin = os.path.join(tmp, "pipe_l.oracle.unik")
+    write_oracle(lin, 23, unik.CANONICAL, inputs["one_windows"], number=-1)
+    two_bit = {"k1": True, "h1": False, "k2": True}
+    runs = [
+        ("count -k 23 -K -s -C (134 Mbp)",
+         ["count", "-k", "23", "-K", "-s", "-C", inputs["fa"]],
+         inputs["k23"], two_bit),
+        ("count -k 31 -K -H -s -C (134 Mbp)",
+         ["count", "-k", "31", "-K", "-H", "-s", "-C", inputs["fa"]],
+         inputs["k31H"], {"k1": False, "h1": True, "k2": True}),
+        ("count -k 31 -W 15 -s -C (67 Mbp, 2 whole-record pieces)",
+         ["count", "-k", "31", "-W", "15", "-s", "-C", inputs["fa2"]],
+         inputs["k31W"], {"k1": False, "h1": True, "s1": True, "k2": True}),
+        ("count -k 23 -K -l -C (37.7 Mbp, 2 pieces)",
+         ["count", "-k", "23", "-K", "-l", "-C", inputs["one"]], lin,
+         {"k1": True, "h1": False, "k2": False})]
+    wrappers = zero_launches()
+    row["counts"] = pipeline_counts(tmp, runs)
+    launches = read_launches(wrappers)
+    for path in (lin, inputs["one"], inputs["k31H"], inputs["fa2"],
+                 inputs["k31W"]):
+        os.remove(path)
+    row["gzip"] = pipeline_gzip(tmp, inputs["fa"], inputs["k23"])
+    row["seconds"] = round(time.perf_counter() - t0, 3)
+    say(json.dumps({"pipeline": row}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the start-up path: what a user's call pays before its work, each call
 # a process of its own
 
@@ -1497,7 +1902,7 @@ def startup_path(tmp, rng, main_in: dict, dev, card: str) -> dict:
     """(a) num and info of the main path's .unik and view of the 32 Mbp
     one as fresh processes, none of which may import torch; (b) fresh
     ``count -k 23 -K -s -C`` processes at 4 and 32 Mbp (device, host,
-    host) and 134 Mbp (device, host, host, device), UNIKMER_TPU_HOST_COUNT
+    host) and 134 Mbp (device, host, host), UNIKMER_TPU_HOST_COUNT
     0 for the device and 1 for the host, their bytes equal to the numpy
     oracle's (the main path's .unik for 134 Mbp), the host route's
     processes without torch; (c) the resident server with --warm
@@ -1559,7 +1964,7 @@ def startup_path(tmp, rng, main_in: dict, dev, card: str) -> dict:
     routes = {}
     for label, path, n in inputs:
         runs = {"host": [], "device": []}
-        knobs = ("0", "1", "1", "0") if path == fa else ("0", "1", "1")
+        knobs = ("0", "1", "1")
         for knob in knobs:
             route = "host" if knob == "1" else "device"
             out = os.path.join(tmp, f"startup_{route}")
@@ -4653,8 +5058,9 @@ def host_costs(dev, rng) -> dict:
     HOST_CALLS un-synchronised calls, the median of 15 readings in turns,
     at inputs where the card keeps up with the host, so the reading is
     the launch path's: P1c and P2b at the probe's (4096, 128) block, the
-    others at a few thousand elements.  K2 and K3 read their pass flags
-    back in every call, so theirs holds one round trip to the card."""
+    others at a few thousand elements.  K2 and K3 plan their passes on
+    the card, so no call waits on it (EARLIER_HOST_US: theirs when each
+    call read its pass flags back)."""
     from unikmer_tpu_torch import probes as entry
     from unikmer_tpu_torch.models.count import pack_bases_2bit
     from unikmer_tpu_torch.ops import probes
@@ -4795,6 +5201,12 @@ def main() -> int:
         t0 = time.perf_counter()
         launches, mesh_in = main_path(tmp, rng, report)
         t_main = time.perf_counter()
+        pipeline = pipeline_path(tmp, rng, dev, {
+            "fa": mesh_in["fa"], "k23": mesh_in["k23"],
+            "one": mesh_in.pop("one"), "k31H": mesh_in.pop("k31H"),
+            "one_windows": mesh_in.pop("one_windows"),
+            "fa2": mesh_in.pop("fa2"), "k31W": mesh_in.pop("k31W")}, results)
+        t_pipe = time.perf_counter()
         startup = startup_path(tmp, rng, mesh_in, dev, card)
         t = [time.perf_counter()]
         launches["k3"], t2, mesh_in["taxid"] = taxid_path(tmp, rng)
@@ -4828,7 +5240,8 @@ def main() -> int:
         dist = distributed_path(tmp, dist_in, dev)
         del dist_in
         t.append(time.perf_counter())
-    say(f"path seconds: main {t_main - t0:.3f}, start-up {t[0] - t_main:.3f}, "
+    say(f"path seconds: main {t_main - t0:.3f}, pipeline "
+        f"{t_pipe - t_main:.3f}, start-up {t[0] - t_pipe:.3f}, "
         f"count -T {t[1] - t[0]:.3f}, "
         f"-l and compat {t[2] - t[1]:.3f}, sets {t[3] - t[2]:.3f}, "
         f"file commands {t[4] - t[3]:.3f}, genome {t[5] - t[4]:.3f}, "
@@ -4849,6 +5262,8 @@ def main() -> int:
     for key, n in startup["launches"].items():
         launches[key] += n
     for key, n in surface["launches"].items():
+        launches[key] += n
+    for key, n in pipeline.items():
         launches[key] += n
     launches.update(probe_path())
     say(json.dumps({"kernels": [

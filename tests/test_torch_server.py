@@ -298,3 +298,30 @@ def test_profiled_count_leaves_later_requests_unrecorded(tmp_path,
     assert (tmp_path / "locate.out").read_text()
     assert (tmp_path / "locate.err").read_text() == ""
     assert entered == []
+
+
+def test_request_cleanup_releases_the_pinned_host_cache(monkeypatch):
+    """After each request the server empties torch's device cache and its
+    pinned host cache (the streams' uploads), so that a
+    served stream keeps no pinned memory between requests."""
+    from unikmer_tpu_torch import server
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: calls.append("device"))
+    monkeypatch.setattr(torch._C, "_host_emptyCache",
+                        lambda: calls.append("host"), raising=False)
+    server._release_device_memory()
+    assert calls == ["device", "host"]
+
+
+def test_request_cleanup_without_device_work_touches_nothing(monkeypatch):
+    """A request that ran no device work (torch not initialised on the
+    card) leaves both caches alone."""
+    from unikmer_tpu_torch import server
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: pytest.fail("emptied without device work"))
+    server._release_device_memory()

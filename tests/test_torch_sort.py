@@ -11,6 +11,7 @@ import torch
 
 from unikmer_tpu.ops import sort as jax_sort
 from unikmer_tpu.ops.pallas_sort import sort_codes_pallas
+from unikmer_tpu_torch import _kernels, radix_variants
 from unikmer_tpu_torch.ops import sort as port_sort
 from unikmer_tpu_torch.ops.radix_sort import (
     radix_shifts, radix_sort_u64, sort_u64_plain,
@@ -304,3 +305,12 @@ def test_collapse_on_card_matches_cpu(cuda_device):
                                         mode=mode, code_bits=40)
         assert int(got[1]) == int(want[1])
         assert torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.parametrize("name", sorted(radix_variants.VARIANTS))
+def test_radix_variants_apply_to_the_source(name):
+    """Every substitution of radix_variants.VARIANTS finds its text in
+    csrc/radix_sort.cu, so each variant still undoes one choice."""
+    src = (_kernels.CSRC / "radix_sort.cu").read_text()
+    for old, new in radix_variants.VARIANTS[name]:
+        assert old in src and old != new

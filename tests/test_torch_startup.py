@@ -245,7 +245,7 @@ def test_chip_smoke_startup_path_on_the_cpu(tmp_path, monkeypatch):
                                   torch.device("cpu"), "cpu")
     assert set(row["host_only"]) == {"num", "info", "view 0.5 Mbp"}
     assert [(len(r["host_s"]), len(r["device_s"]))
-            for r in row["count"].values()] == [(2, 1), (2, 1), (2, 2)]
+            for r in row["count"].values()] == [(2, 1), (2, 1), (2, 1)]
     assert row["server"]["exit"] == 0
     knob = "UNIKMER_TPU_HOST_COUNT"
     assert set(row["server"]["requests"]) == {

@@ -35,8 +35,6 @@ UPPER = re.compile(r"_?[A-Z][A-Z0-9_]*")
 # each reason: (its one line, the ROADMAP.md text that records it)
 REASONS = {
     "tpu": ("a TPU workaround", "Don't port the TPU workarounds"),
-    "perf": ("a speed mechanism waiting for a perf_opt cell",
-             "Waiting for a `BENCHMARK.json` cell"),
     "jax": ("JAX process setup and JAX's own objects (the port's device "
             "knob is UNIKMER_TPU_TORCH_DEVICE)",
             "Leave out JAX process setup"),
@@ -73,20 +71,6 @@ OMITTED = {
     ("env", "UNIKMER_TPU_PALLAS_SORT_BLOCK"): "pallas",
     ("env", "UNIKMER_TPU_PALLAS_SORT_LAYOUT"): "pallas",
     ("env", "UNIKMER_TPU_PALLAS_SORT_LOOPED"): "pallas",
-    # speed mechanisms: the stream's dispatch-ahead, the reader's
-    # member-parallel inflate, the writer's libdeflate members
-    ("models/count.py", "count_packed_dispatch_group"): "perf",
-    ("models/count.py", "count_packed_dispatch_group_dual"): "perf",
-    ("models/count.py", "count_packed_fetch_group"): "perf",
-    ("models/count.py", "_GroupedCounter"): "perf",
-    ("models/count.py", "_fetch_group_dual"): "perf",
-    ("models/count.py", "_group_stack"): "perf",
-    ("models/count.py", "_pipeline_depth"): "perf",
-    ("io/unik.py", "_UKMemberStream"): "perf",
-    ("native/__init__.py", "pgz_inflate_all"): "perf",
-    ("native/__init__.py", "pgz_compress_member"): "perf",
-    ("env", "UNIKMER_TPU_PIPELINE_DEPTH"): "perf",
-    ("env", "UNIKMER_TPU_INFLATE_CAP"): "perf",
     # TPU workarounds: 2^23 pad buckets and the 2^25 element caps
     ("api.py", "_max_device_elems"): "tpu",
     ("models/count.py", "pad_bases"): "tpu",
@@ -119,8 +103,10 @@ OMITTED = {
     ("env", "UNIKMER_TPU_COMPRESS_TAXID_FETCH"): "tpu",
     ("env", "UNIKMER_TPU_COMPRESS_TAXID_INGRESS"): "tpu",
     ("env", "UNIKMER_TPU_PACKED_TRANSFER"): "tpu",
-    # ... lax.map multi-bucket programs
+    # ... lax.map multi-bucket programs (the stream's groups are one
+    # piece in the port)
     ("models/count.py", "_multi_bucket"): "tpu",
+    ("models/count.py", "_group_stack"): "tpu",
     ("models/count.py", "_count_step_multi"): "tpu",
     ("models/count.py", "_count_step_dual_multi"): "tpu",
     ("models/count.py", "_compress_stage_multi"): "tpu",
@@ -215,6 +201,16 @@ COUNTERPARTS = {
         ("models/count.py", "count_packed_dispatch"),
     ("models/count.py", "count_step_dual"):
         ("models/count.py", "count_packed_dispatch_dual"),
+    # a stream's group is one piece (B = 1): the piece's own dispatch and
+    # fetch do the group helpers' work
+    ("models/count.py", "count_packed_dispatch_group"):
+        ("models/count.py", "count_packed_dispatch"),
+    ("models/count.py", "count_packed_fetch_group"):
+        ("models/count.py", "count_packed_fetch"),
+    ("models/count.py", "count_packed_dispatch_group_dual"):
+        ("models/count.py", "count_packed_dispatch_dual"),
+    ("models/count.py", "_fetch_group_dual"):
+        ("models/count.py", "count_packed_fetch_dual"),
     ("models/count.py", "count_step_ingress"):
         ("models/count.py", "_encode_piece"),
     ("models/count.py", "linear_codes_step"):

@@ -221,7 +221,7 @@ class KmerSet:
         """A count_packed_dispatch token as a compacted set."""
         if token[0] == "empty":
             return cls.from_codes(np.zeros(0, np.uint64), k, **flags)
-        _, _, out, n = token
+        out, n = token[2], token[3]
         return cls(out, int(n), k, **flags).compact()
 
     @classmethod

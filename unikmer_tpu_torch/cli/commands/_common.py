@@ -50,9 +50,15 @@ def check_mesh_devices(opt) -> None:
             f"found {mesh.device_count()}")
 
 
-def open_reader(file: str) -> UnikReader:
-    """A reader of a .unik file, or of stdin for "-"."""
-    return UnikReader(sys.stdin.buffer if file == "-" else file)
+def open_reader(file: str, stream: bool = False) -> UnikReader:
+    """A reader of a .unik file, or of stdin for "-".  ``stream=True``
+    for commands that consume blocks one at a time (head, sample,
+    concat, num, info and the external sort and split inputs): it skips
+    the whole-file parallel inflate, so memory stays bounded whatever
+    the input's size.  Whole-set commands keep the default: they read
+    everything anyway, and the parallel inflate reads it faster."""
+    return UnikReader(sys.stdin.buffer if file == "-" else file,
+                      stream=stream)
 
 
 def check_taxid_info_match(h0, h, file, opt) -> None:

@@ -50,7 +50,7 @@ def run(args) -> int:
     n = 0
     out_file = ensure_unik_suffix(args.out_prefix)
     for file in files:
-        with open_reader(file) as r:
+        with open_reader(file, stream=True) as r:
             h = r.header
             if writer is None:
                 h0 = h

@@ -43,7 +43,7 @@ def run(args) -> int:
     n = 0
     out_file = ensure_unik_suffix(args.out_prefix)
     for file in files:
-        with open_reader(file) as r:
+        with open_reader(file, stream=True) as r:
             if writer is None:
                 h0 = r.header
                 has_taxid = not opt.ignore_taxid and h0.has_taxid_info

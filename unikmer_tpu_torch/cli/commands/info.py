@@ -42,7 +42,7 @@ def register(subparsers):
 
 def _stat_one(file, args, opt):
     try:
-        with open_reader(file) as r:
+        with open_reader(file, stream=True) as r:
             h = r.header
             n = h.number
             if n < 0 and args.all:

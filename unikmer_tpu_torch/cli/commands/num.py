@@ -32,7 +32,7 @@ def run(args) -> int:
     out, _ = out_text_stream(args.out_file, opt.compression_level)
     try:
         for file in files:
-            with open_reader(file) as r:
+            with open_reader(file, stream=True) as r:
                 n = r.header.number
                 if n < 0 or args.force:
                     n = sum(len(c) for c, _ in r.iter_blocks())

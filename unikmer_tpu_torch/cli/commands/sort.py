@@ -129,7 +129,7 @@ def _sort_external(args, opt, files, mode, out_file):
 
     acc = None
     for f in files:
-        with open_reader(f) as r:
+        with open_reader(f, stream=True) as r:
             if h0 is None:
                 h0 = r.header
                 has_taxid = not opt.ignore_taxid and h0.has_taxid_info

@@ -83,7 +83,7 @@ def run(args) -> int:
 
     acc = None
     for f in files:
-        with open_reader(f) as r:
+        with open_reader(f, stream=True) as r:
             if state["h0"] is None:
                 state["h0"] = r.header
                 state["has_taxid"] = (

@@ -17,17 +17,25 @@
 // for K3.  A sort of 2-bit codes at k <= 23 takes P = 6 (47 significant bits
 // with the sentinel), a full 64-bit sort P = 8.
 //
-// Design: onesweep (Adinets and Merrill, 2022), three kernels per sort.
+// Design: onesweep (Adinets and Merrill, 2022), three kernels per sort and
+// a copy kernel that works only when no pass runs.
 //   1. radix_upfront_hist reads the keys once and counts the digits of all P
 //      passes at once in P x 256 shared u32 counters (a block takes at most
 //      kHistChunk keys, so they cannot overflow), merging runs of equal digits
 //      in registers before each shared atomic (duplicate-heavy and sorted
 //      input would otherwise serialise on one counter), then adds them into
-//      a global [P, 256] u64 table.  radix_bases turns each pass's row into
-//      its exclusive digit bases and flags a pass whose keys all share one
-//      digit: the wrapper reads the P flags back (one small sync) and skips
-//      those passes, which would leave the order as it is.
-//   2. radix_onesweep_pass<kValues>, one launch per pass that runs.  A block
+//      a global [P, 256] u64 table.  radix_bases (one block) turns each
+//      pass's row into its exclusive digit bases and writes the pass plan on
+//      the card: a pass whose keys all share one digit would leave the order
+//      as it is, so it does not run; each pass that runs reads the buffer
+//      the one before it wrote (the first reads the input) and the writes
+//      alternate between a temporary and the output so that the last pass
+//      that runs writes the output.  The host reads nothing back: it queues
+//      every pass, and the blocks of a pass that does not run return at
+//      once; when no pass runs, radix_copy fills the output (its blocks
+//      return at once otherwise).  The passes run and skipped are added to
+//      two device counters, read by the wrapper only when asked.
+//   2. radix_onesweep_pass<kValues>, one launch per pass.  A block
 //      (a) takes its tile index from an atomic counter, so it only ever waits
 //      on tiles that have already started (blockIdx.x order is not launch
 //      order); (b) loads kTile keys (and values) coalesced into registers,
@@ -50,9 +58,9 @@
 //      sentinel remap below.  Equal digits keep input order through each
 //      pass, so the sort is stable and K3's equal keys keep their values in
 //      input order (the TPU network, unstable, had to compare values too).
-//   3. The wrapper (ops/radix_sort.py) allocates every buffer; each pass's
-//      entry point zeroes its tile counter and status words with one
-//      cudaMemsetAsync on the stream before the launch.
+//   3. The wrapper (ops/radix_sort.py) allocates every buffer; the entry
+//      point of the passes zeroes a pass's tile counter and status words with
+//      one cudaMemsetAsync on the stream before its launch.
 // Look-back memory order: a status word is 64 bits, [tile][digit], 2 flag
 // bits (aggregate, inclusive prefix) above a 62-bit count, so a flag and its
 // count travel in one single-copy-atomic store and no reader can see one
@@ -100,6 +108,14 @@ constexpr int64_t kHistChunk = 4 * kTile;  // keys per histogram block
 constexpr u64 kFlagAggregate = 1ull << 62;
 constexpr u64 kFlagPrefix = 2ull << 62;
 constexpr u64 kCountMask = kFlagAggregate - 1;
+// The pass plan: a step of a pass that runs is kRun | src << 1 | dst << 3,
+// src and dst buffers of kInput, kTemp and kOutput; 0 for a pass that does
+// not run.  Entry `passes` of the plan is 1 when no pass runs.
+constexpr int kRun = 1;
+constexpr int kInput = 0;
+constexpr int kTemp = 1;
+constexpr int kOutput = 2;
+constexpr int kCopyBlocks = 1024;
 
 __device__ __forceinline__ u64 ranked(u64 x, int code_bits) {
   return (code_bits < 64 && x == ~0ull) ? 1ull << code_bits : x;
@@ -188,17 +204,43 @@ radix_upfront_hist(const u64* __restrict__ keys, int64_t n, int passes,
     if (h[p][t]) atomicAdd(&hist[p * kRadix + t], static_cast<u64>(h[p][t]));
 }
 
-// One block per pass: bases[p][d] = sum of hist[p][< d]; trivial[p] = 1 when
-// one digit holds all n keys.
+// One block: for each pass p, bases[p][d] = sum of hist[p][< d] and the
+// pass plan (above): a pass runs unless one digit holds all n keys, the
+// first that runs reads the input, each later one what the one before
+// wrote, and the writes alternate so that the last lands in the output.
+// counts[0] and counts[1] add the passes run and skipped.
 __global__ void __launch_bounds__(kThreads)
-radix_bases(const u64* __restrict__ hist, int64_t n, u64* __restrict__ bases,
-            int* __restrict__ trivial) {
+radix_bases(const u64* __restrict__ hist, int64_t n, int passes,
+            u64* __restrict__ bases, int* __restrict__ plan,
+            u64* __restrict__ counts) {
   __shared__ u64 warp_sum[kWarps];
-  const int i = blockIdx.x * kRadix + threadIdx.x;
-  const u64 h = hist[i];
-  bases[i] = block_exclusive_scan(h, warp_sum);
-  const int one = __syncthreads_or(h == static_cast<u64>(n));
-  if (threadIdx.x == 0) trivial[blockIdx.x] = one;
+  __shared__ int runs[kMaxPasses];
+  for (int p = 0; p < passes; ++p) {
+    const int i = p * kRadix + threadIdx.x;
+    const u64 h = hist[i];
+    bases[i] = block_exclusive_scan(h, warp_sum);
+    // a barrier too: every read of warp_sum is done before the next pass
+    const int one = __syncthreads_or(h == static_cast<u64>(n));
+    if (threadIdx.x == 0) runs[p] = !one;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int ran = 0;
+  for (int p = 0; p < passes; ++p) ran += runs[p];
+  int src = kInput;
+  for (int p = 0, j = 0; p < passes; ++p) {
+    if (!runs[p]) {
+      plan[p] = 0;
+      continue;
+    }
+    const int dst = (ran - 1 - j) % 2 == 0 ? kOutput : kTemp;
+    plan[p] = kRun | src << 1 | dst << 3;
+    src = dst;
+    ++j;
+  }
+  plan[passes] = ran == 0;
+  atomicAdd(&counts[0], static_cast<u64>(ran));
+  atomicAdd(&counts[1], static_cast<u64>(passes - ran));
 }
 
 __device__ __forceinline__ void publish(u64* word, u64 v) {
@@ -213,13 +255,26 @@ __device__ __forceinline__ u64 peek(u64* word) {
 
 // scratch: word 0 is the tile counter, words kRadix.. the status words
 // [tiles][256]; all zero at the launch.  bases: this pass's 256 digit bases.
+// step: this pass's entry of the plan, which picks the buffers it reads
+// (input, temporary or output) and writes (temporary or output); every block
+// of a pass that does not run returns at once.
 template <bool kValues>
 __global__ void __launch_bounds__(kThreads)
-radix_onesweep_pass(const u64* __restrict__ keys_in, u64* __restrict__ keys_out,
-                    const unsigned* __restrict__ vals_in,
-                    unsigned* __restrict__ vals_out, int64_t n, int shift,
+radix_onesweep_pass(const u64* keys_input, u64* keys_temp, u64* keys_output,
+                    const unsigned* vals_input, unsigned* vals_temp,
+                    unsigned* vals_output, int64_t n, int shift,
                     int code_bits, const u64* __restrict__ bases,
-                    u64* __restrict__ scratch) {
+                    const int* __restrict__ step, u64* __restrict__ scratch) {
+  const int plan = *step;
+  if (!(plan & kRun)) return;
+  const int src = (plan >> 1) & 3;
+  const bool to_temp = ((plan >> 3) & 3) == kTemp;
+  const u64* __restrict__ const keys_in =
+      src == kInput ? keys_input : src == kTemp ? keys_temp : keys_output;
+  u64* __restrict__ const keys_out = to_temp ? keys_temp : keys_output;
+  const unsigned* __restrict__ const vals_in =
+      src == kInput ? vals_input : src == kTemp ? vals_temp : vals_output;
+  unsigned* __restrict__ const vals_out = to_temp ? vals_temp : vals_output;
   extern __shared__ __align__(16) unsigned char stage[];
   u64* const stage_keys = reinterpret_cast<u64*>(stage);
   unsigned* const stage_vals = reinterpret_cast<unsigned*>(stage + kTile * 8);
@@ -318,24 +373,58 @@ radix_onesweep_pass(const u64* __restrict__ keys_in, u64* __restrict__ keys_out,
   }
 }
 
+// Fills the output from the input when the plan says no pass ran (a grid of
+// at most kCopyBlocks blocks that return at once otherwise).
 template <bool kValues>
-int launch_pass(const void* keys_in, void* keys_out, const void* vals_in,
-                void* vals_out, int64_t n, int shift, int code_bits,
-                const void* bases, void* scratch, int64_t tiles,
-                cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+radix_copy(const u64* __restrict__ keys_in, u64* __restrict__ keys_out,
+           const unsigned* __restrict__ vals_in,
+           unsigned* __restrict__ vals_out, int64_t n,
+           const int* __restrict__ none_ran) {
+  if (!*none_ran) return;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += stride) {
+    keys_out[i] = keys_in[i];
+    if constexpr (kValues) vals_out[i] = vals_in[i];
+  }
+}
+
+template <bool kValues>
+int launch_passes(const void* keys_in, void* keys_temp, void* keys_out,
+                  const void* vals_in, void* vals_temp, void* vals_out,
+                  int64_t n, int passes, int code_bits, const void* bases,
+                  const void* plan, void* scratch, int64_t tiles,
+                  cudaStream_t stream) {
   constexpr int kStageBytes = kTile * (kValues ? 12 : 8);
   cudaError_t err = cudaFuncSetAttribute(
       radix_onesweep_pass<kValues>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(scratch, 0, (tiles + 1) * kRadix * sizeof(u64), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  radix_onesweep_pass<kValues>
-      <<<static_cast<unsigned>(tiles), kThreads, kStageBytes, stream>>>(
+  const int* const steps = static_cast<const int*>(plan);
+  for (int p = 0; p < passes; ++p) {
+    err = cudaMemsetAsync(scratch, 0, (tiles + 1) * kRadix * sizeof(u64),
+                          stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    radix_onesweep_pass<kValues>
+        <<<static_cast<unsigned>(tiles), kThreads, kStageBytes, stream>>>(
+            static_cast<const u64*>(keys_in), static_cast<u64*>(keys_temp),
+            static_cast<u64*>(keys_out),
+            static_cast<const unsigned*>(vals_in),
+            static_cast<unsigned*>(vals_temp),
+            static_cast<unsigned*>(vals_out), n, 8 * p, code_bits,
+            static_cast<const u64*>(bases) + p * kRadix, steps + p,
+            static_cast<u64*>(scratch));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  radix_copy<kValues>
+      <<<static_cast<unsigned>(blocks < kCopyBlocks ? blocks : kCopyBlocks),
+         kThreads, 0, stream>>>(
           static_cast<const u64*>(keys_in), static_cast<u64*>(keys_out),
           static_cast<const unsigned*>(vals_in),
-          static_cast<unsigned*>(vals_out), n, shift, code_bits,
-          static_cast<const u64*>(bases), static_cast<u64*>(scratch));
+          static_cast<unsigned*>(vals_out), n, steps + passes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -348,10 +437,12 @@ int ukt_radix_tile() { return kTile; }
 
 // Step 1: the digit histograms of all `passes` passes (shifts 0, 8, ...) in
 // one read of the keys into hist[passes * 256] (u64, zeroed here), their
-// exclusive digit bases into bases[passes * 256] (u64), and trivial[p] (int32)
-// = 1 for a pass whose keys all share one digit.  Returns cudaGetLastError().
+// exclusive digit bases into bases[passes * 256] (u64), the pass plan into
+// plan[passes + 1] (int32) and the passes run and skipped added to counts[0]
+// and counts[1] (u64).  Returns cudaGetLastError().
 int ukt_radix_upfront(const void* keys, int64_t n, int passes, int code_bits,
-                      void* hist, void* bases, void* trivial, void* stream) {
+                      void* hist, void* bases, void* plan, void* counts,
+                      void* stream) {
   if (n < 1 || passes < 1 || passes > kMaxPasses)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -364,28 +455,35 @@ int ukt_radix_upfront(const void* keys, int64_t n, int passes, int code_bits,
       static_cast<u64*>(hist));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  radix_bases<<<passes, kThreads, 0, s>>>(
-      static_cast<const u64*>(hist), n, static_cast<u64*>(bases),
-      static_cast<int*>(trivial));
+  radix_bases<<<1, kThreads, 0, s>>>(
+      static_cast<const u64*>(hist), n, passes, static_cast<u64*>(bases),
+      static_cast<int*>(plan), static_cast<u64*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Step 2, one pass at bit `shift`: the stable scatter of keys_in into
-// keys_out (and, when vals_in is not null, of the u32 vals_in into vals_out
-// beside them) at this pass's digit bases.  scratch holds (tiles + 1) * 256
-// u64 and is zeroed here.  Returns the first CUDA error, else 0.
-int ukt_radix_onesweep(const void* keys_in, void* keys_out,
-                       const void* vals_in, void* vals_out, int64_t n,
-                       int shift, int code_bits, const void* bases,
-                       void* scratch, int64_t tiles, void* stream) {
-  if (n < 1 || tiles != (n + kTile - 1) / kTile)
+// Step 2: every pass at bits 0, 8, ... as the plan says, each the stable
+// scatter of its source buffer into its destination at the pass's digit
+// bases, the u32 values beside the keys when vals_in is not null; then the
+// copy of the input into the output when no pass ran.  keys_temp and
+// keys_out (vals_temp and vals_out) hold n keys (values) each and never
+// alias the input; the output ends sorted.  scratch holds (tiles + 1) * 256
+// u64 and is zeroed before each pass.  Returns the first CUDA error, else 0.
+int ukt_radix_onesweep(const void* keys_in, void* keys_temp, void* keys_out,
+                       const void* vals_in, void* vals_temp, void* vals_out,
+                       int64_t n, int passes, int code_bits,
+                       const void* bases, const void* plan, void* scratch,
+                       int64_t tiles, void* stream) {
+  if (n < 1 || passes < 1 || passes > kMaxPasses ||
+      tiles != (n + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vals_in != nullptr)
-    return launch_pass<true>(keys_in, keys_out, vals_in, vals_out, n, shift,
-                             code_bits, bases, scratch, tiles, s);
-  return launch_pass<false>(keys_in, keys_out, nullptr, nullptr, n, shift,
-                            code_bits, bases, scratch, tiles, s);
+    return launch_passes<true>(keys_in, keys_temp, keys_out, vals_in,
+                               vals_temp, vals_out, n, passes, code_bits,
+                               bases, plan, scratch, tiles, s);
+  return launch_passes<false>(keys_in, keys_temp, keys_out, nullptr, nullptr,
+                              nullptr, n, passes, code_bits, bases, plan,
+                              scratch, tiles, s);
 }
 
 }  // extern "C"

@@ -7,10 +7,13 @@ them transparently.
 
 Each member carries a BGZF-style FEXTRA subfield ('U','K', u32 = total
 compressed byte length of the member), so readers that know the tag can
-split the stream without inflating.  Stock gzip readers skip FEXTRA per
-RFC 1952.  The port deflates with Python's zlib only (the JAX package
-may use libdeflate): the compressed bytes may differ, the inflated
-bytes are the same.
+split the stream without inflating and inflate the members
+concurrently (native.pgz_inflate_all).  Stock gzip readers skip FEXTRA
+per RFC 1952.  A member is deflated by the native library's zlib
+(native.pgz_compress_member, without the GIL), else by Python's zlib:
+the two give the same bytes.  The JAX package deflates with libdeflate
+where its library builds: the compressed bytes may then differ, the
+inflated bytes are the same.
 """
 
 from __future__ import annotations
@@ -24,6 +27,11 @@ DEFAULT_CHUNK = 1 << 20
 
 
 def _compress_member(data: bytes, level: int) -> bytes:
+    from ..native import pgz_compress_member
+
+    member = pgz_compress_member(data, level)
+    if member is not None:
+        return member
     # raw deflate body; header/trailer built by hand to add the FEXTRA
     # member-length subfield (header 20B incl. subfield, trailer 8B)
     co = zlib.compressobj(level, zlib.DEFLATED, -15)

@@ -25,8 +25,12 @@ Layout (all little-endian), after optional gzip:
 
 The reader streams blocks for the external-sort spill
 (pipeline/extsort.py) and reads whole sets for the set operations
-(``read_all``: the native block decoder, or numpy's varint-GB); gzip,
-UK-indexed or not, streams through Python's GzipFile.
+(``read_all``: the native block decoder, or numpy's varint-GB).  A
+UK-indexed gzip file (io/pgzip.py) of 1 MiB to UNIKMER_TPU_INFLATE_CAP
+(default 4 GiB) is read whole and its members inflated in parallel
+(native.pgz_inflate_all); with ``stream=True``, or past the cap, it is
+inflated one member at a time (``_UKMemberStream``), one member
+resident; foreign gzip streams through Python's GzipFile.
 """
 
 from __future__ import annotations
@@ -294,12 +298,39 @@ class UnikWriter:
 
 
 class UnikReader:
-    """Reader: iter_blocks() yields (codes, taxids|None) block arrays, one
-    block resident at a time; read_all() returns the whole set."""
+    """Reader: iter_blocks() yields (codes, taxids|None) block arrays;
+    read_all() returns the whole set."""
 
-    def __init__(self, path_or_file):
-        # never a whole-file inflate (the JAX package's default for large
-        # files): gzip streams, so memory stays at a buffer and one block
+    @staticmethod
+    def _try_parallel_inflate(f) -> bytes | None:
+        """The whole of a UK-indexed gzip file, its members inflated in
+        parallel, for a seekable input from 1 MiB up to
+        UNIKMER_TPU_INFLATE_CAP bytes (default 4 GiB; past it the file
+        streams, so that memory stays bounded); None keeps the streamed
+        read, with ``f`` where it was."""
+        try:
+            pos = f.tell()
+            f.seek(0, io.SEEK_END)
+            size = f.tell() - pos
+            f.seek(pos)
+        except (OSError, io.UnsupportedOperation):
+            return None
+        if size < (1 << 20):
+            return None  # not worth the whole-file read
+        if size > int(os.environ.get("UNIKMER_TPU_INFLATE_CAP", 4 << 30)):
+            return None
+        if not _UKMemberStream.sniff(f):
+            return None  # foreign gzip streams, without a whole-file read
+        raw = f.read()
+        out = native.pgz_inflate_all(raw)
+        if out is None:
+            f.seek(pos)
+        return out
+
+    def __init__(self, path_or_file, stream: bool = False):
+        """``stream=True`` forbids the whole-file parallel inflate, so that
+        memory stays at a member and a block: the external merges hold up
+        to 400 readers open at once."""
         if isinstance(path_or_file, (str, bytes, os.PathLike)):
             f = open(path_or_file, "rb")
             self._owns = True
@@ -314,7 +345,15 @@ class UnikReader:
             magic2 = head
         self.gzipped = magic2 == b"\x1f\x8b"
         if self.gzipped:
-            f = io.BufferedReader(gzip.GzipFile(fileobj=f), 1 << 20)
+            buf = None if stream else self._try_parallel_inflate(f)
+            if buf is not None:
+                if self._owns:
+                    f.close()
+                f = io.BufferedReader(io.BytesIO(buf))
+            elif _UKMemberStream.sniff(f):
+                f = io.BufferedReader(_UKMemberStream(f), 1 << 20)
+            else:
+                f = io.BufferedReader(gzip.GzipFile(fileobj=f), 1 << 20)
         elif not isinstance(f, io.BufferedReader):
             f = io.BufferedReader(f)
         self._file = f
@@ -458,6 +497,71 @@ class _Concat(io.RawIOBase):
             return 0
         b[: len(data)] = data
         return len(data)
+
+
+class _UKMemberStream(io.RawIOBase):
+    """Bounded-memory reader of a UK-indexed gzip stream: one whole member
+    (1 MiB of payload by default, io/pgzip.DEFAULT_CHUNK) is read by its
+    indexed length and inflated at a time (native.pgz_inflate_all on one
+    thread, else Python's gzip), one member resident.  At a member
+    without the index the stream pushes the bytes it read back and
+    switches to Python's sequential GzipFile for the rest."""
+
+    def __init__(self, f):
+        self._f = f
+        self._buf = b""
+        self._pos = 0
+        self._tail = None  # the GzipFile reader once switched
+
+    @staticmethod
+    def sniff(f) -> bool:
+        head = f.peek(14)[:14] if hasattr(f, "peek") else b""
+        return (len(head) >= 14 and head[:3] == b"\x1f\x8b\x08"
+                and bool(head[3] & 0x04) and head[12:14] == b"UK")
+
+    def readable(self) -> bool:
+        return True
+
+    def readinto(self, b):
+        if self._tail is not None:
+            return self._tail.readinto(b)
+        while self._pos >= len(self._buf):
+            if not self._next_member():
+                if self._tail is not None:
+                    return self._tail.readinto(b)
+                return 0
+        n = min(len(b), len(self._buf) - self._pos)
+        b[:n] = self._buf[self._pos: self._pos + n]
+        self._pos += n
+        return n
+
+    def _next_member(self) -> bool:
+        f = self._f
+        hdr = f.read(14)
+        if not hdr:
+            return False
+        consumed = hdr
+        mlen = 0
+        if (len(hdr) == 14 and hdr[:3] == b"\x1f\x8b\x08" and hdr[3] & 0x04
+                and hdr[12:14] == b"UK"):
+            xlen = hdr[10] | (hdr[11] << 8)
+            extra = f.read(xlen - 2)
+            consumed += extra
+            if (len(extra) == xlen - 2 and len(extra) >= 6
+                    and extra[:2] == b"\x04\x00"):
+                mlen = int.from_bytes(extra[2:6], "little")
+        if mlen <= len(consumed):
+            # not a UK member: the rest goes through the sequential reader
+            self._tail = io.BufferedReader(
+                gzip.GzipFile(fileobj=io.BufferedReader(_Concat(consumed, f))),
+                1 << 20)
+            return False
+        member = consumed + f.read(mlen - len(consumed))
+        out = native.pgz_inflate_all(member, threads=1)
+        if out is None:  # no native zlib, or a malformed member
+            out = gzip.decompress(member)
+        self._buf, self._pos = out, 0
+        return True
 
 
 def check_compatibility(h0: UnikHeader, h: UnikHeader, file: str = "") -> None:

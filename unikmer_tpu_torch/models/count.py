@@ -3,14 +3,25 @@ unikmer_tpu/models/count.py: 2-bit codes, and ntHash codes for hashed
 and scaled configs).
 
 One piece of packed sequence runs as: host 2-bit pack (shared native
-code), host-to-device copy, K1 (ops/encode.py: unpack + encode +
-canonical + sentinel keying) or, for hashed configs, H1 (ops/nthash.py:
-unpack + ntHash + canonical + scaled threshold + keying), K2 sort and
-collapse (ops/sort.py), and a device-to-host copy of the kept prefix.
-Streams cut the input into pieces at record boundaries (k-1-overlap
-segments inside long records) and merge the per-piece sorted sets on
-the host, spilling to external sort chunks beyond
-UNIKMER_TPU_COUNT_MEM_MB, as the JAX package does.
+code), host-to-device copy from pinned memory, K1 (ops/encode.py:
+unpack + encode + canonical + sentinel keying) or, for hashed configs,
+H1 (ops/nthash.py: unpack + ntHash + canonical + scaled threshold +
+keying), K2 sort and collapse (ops/sort.py), and a device-to-host copy
+of the kept prefix.  Streams cut the input into pieces at record
+boundaries (k-1-overlap segments inside long records) and merge the
+per-piece sorted sets on the host, spilling to external sort chunks
+beyond UNIKMER_TPU_COUNT_MEM_MB, as the JAX package does.
+
+Dispatch and fetch are apart: dispatching a piece queues its copies and
+kernels on the card's current stream and waits on nothing (K2 plans its
+passes on the card; the kept count goes to pinned host memory behind an
+event), and fetching it waits on that event alone, then copies the kept
+prefix to the host.  The streams keep UNIKMER_TPU_PIPELINE_DEPTH
+pieces dispatched ahead of the one they fetch (:func:`_pipeline_depth`:
+1 on CUDA, 0 on the CPU; :class:`_GroupedCounter`, and the in-flight
+queue of :func:`linear_codes_all`), as the JAX package's streams do.
+Recorded stages synchronize the card at their edges, so a stream whose
+stages are recorded runs at depth 0 and notes it in the record.
 
 Sketch configs (-W minimizer, -S closed syncmer, ``--syncmer-impl
 compat``) encode a piece with H1 at scale 1 (the k-mers, and for
@@ -33,6 +44,7 @@ utils/stages.py.
 from __future__ import annotations
 
 import os
+from collections import deque
 from dataclasses import dataclass, fields, replace as dc_replace
 
 import numpy as np
@@ -58,6 +70,7 @@ from ..ops.sort import (
 from ..taxonomy.lca import (
     collapse_keyed_taxids, compact_ids, device_lca_plan, upload_plan,
 )
+from ..utils import stages
 from ..utils.stages import (  # noqa: F401 (the JAX module's profiler API)
     stage, stream_profile_report, stream_profile_reset, stream_profile_table,
 )
@@ -180,9 +193,26 @@ def pack_bases_2bit(bases: np.ndarray):
     return packed2, validmask.reshape(-1)
 
 
-def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device):
+def _upload(arr: np.ndarray, device: torch.device, keep: list | None):
+    """A host array on ``device``.  To the card it goes from pinned
+    memory by a non-blocking copy (a failed pin raises), the pinned
+    buffer appended to ``keep`` so that it lives until the piece is
+    fetched; on the CPU it is the array itself (nothing is pinned)."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t.to(device)
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t)
+    if keep is not None:
+        keep.append(pinned)
+    return pinned.to(device, non_blocking=True)
+
+
+def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device,
+                  keep: list | None = None):
     """Pack, copy and encode one piece of bases -> (keyed, valid bool):
-    K1 for 2-bit codes, H1 for hashed configs, H1 then S1 for sketches."""
+    K1 for 2-bit codes, H1 for hashed configs, H1 then S1 for sketches.
+    The pinned host buffers of the copies go into ``keep``."""
     n = len(bases)
     with stage("pack", device):
         packed2, validmask = pack_bases_2bit(bases)
@@ -191,9 +221,9 @@ def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device):
         sepmask = (np.packbits(bases == codec.RECORD_SEP, bitorder="little")
                    if cfg.needs_record_sep else None)
     with stage("h2d", device):
-        p2 = torch.from_numpy(packed2).to(device)
-        vm = torch.from_numpy(validmask).to(device)
-        sm = None if sepmask is None else torch.from_numpy(sepmask).to(device)
+        p2 = _upload(packed2, device, keep)
+        vm = _upload(validmask, device, keep)
+        sm = None if sepmask is None else _upload(sepmask, device, keep)
     if not cfg.segmentable:
         keyed, valid = _encode_sketch(p2, vm, sm, n, cfg, device)
     elif cfg.hashed:
@@ -230,15 +260,57 @@ def _encode_sketch(p2, vm, sm, n: int, cfg: CountConfig,
                                      max_hash)
 
 
+class _Pending:
+    """What a dispatched piece holds until it is fetched: its pinned
+    upload buffers, and on the card its kept counts copied into pinned
+    host memory behind its kernels with an event recorded after them."""
+
+    __slots__ = ("keep", "counts", "event")
+
+    def __init__(self, device: torch.device, ns, keep: list):
+        self.keep = keep
+        self.counts = self.event = None
+        if device.type != "cuda":
+            self.counts = ns
+            return
+        self.counts = torch.empty(len(ns), dtype=torch.int64, pin_memory=True)
+        for i, n in enumerate(ns):
+            self.counts[i:i + 1].copy_(n.reshape(1), non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(device))
+
+    def wait(self) -> list[int]:
+        """The kept counts, after this piece's event alone."""
+        if self.event is None:
+            return [int(n) for n in self.counts]
+        self.event.synchronize()
+        return self.counts.tolist()
+
+
+def _fetch_prefixes(outs, pending: _Pending, device: torch.device) -> list:
+    """The kept prefixes of a dispatched piece's outputs as host arrays:
+    wait on the piece's event alone, then copy each ``out[:n]`` (a copy
+    on the CPU too, so that the sink holds no padded piece).  One count
+    serves every output."""
+    with stage("d2h", device):
+        counts = pending.wait()
+        if len(counts) == 1:
+            counts = counts * len(outs)
+        return [out[:n].to("cpu", copy=True).numpy()
+                for out, n in zip(outs, counts)]
+
+
 def count_packed_dispatch(packed: PackedSeqs, cfg: CountConfig, device=None):
-    """Queue one piece's device work (pack, H2D, encode, sort, collapse);
-    returns a token for :func:`count_packed_fetch`."""
+    """Queue one piece's device work (pack, H2D, encode, sort, collapse)
+    without waiting on the card; returns a token for
+    :func:`count_packed_fetch`."""
     device = get_device(device)
     if packed.bases.size == 0:
         return ("empty", device)
-    keyed, valid = _encode_piece(packed.bases, cfg, device)
+    keep: list = []
+    keyed, valid = _encode_piece(packed.bases, cfg, device, keep)
     out, n = collapse_keyed(keyed, valid, cfg.mode, cfg.code_bits)
-    return ("one", device, out, n)
+    return ("one", device, out, n, _Pending(device, [n], keep))
 
 
 def count_packed_dispatch_dual(packed: PackedSeqs, cfg: CountConfig,
@@ -248,33 +320,27 @@ def count_packed_dispatch_dual(packed: PackedSeqs, cfg: CountConfig,
     device = get_device(device)
     if packed.bases.size == 0:
         return ("empty", device)
-    keyed, valid = _encode_piece(packed.bases, cfg, device)
-    return ("dual", device) + collapse_dual_keyed(keyed, valid,
-                                                  cfg.code_bits)
-
-
-def _fetch_prefix(out: torch.Tensor, n: torch.Tensor,
-                  device: torch.device) -> np.ndarray:
-    with stage("d2h", device):
-        kept = out[: int(n)]
-        kept = kept.cpu() if kept.is_cuda else kept.clone()
-        return kept.numpy().view(np.uint64)
+    keep: list = []
+    keyed, valid = _encode_piece(packed.bases, cfg, device, keep)
+    od, nd, orp, nr = collapse_dual_keyed(keyed, valid, cfg.code_bits)
+    return ("dual", device, od, nd, orp, nr, _Pending(device, [nd, nr], keep))
 
 
 def count_packed_fetch(token) -> np.ndarray:
     """The sorted uint64 codes of a count_packed_dispatch token."""
     if token[0] == "empty":
         return np.zeros(0, np.uint64)
-    _, device, out, n = token
-    return _fetch_prefix(out, n, device)
+    _, device, out, _, pending = token
+    return _fetch_prefixes([out], pending, device)[0].view(np.uint64)
 
 
 def count_packed_fetch_dual(token) -> tuple[np.ndarray, np.ndarray]:
     """(distinct, repeated) of a count_packed_dispatch_dual token."""
     if token[0] == "empty":
         return np.zeros(0, np.uint64), np.zeros(0, np.uint64)
-    _, device, od, nd, orp, nr = token
-    return _fetch_prefix(od, nd, device), _fetch_prefix(orp, nr, device)
+    _, device, od, _, orp, _, pending = token
+    d, r = _fetch_prefixes([od, orp], pending, device)
+    return d.view(np.uint64), r.view(np.uint64)
 
 
 def count_packed(packed: PackedSeqs, cfg: CountConfig,
@@ -416,18 +482,60 @@ def _merge_partials(partial, cfg: CountConfig) -> np.ndarray:
     return merged[first][keep]
 
 
-def _count_piece(piece: PackedSeqs, cfg: CountConfig, device: torch.device,
-                 sink: _PartialSink) -> None:
-    distinct_cfg, repeated_cfg = _capped_cfgs(cfg)
-    if repeated_cfg is None:
-        parts = [count_packed(piece, cfg, device)]
-    else:
-        # one sort gives the piece's distinct set and its repeated marks
-        parts = count_packed_fetch_dual(
-            count_packed_dispatch_dual(piece, distinct_cfg, device))
-    for u in parts:
-        if len(u):
-            sink.add(u)
+def _pipeline_depth(device=None) -> int:
+    """Pieces the streaming loops keep dispatched ahead of the one they
+    fetch: UNIKMER_TPU_PIPELINE_DEPTH (``max(0, int(value))``, as the JAX
+    package reads it), else 1 on a CUDA device (d + 1 pieces on the card,
+    the fetch of one overlapping the next one's work) and 0 on the CPU,
+    where the work runs as it is queued."""
+    env = os.environ.get("UNIKMER_TPU_PIPELINE_DEPTH")
+    if env is not None:
+        return max(0, int(env))
+    return 1 if get_device(device).type == "cuda" else 0
+
+
+def _stream_depth(device: torch.device) -> int:
+    """:func:`_pipeline_depth`, but 0 while stages are recorded (a
+    recorded stage synchronizes the card at its edges, so nothing could
+    overlap), noted in the record when that lowers it."""
+    depth = _pipeline_depth(device)
+    if depth and stages.recording():
+        stages.note("pipeline depth",
+                    f"0 (stages recorded; {depth} unrecorded)")
+        return 0
+    return depth
+
+
+class _GroupedCounter:
+    """The streams' dispatch-ahead: each piece is dispatched, then the
+    oldest pieces are fetched into ``sink`` while more than ``depth`` are
+    in flight, so piece i + depth is dispatched before piece i is
+    fetched.  A group is one piece: the JAX package's multi-bucket
+    programs are a TPU workaround.  ``dual`` pieces take the one-sort
+    distinct-and-repeated dispatch of the -u/-d streams."""
+
+    def __init__(self, sink, depth: int, device=None):
+        self.sink = sink
+        self.depth = depth
+        self.device = device
+        self.inflight: deque = deque()
+
+    def add(self, piece: PackedSeqs, cfg: CountConfig, dual: bool = False):
+        dispatch = count_packed_dispatch_dual if dual else count_packed_dispatch
+        self.inflight.append((dispatch(piece, cfg, self.device), dual))
+        self.drain(self.depth)
+
+    def drain(self, limit: int) -> None:
+        while len(self.inflight) > limit:
+            token, dual = self.inflight.popleft()
+            parts = (count_packed_fetch_dual(token) if dual
+                     else [count_packed_fetch(token)])
+            for u in parts:
+                if len(u):
+                    self.sink.add(u)
+
+    def finish(self) -> None:
+        self.drain(0)
 
 
 def split_packed(packed: PackedSeqs, chunk_bases: int, k: int = 0,
@@ -480,6 +588,8 @@ def count_stream_packed(packed_iter, cfg: CountConfig,
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     sink = _PartialSink(cfg)
+    counter = _GroupedCounter(sink, _stream_depth(device), device)
+    distinct_cfg, repeated_cfg = _capped_cfgs(cfg)
     it = iter(packed_iter)
     while True:
         with stage("ingest", _HOST):
@@ -488,7 +598,10 @@ def count_stream_packed(packed_iter, cfg: CountConfig,
             break
         for piece in split_packed(packed, chunk_bases,
                                   cfg.k if cfg.segmentable else 0):
-            _count_piece(piece, cfg, device, sink)
+            # -u/-d: one sort gives the piece's distinct set and its
+            # repeated marks
+            counter.add(piece, distinct_cfg, dual=repeated_cfg is not None)
+    counter.finish()
     return sink.result()
 
 
@@ -525,16 +638,27 @@ def linear_codes_all(bases: np.ndarray, cfg: CountConfig,
                      chunk_bases: int | None = None, device=None):
     """All valid window codes of a packed base buffer, in genome order:
     (codes uint64[n_valid], positions int64[n_valid]).  Each piece is
-    fetched before the next is encoded, so the device holds one piece
-    at a time."""
+    compacted on the device and fetched while the next ``depth``
+    (:func:`_pipeline_depth`) are in flight, so the device holds depth + 1
+    pieces."""
     device = get_device(device)
     if len(bases) == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    depth = _stream_depth(device)
     parts_c, parts_p = [], []
-    for codes, pos in _linear_pieces(bases, cfg, chunk_bases, device):
-        with stage("d2h", device):
-            parts_c.append(codes.cpu().numpy().view(np.uint64))
-            parts_p.append(pos.cpu().numpy())
+    inflight: deque = deque()
+
+    def drain(limit: int) -> None:
+        while len(inflight) > limit:
+            codes, pos, pending = inflight.popleft()
+            c, p = _fetch_prefixes([codes, pos], pending, device)
+            parts_c.append(c.view(np.uint64))
+            parts_p.append(p)
+
+    for off, seg, limit in _linear_segments(bases, cfg, chunk_bases, device):
+        inflight.append(_linear_piece(seg, cfg, device, limit, off))
+        drain(depth)
+    drain(0)
     return np.concatenate(parts_c), np.concatenate(parts_p)
 
 
@@ -547,7 +671,12 @@ def linear_codes_device(bases: np.ndarray, cfg: CountConfig,
     if len(bases) == 0:
         empty = torch.zeros(0, dtype=torch.int64, device=device)
         return empty, empty.clone()
-    parts = list(_linear_pieces(bases, cfg, chunk_bases, device))
+    parts = []
+    for off, seg, limit in _linear_segments(bases, cfg, chunk_bases, device):
+        keyed, valid = _encode_piece(seg, cfg, device)
+        with stage("collapse", device):
+            pos = torch.nonzero(valid[:limit]).squeeze(1)
+            parts.append((keyed[pos], pos + off if off else pos))
     if len(parts) == 1:
         return parts[0]
     with stage("collapse", device):
@@ -555,31 +684,36 @@ def linear_codes_device(bases: np.ndarray, cfg: CountConfig,
                 torch.cat([p for _, p in parts]))
 
 
-def _linear_pieces(bases: np.ndarray, cfg: CountConfig,
-                   chunk_bases: int | None, device: torch.device):
-    """(codes, positions) tensors of the valid windows of each piece, in
-    genome order.  Buffers past the piece size are cut into k-1-overlap
-    segments, each window landing in exactly one."""
+def _linear_segments(bases: np.ndarray, cfg: CountConfig,
+                     chunk_bases: int | None, device: torch.device):
+    """(offset, bases, limit) of each piece of a base buffer: the valid
+    windows of a piece that start before ``limit`` are its own.  Buffers
+    past the piece size are cut into k-1-overlap segments, each window
+    landing in exactly one; sketches run whole."""
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     n, k = len(bases), cfg.k
     if n <= chunk_bases + k or not cfg.segmentable:
-        yield _linear_piece(bases, cfg, device, n)
+        yield 0, bases, n
         return
     for off in range(0, n - (k - 1), chunk_bases):
-        seg = bases[off: min(off + chunk_bases + k - 1, n)]
         # windows starting in the overlap tail belong to the next segment
-        codes, pos = _linear_piece(seg, cfg, device, chunk_bases)
-        yield codes, pos + off
+        yield off, bases[off: min(off + chunk_bases + k - 1, n)], chunk_bases
 
 
 def _linear_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device,
-                  limit: int):
-    """(codes, positions) of the valid windows starting before ``limit``."""
-    keyed, valid = _encode_piece(bases, cfg, device)
+                  limit: int, off: int = 0):
+    """Dispatch one piece of :func:`linear_codes_all`: (codes, positions,
+    pending), the valid windows starting before ``limit`` compacted (scan
+    and scatter, their count kept on the device) to dense prefixes,
+    positions counted from ``off``; nothing waits on the card."""
+    keep: list = []
+    keyed, valid = _encode_piece(bases, cfg, device, keep)
     with stage("collapse", device):
-        pos = torch.nonzero(valid[:limit]).squeeze(1)
-        return keyed[pos], pos
+        kept = valid[:limit]
+        pos = torch.arange(off, off + kept.shape[0], device=device)
+        return (_compact(keyed[:limit], kept), _compact(pos, kept, 0),
+                _Pending(device, [kept.sum(dtype=torch.int64)], keep))
 
 
 def count_linear(packed: PackedSeqs, cfg: CountConfig,

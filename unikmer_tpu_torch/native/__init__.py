@@ -6,7 +6,9 @@ a hash of the source, the flags and the compiler's version, so an
 edited source, or a copy of the tree on another host, is rebuilt
 instead of loading a stale library.  One ``g++ -E`` probe decides
 whether ``<zlib.h>`` is there: with it the fused FASTA loader inflates
-gzip files itself, without it those go through the Python reader.
+gzip files itself and the ``.unik`` gzip members are deflated and
+inflated here (``pgz_compress_member``, ``pgz_inflate_all``), without it
+those go through Python's readers and zlib.
 
 This is host code, not a device kernel.  Every entry point has a numpy
 branch: the functions return None (or take the numpy path) when g++ is
@@ -163,6 +165,12 @@ def _bind(lib) -> None:
         fn = getattr(lib, name)
         fn.restype = i64
         fn.argtypes = [u8p, i64, i32, i32, u64p]
+    lib.pgz_indexed_isize.restype = i64
+    lib.pgz_indexed_isize.argtypes = [u8p, i64]
+    lib.pgz_compress_member.restype = i64
+    lib.pgz_compress_member.argtypes = [u8p, i64, i32, u8p, i64]
+    lib.pgz_inflate_parallel.restype = i64
+    lib.pgz_inflate_parallel.argtypes = [u8p, i64, u8p, i64, i32]
 
 
 class FastxPackStruct(ctypes.Structure):
@@ -595,3 +603,43 @@ def sketch_emit(bases: np.ndarray, k: int, w_or_s: int,
     if m * 2 < n:
         return out[:m].copy()
     return out[:m]
+
+
+def pgz_compress_member(data, level: int) -> bytes | None:
+    """One UK-indexed gzip member of ``data`` (io/pgzip.py's layout), the
+    bytes that io/pgzip's Python route makes, deflated by zlib without
+    the GIL; None without the library or its zlib, and at level 0 (whose
+    stored blocks only Python's own output buffers cut the same way)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    inp = np.frombuffer(data, np.uint8)
+    out = np.empty(28 + len(inp) + (len(inp) >> 3) + 256, np.uint8)
+    w = lib.pgz_compress_member(_u8p(inp), len(inp), level, _u8p(out),
+                                len(out))
+    if w < 0:
+        return None
+    return out[:w].tobytes()
+
+
+def pgz_inflate_all(raw, threads: int = 0) -> bytes | None:
+    """Inflate a UK-indexed multi-member gzip buffer, its members on
+    ``threads`` threads (0: min(cpus, 8)) each through zlib, which checks
+    their CRC-32 and length.  None when the library or its zlib is
+    missing, a member lacks the index, the buffer is truncated or a
+    member fails its checks: the caller reads the buffer sequentially."""
+    lib = get_lib()
+    if lib is None or len(raw) == 0:
+        return None
+    inp = np.frombuffer(raw, np.uint8)
+    total = lib.pgz_indexed_isize(_u8p(inp), len(inp))
+    if total < 0:
+        return None
+    if threads <= 0:
+        threads = min(os.cpu_count() or 1, 8)
+    out = np.empty(int(total), np.uint8)
+    got = lib.pgz_inflate_parallel(_u8p(inp), len(inp), _u8p(out),
+                                   int(total), threads)
+    if got != total:
+        return None
+    return out.tobytes()

@@ -1628,3 +1628,196 @@ int64_t syncmer_compat_emit_u64(const uint8_t* bases, int64_t n,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------
+// UK-indexed gzip members (io/pgzip.py): every member the writer makes
+// carries a BGZF-style FEXTRA subfield ('U', 'K', u32 = the member's
+// compressed length), so a reader splits the stream without inflating
+// and inflates the members concurrently; stock gzip readers skip FEXTRA
+// (RFC 1952).  The port's copy of the JAX package's reader and writer
+// (unikmer_tpu/native/unikit_native.cpp pgz_*), with zlib in place of
+// libdeflate: members inflate through zlib's gzip wrapper, which checks
+// each member's CRC-32 and ISIZE, and deflate as Python's zlib route of
+// io/pgzip._compress_member does, byte for byte.  Without zlib every
+// entry point fails (-1) and the callers take the Python route.
+// ---------------------------------------------------------------------
+
+namespace {
+
+// Member length from the 'UK' FEXTRA subfield of the member at `off`; 0
+// when it has no such subfield, -1 on a malformed or truncated header.
+int64_t uk_member_len(const uint8_t* in, size_t n, size_t off) {
+    if (off + 20 > n) return -1;
+    const uint8_t* p = in + off;
+    if (p[0] != 0x1f || p[1] != 0x8b || p[2] != 8) return -1;
+    if (!(p[3] & 4)) return 0;  // no FEXTRA
+    size_t e = off + 10;
+    const uint16_t xlen = (uint16_t)in[e] | ((uint16_t)in[e + 1] << 8);
+    e += 2;
+    const size_t end = e + xlen;
+    if (end > n) return -1;
+    while (e + 4 <= end) {
+        const uint8_t si1 = in[e], si2 = in[e + 1];
+        const uint16_t slen =
+            (uint16_t)in[e + 2] | ((uint16_t)in[e + 3] << 8);
+        if (e + 4 + slen > end) return -1;
+        if (si1 == 'U' && si2 == 'K' && slen == 4) {
+            uint32_t v;
+            std::memcpy(&v, in + e + 4, 4);
+            return (int64_t)v;
+        }
+        e += 4 + slen;
+    }
+    return 0;
+}
+
+// (offset, member length, inflated offset) of every member; returns the
+// total inflated size, or -1 unless EVERY member carries the index and
+// lies whole inside the buffer.
+int64_t uk_scan(const uint8_t* in, int64_t n, std::vector<size_t>* offs,
+                std::vector<size_t>* mlens, std::vector<size_t>* oouts) {
+    size_t off = 0;
+    int64_t total = 0;
+    while ((int64_t)off < n) {
+        const int64_t mlen = uk_member_len(in, (size_t)n, off);
+        if (mlen < 28 || (int64_t)(off + (size_t)mlen) > n) return -1;
+        uint32_t isize;
+        std::memcpy(&isize, in + off + (size_t)mlen - 4, 4);
+        if (offs) {
+            offs->push_back(off);
+            mlens->push_back((size_t)mlen);
+            oouts->push_back((size_t)total);
+        }
+        total += isize;
+        off += (size_t)mlen;
+    }
+    return total;
+}
+
+#ifdef UKT_HAVE_ZLIB
+// One whole member through zlib's gzip wrapper into exactly `want` bytes.
+bool inflate_member(const uint8_t* in, size_t mlen, uint8_t* out,
+                    size_t want) {
+    z_stream zs;
+    std::memset(&zs, 0, sizeof(zs));
+    if (inflateInit2(&zs, 16 + MAX_WBITS) != Z_OK) return false;
+    zs.next_in = const_cast<Bytef*>(in);
+    zs.avail_in = (uInt)mlen;
+    zs.next_out = out;
+    zs.avail_out = (uInt)want;
+    uint8_t spare;
+    int rc = inflate(&zs, Z_FINISH);
+    if (rc == Z_BUF_ERROR && zs.avail_out == 0) {
+        // the member holds more than its ISIZE said: fail on one more byte
+        zs.next_out = &spare;
+        zs.avail_out = 1;
+        rc = inflate(&zs, Z_FINISH);
+        if (rc == Z_STREAM_END && zs.avail_out == 0) rc = Z_DATA_ERROR;
+    }
+    const bool ok = rc == Z_STREAM_END && zs.total_out == want &&
+                    zs.avail_in == 0;
+    inflateEnd(&zs);
+    return ok;
+}
+#endif
+
+}  // namespace
+
+extern "C" {
+
+// Total inflated size of a fully UK-indexed buffer, or -1 when any member
+// lacks the index (the caller inflates the buffer sequentially).
+int64_t pgz_indexed_isize(const uint8_t* in, int64_t n) {
+    return uk_scan(in, n, nullptr, nullptr, nullptr);
+}
+
+// One UK-indexed gzip member of data[n] at zlib `level` into out[out_cap]:
+// the 20-byte header (XFL 2 at level >= 9, 4 at level 1, else 0; OS 255),
+// a raw deflate stream (window 15, memLevel 8, the default strategy; all
+// the input, then a finish) and the CRC-32 and ISIZE trailer.  Returns
+// the member's size, or -1 on failure, a small out_cap or no zlib.
+// Level 0 is refused: its stored blocks are cut where the caller's output
+// buffer fills, so only Python's own buffer steps give Python's bytes.
+int64_t pgz_compress_member(const uint8_t* data, int64_t n, int32_t level,
+                            uint8_t* out, int64_t out_cap) {
+#ifndef UKT_HAVE_ZLIB
+    (void)data; (void)n; (void)level; (void)out; (void)out_cap;
+    return -1;
+#else
+    if (n < 0 || n > (int64_t)0xFFFFFFFFu || level == 0 || level < -1 ||
+        level > 9)
+        return -1;
+    z_stream zs;
+    std::memset(&zs, 0, sizeof(zs));
+    if (deflateInit2(&zs, level, Z_DEFLATED, -MAX_WBITS, 8,
+                     Z_DEFAULT_STRATEGY) != Z_OK)
+        return -1;
+    const uLong bound = deflateBound(&zs, (uLong)n);
+    if (out_cap < (int64_t)(28 + bound)) {
+        deflateEnd(&zs);
+        return -1;
+    }
+    zs.next_in = const_cast<Bytef*>(data);
+    zs.avail_in = (uInt)n;
+    zs.next_out = out + 20;
+    zs.avail_out = (uInt)bound;
+    int rc = deflate(&zs, Z_NO_FLUSH);
+    if (rc == Z_OK || rc == Z_BUF_ERROR) rc = deflate(&zs, Z_FINISH);
+    const size_t body = zs.total_out;
+    deflateEnd(&zs);
+    if (rc != Z_STREAM_END) return -1;
+    const uint32_t mlen = (uint32_t)(28 + body);
+    const uint8_t xfl = level >= 9 ? 2 : (level == 1 ? 4 : 0);
+    const uint8_t hdr[10] = {0x1f, 0x8b, 8, 4, 0, 0, 0, 0, xfl, 255};
+    std::memcpy(out, hdr, 10);
+    out[10] = 8;  out[11] = 0;  // XLEN
+    out[12] = 'U'; out[13] = 'K'; out[14] = 4; out[15] = 0;
+    std::memcpy(out + 16, &mlen, 4);
+    const uint32_t crc = (uint32_t)crc32(0L, data, (uInt)n);
+    std::memcpy(out + 20 + body, &crc, 4);
+    const uint32_t isz = (uint32_t)((uint64_t)n & 0xFFFFFFFFu);
+    std::memcpy(out + 24 + body, &isz, 4);
+    return (int64_t)mlen;
+#endif
+}
+
+// The members of a UK-indexed buffer inflated on `threads` threads into
+// out[out_cap].  Returns the bytes written, or -1 (a member without the
+// index, one that fails its CRC-32 or ISIZE, a small out_cap, no zlib).
+int64_t pgz_inflate_parallel(const uint8_t* in, int64_t n, uint8_t* out,
+                             int64_t out_cap, int32_t threads) {
+#ifndef UKT_HAVE_ZLIB
+    (void)in; (void)n; (void)out; (void)out_cap; (void)threads;
+    return -1;
+#else
+    std::vector<size_t> offs, mlens, oouts;
+    const int64_t total = uk_scan(in, n, &offs, &mlens, &oouts);
+    if (total < 0 || total > out_cap) return -1;
+    std::atomic<size_t> next(0);
+    std::atomic<bool> failed(false);
+    auto work = [&]() {
+        for (;;) {
+            const size_t i = next.fetch_add(1);
+            if (i >= offs.size() || failed.load(std::memory_order_relaxed))
+                break;
+            const size_t want =
+                (i + 1 < oouts.size() ? oouts[i + 1] : (size_t)total) -
+                oouts[i];
+            if (!inflate_member(in + offs[i], mlens[i], out + oouts[i], want))
+                failed = true;
+        }
+    };
+    int nt = threads < 1 ? 1 : threads;
+    if ((size_t)nt > offs.size()) nt = (int)offs.size();
+    if (nt <= 1) {
+        work();
+    } else {
+        std::vector<std::thread> pool;
+        for (int t = 0; t < nt; t++) pool.emplace_back(work);
+        for (auto& t : pool) t.join();
+    }
+    return failed.load() ? -1 : total;
+#endif
+}
+
+}  // extern "C"

@@ -12,12 +12,16 @@ Both are onesweep LSD radix sorts over 8-bit digits (csrc/radix_sort.cu),
 bound on the card by device memory: one read of the keys for every
 pass's histogram, then per pass 16 B a key (read and write), 24 B a
 pair.  :func:`_radix_passes` launches ``ukt_radix_upfront`` (the [P, 256]
-histograms, their digit bases and a per-pass "one digit holds every key"
-flag, read back in one small copy) and then ``ukt_radix_onesweep`` for
-each pass that is not trivial: a tile of 4096 keys is ranked in shared
-memory, takes its global offsets by a decoupled look-back over the
-earlier tiles, and writes through a shared-memory stage so the stores
-coalesce.  (The earlier design, a histogram launch and a ``torch.cumsum``
+histograms, their digit bases and the pass plan, written on the card:
+which passes run, since a pass whose keys share one digit changes
+nothing, and which buffer each reads and writes) and then
+``ukt_radix_onesweep``, which queues every pass: a pass the plan skips
+returns at once, and a copy kernel fills the output when none runs.  A
+tile of 4096 keys is ranked in shared memory, takes its global offsets
+by a decoupled look-back over the earlier tiles, and writes through a
+shared-memory stage so the stores coalesce.  Nothing is read back to
+the host, so a call queues its work and returns without waiting on the
+card.  (The earlier design, a histogram launch and a ``torch.cumsum``
 over a [256, tiles] table each pass and uncoalesced stores, is gone.)
 Any length is taken; nothing is padded.  The passes are stable, so K3
 keeps equal keys' values in input order (the TPU kernel did not).
@@ -30,11 +34,15 @@ sentinel, and the sort then runs at most ceil((code_bits+1)/8) passes.
 On a CUDA tensor each wrapper launches its kernels or raises; on a CPU
 tensor it runs its plain version (:func:`sort_u64_plain`,
 :func:`sort_kv_plain`).  Besides ``.launches``, each wrapper counts the
-digit passes its launches ran (``.passes_run``) and skipped as trivial
-(``.passes_skipped``).
+digit passes its launches ran (``.passes_run``) and skipped
+(``.passes_skipped``): the kernels add them to counters on the card,
+which are read (a wait on the card) only when the attribute is read;
+setting an attribute sets its count.
 """
 
 from __future__ import annotations
+
+import functools
 
 from .. import _kernels
 from .._lazy import torch
@@ -69,39 +77,72 @@ _UPFRONT = _kernels.Kernel("ukt_radix_upfront")
 _ONESWEEP = _kernels.Kernel("ukt_radix_onesweep")
 
 
+class _SortEntry:
+    """A sort wrapper: the function, ``.launches``, and ``.passes_run`` /
+    ``.passes_skipped`` kept on the card (an int64 pair a device, added
+    to by the plan's kernel) beside a host offset.  Reading a pass count
+    waits on the card; setting one zeroes the device pairs without a
+    wait."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self._fn = fn
+        self.launches = 0
+        self._pairs: dict = {}  # device -> int64 [passes run, skipped]
+        self._offset = [0, 0]
+
+    def __call__(self, *args, **kwargs):
+        return self._fn(self, *args, **kwargs)
+
+    def pair(self, dev: torch.device) -> torch.Tensor:
+        """The device counters of ``dev``, made zero at first use."""
+        got = self._pairs.get(dev)
+        if got is None:
+            got = self._pairs[dev] = torch.zeros(2, dtype=torch.int64,
+                                                 device=dev)
+        return got
+
+    def _read(self, i: int) -> int:
+        return self._offset[i] + sum(int(p[i]) for p in self._pairs.values())
+
+    def _set(self, i: int, value: int) -> None:
+        for p in self._pairs.values():
+            p[i].zero_()
+        self._offset[i] = int(value)
+
+    passes_run = property(lambda self: self._read(0),
+                          lambda self, v: self._set(0, v))
+    passes_skipped = property(lambda self: self._read(1),
+                              lambda self, v: self._set(1, v))
+
+
 def _radix_passes(keys: torch.Tensor, values: torch.Tensor | None,
-                  code_bits: int):
+                  code_bits: int, pair: torch.Tensor):
     """The onesweep passes on the card: (sorted keys, sorted values or
-    None, passes run, passes skipped).  n >= 2; the outputs never alias
-    the inputs."""
+    None), the passes run and skipped added to ``pair``.  n >= 2; the
+    outputs never alias the inputs.  Queues its kernels and returns."""
     n = keys.shape[0]
     dev = keys.device
-    shifts = radix_shifts(code_bits)
+    passes = len(radix_shifts(code_bits))
     tiles = -(-n // _TILE_KEYS.bound()())
-    hist = torch.empty(len(shifts) * 256, dtype=torch.int64, device=dev)
+    hist = torch.empty(passes * 256, dtype=torch.int64, device=dev)
     bases = torch.empty_like(hist)
-    trivial = torch.empty(len(shifts), dtype=torch.int32, device=dev)
-    _UPFRONT(dev, keys.data_ptr(), n, len(shifts), code_bits, hist.data_ptr(),
-             bases.data_ptr(), trivial.data_ptr())
-    run = [p for p, t in enumerate(trivial.tolist()) if not t]
-    if not run:  # every pass trivial: the input is already in order
-        return (keys.clone(), None if values is None else values.clone(),
-                0, len(shifts))
-    # tile counter and look-back status words, zeroed by each pass
+    plan = torch.empty(passes + 1, dtype=torch.int32, device=dev)
+    _UPFRONT(dev, keys.data_ptr(), n, passes, code_bits, hist.data_ptr(),
+             bases.data_ptr(), plan.data_ptr(), pair.data_ptr())
+    # tile counter and look-back status words, zeroed before each pass
     scratch = torch.empty((tiles + 1) * 256, dtype=torch.int64, device=dev)
-    kbufs = (torch.empty_like(keys), torch.empty_like(keys))
-    vbufs = (None, None) if values is None else (
-        torch.empty_like(values), torch.empty_like(values))
-    src, vsrc = keys, values
-    for i, p in enumerate(run):
-        dst, vdst = kbufs[i % 2], vbufs[i % 2]
-        _ONESWEEP(dev, src.data_ptr(), dst.data_ptr(),
-                  None if vsrc is None else vsrc.data_ptr(),
-                  None if vdst is None else vdst.data_ptr(), n, shifts[p],
-                  code_bits, bases.data_ptr() + 8 * 256 * p,
-                  scratch.data_ptr(), tiles)
-        src, vsrc = dst, vdst
-    return src, vsrc, len(run), len(shifts) - len(run)
+    temp, out = torch.empty_like(keys), torch.empty_like(keys)
+    vtemp = vout = None
+    if values is not None:
+        vtemp, vout = torch.empty_like(values), torch.empty_like(values)
+    _ONESWEEP(dev, keys.data_ptr(), temp.data_ptr(), out.data_ptr(),
+              None if values is None else values.data_ptr(),
+              None if vtemp is None else vtemp.data_ptr(),
+              None if vout is None else vout.data_ptr(), n, passes,
+              code_bits, bases.data_ptr(), plan.data_ptr(),
+              scratch.data_ptr(), tiles)
+    return out, vout
 
 
 def _check_device(name: str, dev: torch.device) -> None:
@@ -109,7 +150,9 @@ def _check_device(name: str, dev: torch.device) -> None:
         raise ValueError(f"{name}: unsupported device {dev}")
 
 
-def radix_sort_u64(keys: torch.Tensor, code_bits: int = 64) -> torch.Tensor:
+@_SortEntry
+def radix_sort_u64(self, keys: torch.Tensor,
+                   code_bits: int = 64) -> torch.Tensor:
     """K2: ascending unsigned sort of a 1-D int64 tensor of u64 bit
     patterns; returns a new tensor (the input is left as it is)."""
     if keys.dtype != torch.int64 or keys.dim() != 1:
@@ -120,19 +163,14 @@ def radix_sort_u64(keys: torch.Tensor, code_bits: int = 64) -> torch.Tensor:
         return sort_u64_plain(keys)
     if keys.shape[0] <= 1:
         return keys.clone()
-    out, _, ran, skipped = _radix_passes(keys.contiguous(), None, code_bits)
-    radix_sort_u64.launches += 1
-    radix_sort_u64.passes_run += ran
-    radix_sort_u64.passes_skipped += skipped
+    out, _ = _radix_passes(keys.contiguous(), None, code_bits,
+                           self.pair(keys.device))
+    self.launches += 1
     return out
 
 
-radix_sort_u64.launches = 0
-radix_sort_u64.passes_run = 0
-radix_sort_u64.passes_skipped = 0
-
-
-def radix_sort_kv_u64(keys: torch.Tensor, values: torch.Tensor,
+@_SortEntry
+def radix_sort_kv_u64(self, keys: torch.Tensor, values: torch.Tensor,
                       code_bits: int = 64):
     """K3: (keys, values) sorted by ascending unsigned key, stably.
     ``keys`` is a 1-D int64 tensor of u64 bit patterns, ``values`` an
@@ -151,14 +189,7 @@ def radix_sort_kv_u64(keys: torch.Tensor, values: torch.Tensor,
         return sort_kv_plain(keys, values)
     if keys.shape[0] <= 1:
         return keys.clone(), values.clone()
-    ok, ov, ran, skipped = _radix_passes(keys.contiguous(),
-                                         values.contiguous(), code_bits)
-    radix_sort_kv_u64.launches += 1
-    radix_sort_kv_u64.passes_run += ran
-    radix_sort_kv_u64.passes_skipped += skipped
-    return ok, ov
-
-
-radix_sort_kv_u64.launches = 0
-radix_sort_kv_u64.passes_run = 0
-radix_sort_kv_u64.passes_skipped = 0
+    out = _radix_passes(keys.contiguous(), values.contiguous(), code_bits,
+                        self.pair(keys.device))
+    self.launches += 1
+    return out

@@ -173,8 +173,10 @@ def _compat_emit(kvalid: torch.Tensor, shash: torch.Tensor,
     # argmin at i; every window's argmin lies inside it, so one scatter
     # of the argmins marks the same positions as the reference's loop
     # over the W windows holding i
+    # index_fill_ takes the value as a scalar: an indexed assignment would
+    # copy a host tensor of it to the card, a wait on every dispatch
     mark = torch.zeros(n, dtype=torch.bool, device=shash.device)
-    mark[argmin(vote_key, W)] = True
+    mark.index_fill_(0, argmin(vote_key, W), True)
     mark &= kvalid & (shash != U64_MAX)
 
     # record scans (unsegmented: the separator runs bound each record)

@@ -139,7 +139,7 @@ class _ChunkStream:
     """Buffered block reader over one sorted chunk file."""
 
     def __init__(self, path: str):
-        self.reader = unik.UnikReader(path)
+        self.reader = unik.UnikReader(path, stream=True)
         self._blocks = self.reader.iter_blocks()
         self.codes = np.zeros(0, np.uint64)
         self.taxids: np.ndarray | None = None
@@ -254,7 +254,7 @@ def cascade_merge(chunk_files, out_writer_factory, tmp_dir: str, k: int,
             # ANY member with taxids makes the intermediate carry them
             tmp_has_tax = False
             for g in group:
-                with unik.UnikReader(g) as r0:
+                with unik.UnikReader(g, stream=True) as r0:
                     if r0.header.is_include_taxid:
                         tmp_has_tax = True
                         break

@@ -54,7 +54,7 @@ VARIANTS = {
          "__launch_bounds__(kThreads, 3)\nradix_onesweep_pass")],
 }
 KERNELS = ("radix_upfront_hist", "radix_bases", "radix_onesweep_pass",
-           "Memset", "Memcpy")
+           "radix_copy", "Memset", "Memcpy")
 N = 1 << 25
 
 

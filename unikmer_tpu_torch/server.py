@@ -238,12 +238,15 @@ def _warm(pretouch: bool) -> None:
 
 
 def _release_device_memory() -> None:
-    """Return the cached blocks of torch's allocator to the card (torch
-    is looked up, not imported: a server that ran no device work has
-    none)."""
+    """Return the cached blocks of torch's allocator to the card, and the
+    pinned host blocks of its host allocator (a streamed count's uploads)
+    to the host, so that a served stream holds no pinned
+    memory between requests (torch is looked up, not imported: a server
+    that ran no device work has none)."""
     torch = sys.modules.get("torch")
     if torch is not None and torch.cuda.is_initialized():
         torch.cuda.empty_cache()
+        torch._C._host_emptyCache()
 
 
 def serve(sock_path: str, idle_timeout: float | None = None,

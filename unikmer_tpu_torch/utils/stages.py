@@ -6,7 +6,8 @@ runs; then every ``with stage(name, device)`` block adds its seconds to
 the recorder.  Device work is asynchronous, so a recorded stage
 synchronizes the device at both of its edges: the work a stage queued is
 charged to it, at the price of the overlap between stages.  Unrecorded
-runs never synchronize here.
+runs never synchronize here.  So the streams of models/count.py run at
+pipeline depth 0 while stages are recorded, and :func:`note` it.
 
 :func:`record_stages` keeps inclusive seconds: a stage opened inside
 another (``map query`` around ``sort`` and ``collapse``) is charged to
@@ -35,6 +36,7 @@ class StageTimes:
     def __init__(self, exclusive: bool = False):
         self.seconds: dict[str, float] = {}
         self.calls: dict[str, int] = {}
+        self.notes: dict[str, str] = {}  # what the record changed
         self.exclusive = exclusive
         self._inner: list[float] = []  # seconds of the open stages' children
 
@@ -84,6 +86,19 @@ def stage(name: str, device: torch.device | str):
     return nullcontext() if times is None else times.stage(name, device)
 
 
+def recording() -> bool:
+    """Whether a :func:`stage` opened now would be recorded."""
+    return (_ACTIVE.get() or _PROFILE) is not None
+
+
+def note(key: str, text: str) -> None:
+    """Keep ``text`` under ``key`` in the recorder that takes the stages
+    (no-op when none does); the profiler's report prints it."""
+    times = _ACTIVE.get() or _PROFILE
+    if times is not None:
+        times.notes[key] = text
+
+
 def stream_profile_reset() -> None:
     """Turn the stream profiler on (UNIKMER_TPU_PROFILE_STREAM=1) or off
     and clear its table; call before a run."""
@@ -109,7 +124,8 @@ def stream_profile_table() -> dict:
 
 def stream_profile_report(out=None) -> None:
     """Print the table, longest phase first, in the JAX package's layout
-    (to stderr by default); nothing when the profiler is off or idle."""
+    (to stderr by default), the record's notes on lines of their own
+    before the total; nothing when the profiler is off or idle."""
     table = stream_profile_table()
     if not table:
         return
@@ -120,4 +136,6 @@ def stream_profile_report(out=None) -> None:
                                       key=lambda kv: -kv[1][0]):
         print(f"#   {name:<22} {secs:8.3f}s  x{calls:<5} "
               f"({100 * secs / max(total, 1e-9):5.1f}%)", file=out)
+    for key, text in _PROFILE.notes.items():
+        print(f"#   ({key}: {text})", file=out)
     print(f"#   {'TOTAL(tracked)':<22} {total:8.3f}s", file=out)
