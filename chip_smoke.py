@@ -4011,7 +4011,7 @@ def rank_count(run, group, mesh, dev):
 
     res = distributed.sharded_count_distinct(
         run["files"], CountConfig(**run["cfg"]), mesh, group=group)
-    with stage("d2h", dev):
+    with stage("d2h", "cpu"):
         return {g: (c[: int(n)].cpu().numpy().view(np.uint64), None)
                 for g, c, n in res}
 
@@ -4040,7 +4040,7 @@ def rank_taxids(run, group, mesh, dev):
                                    np.int32(0))[mine]
     (res,) = sharded.build_sharded_taxids(
         rows, trows, cfg, mesh, {dev: upload_plan(plan, dev)}, group)
-    with stage("d2h", dev):
+    with stage("d2h", "cpu"):
         return {first + i: (c[: int(n)].cpu().numpy().view(np.uint64),
                             plan[1][t[: int(n)].cpu().numpy()])
                 for i, (c, t, n) in enumerate(res)}
@@ -4071,7 +4071,7 @@ def rank_unions(run, group, mesh, dev):
         res, total = sharded.sharded_union_counts(sa, sb, run["code_bits"],
                                                   group)
         res = [(c, None, n) for c, n in res]
-    with stage("d2h", dev):
+    with stage("d2h", "cpu"):
         out = {first + i: (c[: int(n)].cpu().numpy().view(np.uint64),
                            None if t is None
                            else t[: int(n)].cpu().numpy().astype(np.uint32))
@@ -4326,7 +4326,7 @@ def distributed_path(tmp, inputs: dict, dev) -> dict:
     def count_4_shards():
         res = distributed.sharded_count_distinct(
             files, CountConfig(**k23), make_mesh(devices=[dev] * DIST_SHARDS))
-        with stage("d2h", dev):
+        with stage("d2h", "cpu"):
             return np.concatenate([c[: int(n)].cpu().numpy().view(np.uint64)
                                    for _, c, n in res])
 

@@ -10,11 +10,13 @@ order of dispatches and fetches with recording stubs; the depth's
 parsing and defaults; and a numpy twin of the pass plan against the
 constant digits of the keys for every ``code_bits``.  Exact equality
 throughout.  The ``cuda`` cases hold the plan the card writes to the
-twin and run the dispatch under ``torch.cuda.set_sync_debug_mode``.
+twin, run the dispatch under ``torch.cuda.set_sync_debug_mode``, and
+read a recorded ``pack`` by the host's clock while the card runs.
 """
 
 import os
 import re
+import time
 from pathlib import Path
 
 import numpy as np
@@ -262,10 +264,10 @@ def test_pipeline_depth_matches_jax_parsing(monkeypatch):
 @pytest.mark.parametrize("how", ["record_stages", "profiler"])
 def test_recorded_stages_run_the_stream_at_depth_zero(records, monkeypatch,
                                                       how):
-    """A recorded stage synchronises the card at its edges, so under
-    record_stages() and the stream profiler the streams run at depth 0,
-    note it in the record (the profiler's report prints the note), and
-    count the same; unrecorded, nothing is noted."""
+    """A recorded stage waits on nothing (CUDA stages are timed by
+    events), so under record_stages() and the stream profiler the streams
+    keep their depth and count the same, the stages are recorded, and the
+    profiler's report keeps the JAX layout with no line of its own."""
     monkeypatch.setenv("UNIKMER_TPU_PIPELINE_DEPTH", "2")
     cfg = port_count.CountConfig(k=11, canonical=True)
     seen = []
@@ -277,17 +279,18 @@ def test_recorded_stages_run_the_stream_at_depth_zero(records, monkeypatch,
 
     monkeypatch.setattr(port_count, "_GroupedCounter", spy)
     plain = port_count.count_stream(iter(records), cfg, CHUNK, CPU)
-    assert seen == [2] and not stages.recording()
+    assert seen == [2] and stages.stage("x", CPU) is stages._NULL
     if how == "record_stages":
         with stages.record_stages() as st:
             got = port_count.count_stream(iter(records), cfg, CHUNK, CPU)
-        notes = st.notes
+        table = st.seconds
     else:
         monkeypatch.setenv("UNIKMER_TPU_PROFILE_STREAM", "1")
         stages.stream_profile_reset()
         try:
             got = port_count.count_stream(iter(records), cfg, CHUNK, CPU)
-            notes = dict(stages._PROFILE.notes)
+            table = {k: v for k, (v, _) in
+                     stages.stream_profile_table().items()}
             import io
 
             out = io.StringIO()
@@ -295,11 +298,11 @@ def test_recorded_stages_run_the_stream_at_depth_zero(records, monkeypatch,
         finally:
             stages.stream_profile_stop()
         lines = out.getvalue().splitlines()
-        assert "#   (pipeline depth: 0 (stages recorded; 2 unrecorded))" \
-            in lines
+        assert lines[0] == "# stream profile (exclusive wall per phase):"
         assert lines[-1].startswith("#   TOTAL(tracked)")
-    assert seen == [2, 0]
-    assert notes == {"pipeline depth": "0 (stages recorded; 2 unrecorded)"}
+        assert {ln.split()[1] for ln in lines[1:-1]} == set(table)
+    assert seen == [2, 2]
+    assert {"ingest", "k1", "sort", "collapse", "d2h"} <= set(table)
     np.testing.assert_array_equal(got, plain)
 
 
@@ -515,6 +518,42 @@ def test_dispatch_waits_on_nothing(cuda_device, records, config):
     for g, w in zip(got if config == "dual" else [got],
                     want if config == "dual" else [want]):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_pack_reads_its_host_seconds_while_the_card_runs(cuda_device,
+                                                         records,
+                                                         monkeypatch):
+    """At depth 2 the card still runs the pieces before while the host
+    packs the next, so a stage of host work reads the host clock: each
+    pack sleeps 20 ms on the host and each K1 queues about 50 ms of card
+    time behind it, and ``pack`` reads at least its 20 ms a piece (a pair
+    of CUDA events would read the card's few us between them)."""
+    monkeypatch.setenv("UNIKMER_TPU_PIPELINE_DEPTH", "2")
+    real_pack, real_k1 = port_count.pack_bases_2bit, port_count.encode_2bit
+
+    def pack(bases):
+        time.sleep(0.02)
+        return real_pack(bases)
+
+    def k1(*args):
+        out = real_k1(*args)
+        torch.cuda._sleep(100_000_000)
+        return out
+
+    monkeypatch.setattr(port_count, "pack_bases_2bit", pack)
+    monkeypatch.setattr(port_count, "encode_2bit", k1)
+    cfg = port_count.CountConfig(k=11, canonical=True)
+    want = port_count.count_stream(iter(records), cfg, CHUNK, CPU)
+    port_count.count_stream(iter(records), cfg, CHUNK, cuda_device)  # warm
+    with stages.record_stages() as st:
+        got = port_count.count_stream(iter(records), cfg, CHUNK,
+                                      cuda_device)
+    secs = st.seconds
+    assert st.calls["pack"] >= 4 and st.calls["k1"] == st.calls["pack"]
+    assert secs["pack"] >= 0.02 * st.calls["pack"]
+    assert secs["k1"] >= 0.02 * st.calls["k1"]  # the card's time, by events
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------

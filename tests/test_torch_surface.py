@@ -39,7 +39,7 @@ REASONS = {
             "knob is UNIKMER_TPU_TORCH_DEVICE)",
             "Leave out JAX process setup"),
     "pallas": ("a Pallas module with a CUDA counterpart",
-               "Queue 2: TPU kernels still to port"),
+               "every `pl.pallas_call` has a CUDA counterpart"),
 }
 
 # (JAX module, name) or ("env", knob) -> reason

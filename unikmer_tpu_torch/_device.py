@@ -29,10 +29,3 @@ def get_device(name: str | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}: use cuda or cpu")
     return dev
-
-
-def sync(device: torch.device | str) -> None:
-    """Wait for queued work on ``device`` (no-op on the CPU, where torch
-    is not imported for it)."""
-    if str(device).split(":")[0] == "cuda":
-        torch.cuda.synchronize(torch.device(device))

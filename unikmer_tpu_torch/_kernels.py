@@ -16,6 +16,9 @@ nothing and returns ``cudaGetLastError()``; :func:`check` turns a
 non-zero code into an exception.  Wrappers launch through a
 :class:`Kernel`, one per entry point, which binds its C function once and
 passes the raw current stream of the tensors' device.
+
+utils/stages.py counts the load's seconds (``kernels.load_s``: the
+build, the dlopen and the binding).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import threading
 from pathlib import Path
 
 from ._lazy import torch
+from .utils import stages
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -145,8 +149,9 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            _bind(lib)
+            with stages.timed("kernels.load_s"):
+                lib = ctypes.CDLL(str(build()))
+                _bind(lib)
             _lib = lib
         return _lib
 

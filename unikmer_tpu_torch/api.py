@@ -27,9 +27,17 @@ over the route's measured bytes a slot, or UNIKMER_TPU_MAX_ELEMS when
 set; none on the CPU).  Past it a set stays on the host and its
 operations take the host engine (ops/sets.py), as in the JAX package
 past its cap.
+
+Each public operation is a span of utils/stages.py (``KmerSet.<op>``), a
+root where no open span called it, recorded only while a profiler or a
+stage recorder listens.  The admission's free-bytes read is an ``admit``
+child and every read of a result's size a ``readback`` child
+(ops/device_sets.py).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -42,8 +50,27 @@ from .models.count import (
 from .ops import device_sets
 from .ops.codec import SENTINEL
 from .ops.sort import collapse_sorted
+from .utils import stages
 
 _SENT = np.uint64((1 << 64) - 1)
+
+
+def _op(fn):
+    """A KmerSet operation as the span ``KmerSet.<name>`` while spans
+    record."""
+    name = f"KmerSet.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def traced(*args, **kwargs):
+        with stages.stage(name):
+            return fn(*args, **kwargs)
+    return traced
+
+
+def _host_int(n) -> int:
+    """A result's size as an int: read back from the device (a wait)
+    when it is a tensor."""
+    return device_sets.read_back(n) if isinstance(n, torch.Tensor) else int(n)
 
 
 def _host_codes(codes) -> np.ndarray:
@@ -90,7 +117,7 @@ class KmerSet:
         # codes: int64 tensor (u64 bit patterns) padded with the
         # sentinel, or a numpy array for a set kept on the host
         self._codes = codes
-        self._n = int(n)
+        self._n = _host_int(n)
         self.k = int(k)
         self.canonical = bool(canonical)
         self.hashed = bool(hashed)
@@ -108,6 +135,7 @@ class KmerSet:
 
     # ------------------------------------------------------------ build
     @classmethod
+    @_op
     def from_codes(cls, codes, k, *, canonical=False, hashed=False, scale=1,
                    taxids=None, taxdb=None, assume_sorted_unique=False,
                    device=None):
@@ -158,7 +186,7 @@ class KmerSet:
             valid = torch.arange(cap, device=device) < len(codes)
             dev, n = collapse_sorted(dev, valid, mode="distinct",
                                      code_bits=bits)
-            n = int(n)
+            n = _host_int(n)
         dev_tax = None
         if taxids is not None:
             t = np.zeros(cap, np.uint32)
@@ -167,6 +195,7 @@ class KmerSet:
         return cls(dev, n, k, taxids=dev_tax, **flags)
 
     @classmethod
+    @_op
     def from_fasta(cls, paths, k, *, canonical=False, hashed=False, scale=1,
                    minimizer_w=0, syncmer_s=0, circular=False,
                    mode="distinct", taxdb=None, mesh=None, device=None):
@@ -222,7 +251,7 @@ class KmerSet:
         if token[0] == "empty":
             return cls.from_codes(np.zeros(0, np.uint64), k, **flags)
         out, n = token[2], token[3]
-        return cls(out, int(n), k, **flags).compact()
+        return cls(out, n, k, **flags).compact()
 
     @classmethod
     def from_unik(cls, path, taxdb=None, device=None):
@@ -388,6 +417,7 @@ class KmerSet:
 
         return device_tables(taxdb, self.device)
 
+    @_op
     def union(self, other: "KmerSet") -> "KmerSet":
         """Union; colliding codes LCA-merge taxids when both sides carry
         them.  When only ONE side does, its taxids pass through (the
@@ -424,6 +454,7 @@ class KmerSet:
         return torch.zeros(self.capacity, dtype=torch.int32,
                            device=self.device)
 
+    @_op
     def intersect(self, other: "KmerSet") -> "KmerSet":
         """Intersection; matching codes LCA-merge their taxids when both
         sides carry them, and the present side passes through when only
@@ -456,6 +487,7 @@ class KmerSet:
         c, n = device_sets.intersect(self._codes, other._codes)
         return self._new(c, n)
 
+    @_op
     def subtract(self, other: "KmerSet") -> "KmerSet":
         """Difference; keeps this set's taxid column (diff keeps the
         query's taxids)."""
@@ -475,6 +507,7 @@ class KmerSet:
     __sub__ = subtract
 
     @staticmethod
+    @_op
     def union_all(sets) -> "KmerSet":
         """N-way union in one device pass (concatenation, one K2 sort and
         the collapse), cheaper than a chain of pairwise unions."""
@@ -502,6 +535,7 @@ class KmerSet:
         return first._new(c, n)
 
     @staticmethod
+    @_op
     def common(sets, threshold: int) -> "KmerSet":
         """Codes present in >= threshold of the given sets (`unikmer
         common`); a threshold <= 0 means all of them."""
@@ -532,6 +566,7 @@ class KmerSet:
         return first._new(c, n)
 
     # ------------------------------------------------------------ queries
+    @_op
     def contains(self, queries) -> np.ndarray:
         """Vectorized membership: a binary search on the device (numpy's
         searchsorted for a set kept on the host)."""
@@ -545,7 +580,7 @@ class KmerSet:
         qt = torch.from_numpy(np.array(q).view(np.int64)).to(self.device)
         # the sentinel pads capacity and is never a member
         _, hit = device_sets._lookup(self._codes, qt)
-        return (hit & (qt != SENTINEL)).cpu().numpy()
+        return device_sets.read_back(hit & (qt != SENTINEL)).numpy()
 
     # -------------------------------------------------- per-set transforms
     def _keep(self, keep) -> "KmerSet":
@@ -571,10 +606,12 @@ class KmerSet:
             return np.arange(self._n)
         return torch.arange(self.capacity, device=self.device)
 
+    @_op
     def head(self, n: int) -> "KmerSet":
         """First n codes (cmd/head semantics on a sorted set)."""
         return self._keep(self._index() < max(0, int(n)))
 
+    @_op
     def sample(self, start: int, window: int) -> "KmerSet":
         """Fixed-stride sampling: keep record j when j >= start and
         (j - start) % window == 0."""
@@ -583,6 +620,7 @@ class KmerSet:
         idx = self._index()
         return self._keep((idx >= start) & ((idx - start) % window == 0))
 
+    @_op
     def filter_low_complexity(self, penalty_s=3, penalty_d=1, threshold=15,
                               window=7, invert=False) -> "KmerSet":
         """Drop (or keep, with invert) low-complexity k-mers (the window
@@ -601,6 +639,7 @@ class KmerSet:
         return self._keep(keep.numpy() if self._on_host else keep)
 
     # ------------------------------------------------------- maintenance
+    @_op
     def compact(self) -> "KmerSet":
         """Capacity re-bucketed to the smallest padded length holding n
         (padded up with the sentinel where the set is shorter)."""

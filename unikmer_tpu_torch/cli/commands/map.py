@@ -217,7 +217,7 @@ class GenomeScan:
         from ...models.count import linear_codes_all
 
         n = len(bases)
-        with stage("map encode", self.device):
+        with stage("map encode", HOST):
             codes, pos = linear_codes_all(bases, self.cfg, device=self.device)
         with stage("map member", HOST):
             dense = np.full(n, SENT, np.uint64)
@@ -317,7 +317,7 @@ class GenomeScan:
         if host:
             return match, (np.zeros(len(match), bool) if term is None
                            else term), starts
-        with stage("map fetch", dev):
+        with stage("map fetch", HOST):
             match_np = match.cpu().numpy()
             term_np = (np.zeros(len(match_np), bool) if term is None
                        else term.cpu().numpy())

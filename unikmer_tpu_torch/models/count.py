@@ -19,9 +19,10 @@ event), and fetching it waits on that event alone, then copies the kept
 prefix to the host.  The streams keep UNIKMER_TPU_PIPELINE_DEPTH
 pieces dispatched ahead of the one they fetch (:func:`_pipeline_depth`:
 1 on CUDA, 0 on the CPU; :class:`_GroupedCounter`, and the in-flight
-queue of :func:`linear_codes_all`), as the JAX package's streams do.
-Recorded stages synchronize the card at their edges, so a stream whose
-stages are recorded runs at depth 0 and notes it in the record.
+queue of :func:`linear_codes_all`), as the JAX package's streams do,
+recorded or not: a recorded stage times the card by CUDA events and
+waits on nothing (utils/stages.py); the host's stages (``pack``, and
+``d2h``'s wait and copy) read the host clock.
 
 Sketch configs (-W minimizer, -S closed syncmer, ``--syncmer-impl
 compat``) encode a piece with H1 at scale 1 (the k-mers, and for
@@ -70,7 +71,6 @@ from ..ops.sort import (
 from ..taxonomy.lca import (
     collapse_keyed_taxids, compact_ids, device_lca_plan, upload_plan,
 )
-from ..utils import stages
 from ..utils.stages import (  # noqa: F401 (the JAX module's profiler API)
     stage, stream_profile_report, stream_profile_reset, stream_profile_table,
 )
@@ -214,7 +214,7 @@ def _encode_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device,
     K1 for 2-bit codes, H1 for hashed configs, H1 then S1 for sketches.
     The pinned host buffers of the copies go into ``keep``."""
     n = len(bases)
-    with stage("pack", device):
+    with stage("pack", _HOST):
         packed2, validmask = pack_bases_2bit(bases)
         # the 2-bit pack makes a separator an invalid base: the compat
         # rule reads the separators from a mask of their own
@@ -292,7 +292,7 @@ def _fetch_prefixes(outs, pending: _Pending, device: torch.device) -> list:
     wait on the piece's event alone, then copy each ``out[:n]`` (a copy
     on the CPU too, so that the sink holds no padded piece).  One count
     serves every output."""
-    with stage("d2h", device):
+    with stage("d2h", _HOST):
         counts = pending.wait()
         if len(counts) == 1:
             counts = counts * len(outs)
@@ -494,18 +494,6 @@ def _pipeline_depth(device=None) -> int:
     return 1 if get_device(device).type == "cuda" else 0
 
 
-def _stream_depth(device: torch.device) -> int:
-    """:func:`_pipeline_depth`, but 0 while stages are recorded (a
-    recorded stage synchronizes the card at its edges, so nothing could
-    overlap), noted in the record when that lowers it."""
-    depth = _pipeline_depth(device)
-    if depth and stages.recording():
-        stages.note("pipeline depth",
-                    f"0 (stages recorded; {depth} unrecorded)")
-        return 0
-    return depth
-
-
 class _GroupedCounter:
     """The streams' dispatch-ahead: each piece is dispatched, then the
     oldest pieces are fetched into ``sink`` while more than ``depth`` are
@@ -588,7 +576,7 @@ def count_stream_packed(packed_iter, cfg: CountConfig,
     if chunk_bases is None:
         chunk_bases = _stream_chunk_bases(device)
     sink = _PartialSink(cfg)
-    counter = _GroupedCounter(sink, _stream_depth(device), device)
+    counter = _GroupedCounter(sink, _pipeline_depth(device), device)
     distinct_cfg, repeated_cfg = _capped_cfgs(cfg)
     it = iter(packed_iter)
     while True:
@@ -644,7 +632,7 @@ def linear_codes_all(bases: np.ndarray, cfg: CountConfig,
     device = get_device(device)
     if len(bases) == 0:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    depth = _stream_depth(device)
+    depth = _pipeline_depth(device)
     parts_c, parts_p = [], []
     inflight: deque = deque()
 
@@ -776,7 +764,7 @@ def _pos_ctax(packed: PackedSeqs, rec_ctax: np.ndarray, off: int,
 
 def _fetch_taxids(out_c, out_t, n, closure, device):
     """Host (codes uint64, taxids uint32) of one mode's dense prefixes."""
-    with stage("d2h", device):
+    with stage("d2h", _HOST):
         n = int(n)
         codes = out_c[:n].cpu().numpy().view(np.uint64)
         ids = out_t[:n].cpu().numpy()

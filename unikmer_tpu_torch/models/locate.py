@@ -136,7 +136,7 @@ def build_genome_index(
 ) -> GenomeIndex:
     """Index every (canonical) window of the genomes."""
     device = get_device(device)
-    with stage("index read", device):
+    with stage("index read", "cpu"):
         kept = read_genome_records(genome_files, k, circular, name_filters)
         sequences = [seq for _, _, seq in kept]
         # one packed buffer, one encode for every window of every
@@ -187,7 +187,7 @@ def _device_index(bases: np.ndarray, starts: np.ndarray, cfg: CountConfig,
         st = torch.from_numpy(starts).to(device)
         seq_idx = torch.searchsorted(st, flat, right=True) - 1
         pos = flat - st[seq_idx]
-    with stage("index fetch", device):
+    with stage("index fetch", "cpu"):
         return (codes, seq_idx.to(torch.int32).cpu().numpy(),
                 pos.cpu().numpy())
 

@@ -13,6 +13,9 @@ those go through Python's readers and zlib.
 This is host code, not a device kernel.  Every entry point has a numpy
 branch: the functions return None (or take the numpy path) when g++ is
 missing, the build fails, or ``UNIKMER_TPU_NO_NATIVE=1``.
+
+utils/stages.py counts the load's seconds (``native.load_s``: the
+compiler probes, the build and the dlopen).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import stages
 
 SOURCE = Path(__file__).resolve().parent / "host_native.cpp"
 BUILD_DIR = SOURCE.parents[2] / "build" / "unikmer_tpu_torch"
@@ -80,11 +85,12 @@ def get_lib():
     with _lock:
         if _lib is None:
             _lib = False
-            path = _build()
-            if path is not None:
-                lib = ctypes.CDLL(str(path))
-                _bind(lib)
-                _lib = lib
+            with stages.timed("native.load_s"):
+                path = _build()
+                if path is not None:
+                    lib = ctypes.CDLL(str(path))
+                    _bind(lib)
+                    _lib = lib
         return _lib or None
 
 

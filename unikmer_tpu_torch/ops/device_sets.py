@@ -42,6 +42,7 @@ import numpy as np
 
 from .._device import get_device
 from .._lazy import torch
+from ..utils import stages
 from ..taxonomy.lca import (
     collapse_keyed_taxids, compact_ids, device_lca_plan, lca_collapse_device,
     lca_pairs_device, upload_plan,
@@ -98,13 +99,23 @@ ADMIT_SHARE = 0.8
 def _device_free_bytes(device) -> int | None:
     """The bytes ``device`` can still give: torch.cuda.mem_get_info's
     free bytes plus what torch's caching allocator holds reserved and
-    unused; None on the CPU, which has no budget."""
+    unused; None on the CPU, which has no budget.  The read is an
+    ``admit`` span."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    free, _ = torch.cuda.mem_get_info(device)
-    return (free + torch.cuda.memory_reserved(device)
-            - torch.cuda.memory_allocated(device))
+    with stages.stage("admit"):
+        free, _ = torch.cuda.mem_get_info(device)
+        return (free + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
+
+
+def read_back(t: torch.Tensor):
+    """A device value on the host, the one wait of a set operation: a
+    Python int for a 0-dim tensor (a result's size), else a CPU tensor.
+    The read is a ``readback`` span."""
+    with stages.stage("readback"):
+        return int(t) if t.dim() == 0 else t.cpu()
 
 
 def element_budget(route: str, device, columns: int = 0,
@@ -371,6 +382,6 @@ def union_taxids_device(code_arrays, taxid_arrays, taxdb,
     ctax = torch.from_numpy(compact_ids(closure, all_tax)).to(device)
     out_c, out_t, n = union_taxids_compact(_to_device(codes, device), ctax,
                                            tab, kind, code_bits)
-    n = int(n)
+    n = read_back(n)
     return (out_c[:n].cpu().numpy().view(np.uint64).copy(),
             closure[out_t[:n].cpu().numpy().astype(np.int64)])

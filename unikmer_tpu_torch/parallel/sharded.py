@@ -366,7 +366,7 @@ def _build(bases: np.ndarray, cfg: CountConfig, mesh: Mesh,
     front, back = shard_halos(cfg)
     rows = pack_host_shards(bases, len(mesh), cfg.k, front, back)
     outs = build_sharded_distinct(rows, cfg, mesh, modes=modes)
-    with stage("d2h", mesh[0]):
+    with stage("d2h", "cpu"):
         return [_collect_sharded([o for o, _ in r], [n for _, n in r])
                 for r in outs]
 
@@ -470,7 +470,7 @@ def _taxid_build(bases: np.ndarray, pos_ctax: np.ndarray, cfg: CountConfig,
                                     modes=modes)
     closure = plans[mesh[0]][1]
     out = []
-    with stage("d2h", mesh[0]):
+    with stage("d2h", "cpu"):
         for res in per_mode:
             codes, ids = _collect_sharded_taxids(*zip(*res))
             out.append((codes, closure[ids].astype(np.uint32)))
@@ -679,7 +679,7 @@ def mesh_set_op(op: str, code_arrays: list, mesh=None, code_bits: int = 64,
         thr = 1 if op == "union" else nf if op == "inter" else int(threshold)
         res = sharded_common(_upload(mesh, np.stack(parts, axis=1)), thr,
                              code_bits)
-    with stage("d2h", mesh[0]):
+    with stage("d2h", "cpu"):
         out = _collect_sharded([c for c, _ in res], [n for _, n in res])
     return np.concatenate([out, *tail])
 
@@ -756,7 +756,7 @@ def mesh_set_op_taxids(op: str, code_arrays: list, taxid_arrays: list,
             _upload(mesh, np.stack([t for _, t in parts], axis=1)
                     .view(np.int32), np.int32),
             [tabs[dev] for dev in mesh], kind, thr, code_bits)
-    with stage("d2h", mesh[0]):
+    with stage("d2h", "cpu"):
         codes, ids = _collect_sharded_taxids(
             [c for c, _, _ in res], [t for _, t, _ in res],
             [n for _, _, n in res])
