@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels (K1 encode, H1 ntHash encode, S1 sketch
-window select, K2 radix sort, K3 key+value radix sort, and the four P1/P2
-probe kernels) from unikmer_tpu_torch/csrc, holds each against its plain
+window select, K2 radix sort, K3 key+value radix sort, C1 collapse and
+compaction, and the four P1/P2 probe kernels) from unikmer_tpu_torch/csrc, holds each against its plain
 PyTorch version on the card (exact equality), then drives the port's
 paths (count, the set operations, the file and genome commands) and
 holds their results against oracles:
@@ -790,6 +790,91 @@ def check_k3(dev, rng):
     return sort_result(err, times)
 
 
+def c1_inputs(rng, n: int):
+    """(sorted keys, mask) shaped like the main path's union_all of m
+    genome sets: 60% of the slots members (each code about 8 times, as
+    clades share their core), the rest the sentinel padding; a mask that
+    keeps half the slots (an intersect's hits)."""
+    m = int(n * 0.6)
+    keys = np.full(n, SENT)
+    keys[:m] = np.sort(rng.integers(0, 1 << 46, size=m // 8 + 1,
+                                    dtype=np.uint64)[
+        rng.integers(0, m // 8 + 1, size=m)])
+    return keys, rng.random(n) < 0.5
+
+
+def check_c1(dev, rng):
+    """C1 held to its plain version at lengths around a tile and past a
+    look-back window, in every mode; then timed at 2^25 slots (distinct,
+    as union_all runs it; the threshold of common at 58 of 64 sets and
+    the mask with an int32 aux column beside it)."""
+    from unikmer_tpu_torch import _kernels
+    from unikmer_tpu_torch.ops.collapse import collapse_pass, collapse_plain
+
+    tile = _kernels.load().ukt_collapse_tile()
+    ns = (0, 1, tile - 1, tile, tile + 1, 40 * tile + 3, (1 << 20) + 3)
+    cases = 0
+    for n in ns:
+        keys, mask = c1_inputs(rng, n)
+        x = torch.from_numpy(keys.view(np.int64)).to(dev)
+        m = torch.from_numpy(mask).to(dev)
+        aux = torch.from_numpy(rng.integers(0, 1 << 31, size=n).astype(
+            np.int32)).to(dev)
+        nsr = torch.tensor(min(n, 1), device=dev)  # at most n real codes
+        for mode, kw in (("distinct", {}), ("unique", {}), ("repeated", {}),
+                         ("distinct", dict(n_sent_real=nsr)),
+                         ("threshold", dict(threshold=3)),
+                         ("threshold", dict(threshold=tile + 1)),
+                         ("mask", dict(mask=m)),
+                         ("mask", dict(mask=m, aux=aux))):
+            got = collapse_pass(x, mode, **kw)
+            want = collapse_plain(x, mode, **kw)
+            torch.cuda.synchronize()
+            cases += 1
+            if not (torch.equal(got[0], want[0]) and int(got[2]) == int(
+                    want[2]) and (got[1] is None or torch.equal(got[1],
+                                                                want[1]))):
+                raise SystemExit(f"C1 mismatch: n={n} mode={mode} {kw}")
+    n = 1 << 25
+    keys, mask = c1_inputs(rng, n)
+    x = torch.from_numpy(keys.view(np.int64)).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    aux = torch.from_numpy(rng.integers(0, 1 << 31, size=n).astype(
+        np.int32)).to(dev)
+    fns = {"distinct": lambda: collapse_pass(x, "distinct"),
+           "threshold 58": lambda: collapse_pass(x, "threshold",
+                                                 threshold=58),
+           "mask with int32 aux": lambda: collapse_pass(x, "mask", mask=m,
+                                                        aux=aux)}
+    t = turns_ms(fns)
+    dms = {name: device_ms(fn, "collapse_") for name, fn in fns.items()}
+    plain_ms = cuda_ms(lambda: collapse_plain(x, "distinct"))
+    # the keys read once and the output (kept keys, then the tail)
+    # written once; the mask adds 1 B a slot and the aux 8 B (read and
+    # written)
+    bound = bytes_ms(16 * n)
+    bounds = {"distinct": bound, "threshold 58": bound,
+              "mask with int32 aux": bytes_ms(25 * n)}
+    say(f"C1 collapse_pass: exact on {cases} cases (n in {ns}); n=2^25, in "
+        "turns: " + "; ".join(
+            f"{name} {t[name]['median']} ms (spread {t[name]['spread']}, "
+            f"device {dms[name]}, bound {bounds[name]} ms, "
+            f"{bounds[name] / dms[name]:.1%} of it by device time)"
+            if dms[name] else f"{name} {t[name]['median']} ms"
+            for name in fns)
+        + f"; plain distinct {plain_ms} ms")
+    return dict(max_abs_err=0.0, ms=t["distinct"]["median"],
+                ms_spread=t["distinct"]["spread"],
+                device_ms=dms["distinct"], plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None,
+                lengths_held=list(ns),
+                modes={name: dict(ms=t[name]["median"],
+                                  ms_spread=t[name]["spread"],
+                                  device_ms=dms[name],
+                                  bound_ms=bounds[name])
+                       for name in fns if name != "distinct"})
+
+
 # ---------------------------------------------------------------------------
 # main path through the CLI, held against an oracle
 
@@ -1134,6 +1219,7 @@ def run_cli(argv):
 def encode_wrappers() -> dict:
     """The count path's encode and sort wrappers by kernel key."""
     from unikmer_tpu_torch.ops.encode import encode_2bit
+    from unikmer_tpu_torch.ops.collapse import collapse_pass
     from unikmer_tpu_torch.ops.nthash import encode_nthash
     from unikmer_tpu_torch.ops.radix_sort import (
         radix_sort_kv_u64, radix_sort_u64,
@@ -5065,6 +5151,7 @@ def host_costs(dev, rng) -> dict:
     from unikmer_tpu_torch.models.count import pack_bases_2bit
     from unikmer_tpu_torch.ops import probes
     from unikmer_tpu_torch.ops.encode import encode_2bit
+    from unikmer_tpu_torch.ops.collapse import collapse_pass
     from unikmer_tpu_torch.ops.nthash import encode_nthash
     from unikmer_tpu_torch.ops.radix_sort import (
         radix_sort_kv_u64, radix_sort_u64,
@@ -5077,6 +5164,7 @@ def host_costs(dev, rng) -> dict:
     keys = torch.from_numpy(rng.integers(0, 1 << 46, size=n, dtype=np.uint64)
                             .view(np.int64)).to(dev)
     vals = u32_tensor(rng, (n,), dev)
+    sorted_keys = torch.sort(keys).values
     small = u32_tensor(rng, (32, 128), dev)
     kk, kv = encode_nthash(p2, vm, n, SKETCH_K, True)
     _, blk = entry.probe_inputs(dev)
@@ -5088,6 +5176,7 @@ def host_costs(dev, rng) -> dict:
         "s1": lambda: sketch_select("minimizer", kk, SKETCH_W, kv),
         "k2": lambda: radix_sort_u64(keys, 46),
         "k3": lambda: radix_sort_kv_u64(keys, vals, 46),
+        "c1": lambda: collapse_pass(sorted_keys, "distinct"),
         "P1a": lambda: probes.copy_inc_u32(small),
         "P1b": lambda: probes.row_cmpex_u32(small, ds),
         "P1c": lambda: probes.transpose128_u32(blk),
@@ -5133,6 +5222,10 @@ KERNELS = (  # (key, name, source, the TPU kernel it replaces, also)
      "unikmer_tpu/ops/pallas_sort.py:235", []),
     ("k3", "K3 radix_sort_kv_u64", "unikmer_tpu_torch/csrc/radix_sort.cu",
      "unikmer_tpu/ops/pallas_sort.py:399", []),
+    ("c1", "C1 collapse_pass", "unikmer_tpu_torch/csrc/collapse.cu",
+     "unikmer_tpu/ops/sort.py:189-217 compact_sorted/compact_aux (XLA, no "
+     "Pallas kernel)",
+     ["unikmer_tpu/ops/sort.py:220-272", "unikmer_tpu/ops/device_sets.py:72-86"]),
     ("P1a", "P1a copy_inc_u32", "unikmer_tpu_torch/csrc/probes.cu",
      "scripts/exp_pallas_dma.py:54", ["scripts/exp_pallas_dma2.py:49"]),
     ("P1b", "P1b+P2a row_cmpex_u32", "unikmer_tpu_torch/csrc/probes.cu",
@@ -5189,6 +5282,7 @@ def main() -> int:
         "k1": check_k1(dev, rng, kv.using(pr5[kv.EARLIER_K1], encode_2bit)),
         "h1": check_h1(dev, rng), "s1": check_s1(dev, rng),
         "k2": check_k2(dev, rng), "k3": check_k3(dev, rng),
+        "c1": check_c1(dev, rng),
         **check_probes(dev, rng,
                        kv.using(pr5[kv.EARLIER_ROW_CMPEX], row_cmpex_u32))}
     from unikmer_tpu_torch import probes as entry
@@ -5196,6 +5290,9 @@ def main() -> int:
     launch_breakdown(entry.probe_inputs(dev)[1])
     for key, us in host_costs(dev, rng).items():
         results[key]["host_us"] = us
+    from unikmer_tpu_torch.ops.collapse import collapse_pass
+
+    collapse_pass.launches = 0  # C1's launches from here: the phases'
     report = SetsReport()
     with tempfile.TemporaryDirectory(prefix="unikmer-torch-smoke-") as tmp:
         t0 = time.perf_counter()
@@ -5266,6 +5363,9 @@ def main() -> int:
     for key, n in pipeline.items():
         launches[key] += n
     launches.update(probe_path())
+    # C1's launches in this process's phases (fresh processes are not
+    # counted)
+    launches["c1"] = collapse_pass.launches
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          **({"also_replaces": also} if also else {}),

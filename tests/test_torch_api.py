@@ -349,6 +349,67 @@ def test_kmerset_on_card_matches_cpu(taxdbs):
                 assert got[key].capacity == want[key].capacity
 
 
+def card_sets(rng, n, dev):
+    """Three overlapping device sets of about n codes each (slot_bytes.py's
+    shape: half of a in b, parts of a and b in c)."""
+    def codes(m):
+        return np.unique(rng.integers(0, 1 << 46, size=m, dtype=np.uint64))
+
+    a = codes(n)
+    b = np.unique(np.concatenate([a[: len(a) // 2], codes(n // 2)]))
+    c = np.unique(np.concatenate([a[len(a) // 4: len(a) // 2],
+                                  b[-len(b) // 4:], codes(n // 2)]))
+    return [PK.from_codes(x, 23, canonical=True, assume_sorted_unique=True,
+                          device=dev) for x in (a, b, c)]
+
+
+@pytest.mark.cuda
+def test_set_ops_on_card_launch_c1_and_no_plain_compaction():
+    """Profiled on the card, union_all, common, intersect and subtract
+    collapse and compact by C1 alone: no scatter, no library scan
+    (DeviceScan, cumsum) and no arange kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b, c = card_sets(np.random.default_rng(23), 1 << 20, "cuda")
+    ops = {"union_all": lambda: PK.union_all([a, b, c]),
+           "common": lambda: PK.common([a, b, c], 2),
+           "intersect": lambda: a & b, "subtract": lambda: a - b}
+    for name, op in ops.items():
+        op()  # warm: the libraries load
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            op()
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if (getattr(e, "device_time_total", None)
+                       or getattr(e, "cuda_time_total", 0.0))]
+        assert any("collapse_tile" in k for k in kernels), (name, kernels)
+        bad = [k for k in kernels if any(
+            w in k for w in ("scatter", "DeviceScan", "cumsum",
+                             "elementwise_kernel_with_index"))]
+        assert not bad, (name, bad)
+
+
+@pytest.mark.cuda
+def test_union_all_and_common_stay_under_their_slot_bytes():
+    """The peak device bytes a slot of union_all and common, measured as
+    slot_bytes.py measures them, stay under their SLOT_BYTES."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from unikmer_tpu_torch.ops.device_sets import SLOT_BYTES
+    from unikmer_tpu_torch.slot_bytes import peak_above
+
+    sets = card_sets(np.random.default_rng(24), 1 << 24, "cuda")
+    slots = {"union_all": sum(s.capacity for s in sets),
+             "common": len(sets) * max(s.capacity for s in sets)}
+    peaks = {"union_all": peak_above(lambda: PK.union_all(sets)),
+             "common": peak_above(lambda: PK.common(sets, 2))}
+    for route, peak in peaks.items():
+        assert peak / slots[route] <= SLOT_BYTES[route], (route, peak)
+
+
 # ---------------------------------------------------------------------
 # admission: past a route's element budget the host route
 

@@ -127,6 +127,26 @@ def test_common_matches_jax(threshold):
                                   u[counts >= threshold])
 
 
+@pytest.mark.parametrize("cap", [1, 37, CAP + 1])
+@pytest.mark.parametrize("threshold", [1, 2, 4, 9])
+def test_c1_common_rule_matches_jax(threshold, cap):
+    """common's run rule on C1's CPU twin (slot i + t - 1 holds the run's
+    code) against the JAX package's run bounds, at F = 4 sets: one slot
+    each, a few dozen, and just past a C1 tile (runs across its edge),
+    thresholds 1, 2, F and past every run's length."""
+    rng = np.random.default_rng([threshold, cap])
+    base = rng.integers(0, 1 << 40, size=cap, dtype=np.uint64)
+    sets = [np.unique(np.where(rng.random(cap) < 0.7, base, rng.integers(
+        0, 1 << 40, size=cap, dtype=np.uint64)))[: cap - (i == 3)]
+            for i in range(4)]
+    stacked = np.stack([padded(x, cap) for x in sets])
+    got = pds.common(t64(stacked.reshape(-1)).view(4, cap), threshold, 40)
+    assert_same(got, jds.common(stacked, threshold, code_bits=40))
+    u, counts = np.unique(np.concatenate(sets), return_counts=True)
+    np.testing.assert_array_equal(u64(got[0])[: int(got[1])],
+                                  u[counts >= threshold])
+
+
 @pytest.mark.parametrize("n", [1, 8, 13, 4099])
 def test_member_bits_bytes_match_jax(n):
     rng = np.random.default_rng(n)

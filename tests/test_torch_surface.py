@@ -222,7 +222,9 @@ COUNTERPARTS = {
     ("ops/nthash.py", "_base_seed_arrays"): ("ops/nthash.py", "_SEEDS_FWD"),
     ("ops/nthash.py", "_shift_up"): ("ops/codec.py", "_shift_up"),
     ("ops/sketch.py", "_U64_MAX"): ("ops/sketch.py", "U64_MAX"),
-    ("ops/sort.py", "_run_bounds"): ("ops/sort.py", "_run_edges"),
+    # C1 (ops/collapse.py) does the compaction and the run rules
+    ("ops/sort.py", "_compact"): ("ops/collapse.py", "collapse_pass"),
+    ("ops/sort.py", "_run_bounds"): ("ops/collapse.py", "run_edges"),
     ("taxonomy/lca.py", "lca_collapse_compact"):
         ("taxonomy/lca.py", "collapse_keyed_taxids"),
     ("taxonomy/lca.py", "lca_collapse_paths"):

@@ -104,8 +104,8 @@ def test_each_operation_records_one_root_span(fresh, sets, op):
     names = [s["name"] for s in spans]
     assert "admit" not in names
     assert "readback" in names and "KmerSet.compact" in names
-    # ops/sort.py's stages: union_all sorts and collapses there, common
-    # sorts by ops/device_sets.common
+    # union_all sorts and collapses in ops/device_sets.union_many's
+    # stages; common sorts by ops/device_sets.common, unstaged
     assert ({"sort", "collapse"} <= set(names)) == (op == "union_all")
     np.testing.assert_array_equal(got.to_numpy(), WANT[op](
         [s.to_numpy() for s in sets]))
@@ -177,7 +177,7 @@ def test_recorder_takes_spans_and_stage_seconds(fresh, sets):
     names = {s["name"] for s in stages.snapshot()["spans"]}
     assert {"KmerSet.union_all", "readback", "sort", "collapse"} <= names
     assert set(st.seconds) == {"sort", "collapse"}
-    assert st.calls["collapse"] == 2 and st.calls["sort"] == 1
+    assert st.calls["collapse"] == 1 and st.calls["sort"] == 1
 
 
 def test_spans_sit_on_the_chrome_trace_clock(fresh, sets, tmp_path):

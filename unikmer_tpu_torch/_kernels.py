@@ -133,6 +133,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ukt_radix_onesweep.restype = i32
     lib.ukt_radix_onesweep.argtypes = [p, p, p, p, p, p, i64, i32, i32, p, p,
                                        p, i64, p]
+    lib.ukt_collapse_tile.restype = i32
+    lib.ukt_collapse_tile.argtypes = []
+    lib.ukt_collapse.restype = i32
+    lib.ukt_collapse.argtypes = [p, p, p, i32, i64, i32, i64, p, p, p, p, p,
+                                 i64, p]
     lib.ukt_copy_inc_u32.restype = i32
     lib.ukt_copy_inc_u32.argtypes = [p, p, i64, p]
     lib.ukt_row_cmpex_u32.restype = i32

@@ -529,9 +529,8 @@ class KmerSet:
 
             c, _ = host_sets.union([s.to_numpy() for s in sets])
             return first._from_host(c, None)
-        merged = torch.cat([s._codes for s in sets])
-        c, n = collapse_sorted(merged, merged != SENTINEL, mode="distinct",
-                               code_bits=first._code_bits)
+        c, n = device_sets.union_many([s._codes for s in sets],
+                                      first._code_bits)
         return first._new(c, n)
 
     @staticmethod

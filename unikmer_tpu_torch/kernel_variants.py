@@ -1,4 +1,4 @@
-"""K1, S1 and probe-kernel design variants, built side by side and timed on one card.
+"""K1, S1, C1 and probe-kernel design variants, built side by side and timed on one card.
 
     python -m unikmer_tpu_torch.kernel_variants [KERNEL ...]
 
@@ -12,7 +12,7 @@ launch it.  Every exact variant is held to the plain versions; then each
 workload is timed in turns (CUDA events; the order reversed every other
 round) and by torch.profiler (device ms a call, and the kernels a
 row_cmpex_u32 call launches, from its ``.kernels`` count).  KERNEL picks
-among K1, P1a, P1b, P1c, S1 (default: all).  Prints ptxas's registers for
+among K1, P1a, P1b, P1c, S1, C1 (default: all).  Prints ptxas's registers for
 the sources as built, then one JSON line a workload; needs a CUDA device
 and nvcc, and raises on any mismatch.  ``chip_smoke.py`` builds the
 earlier designs through :func:`build`.
@@ -162,6 +162,21 @@ VARIANTS = {
     "S1 stage slots unpadded (bank conflicts)": (
         "S1", "sketch.cu",
         [("return R > 1 ? s + s / R : s;", "return s;")], None, True),
+    "C1 the sentinel tail by a memset ahead": (
+        "C1", "collapse.cu",
+        [("  const int aligned = reinterpret_cast<uintptr_t>(keys) % 16 == 0;",
+          "  err = cudaMemsetAsync(keys_out, 0xff, n * sizeof(u64), stream);\n"
+          "  if (err != cudaSuccess) return static_cast<int>(err);\n"
+          "  if (kAuxBytes != 0)\n"
+          "    err = cudaMemsetAsync(aux_out, 0, n * kAuxBytes, stream);\n"
+          "  if (err != cudaSuccess) return static_cast<int>(err);\n"
+          "  const int aligned = reinterpret_cast<uintptr_t>(keys) % 16 == 0;"),
+         ("  collapse_fill<kAuxBytes>\n      <<<",
+          "  if (false) collapse_fill<kAuxBytes>\n      <<<")], None, True),
+    "C1 8-byte loads": (
+        "C1", "collapse.cu",
+        [("const int aligned = reinterpret_cast<uintptr_t>(keys) % 16 == 0;",
+          "const int aligned = 0;")], None, True),
 }
 TURNS = 20  # rounds of timings in turns
 P2A_BIG_ROWS = 1 << 16  # P2a's 64 stages over 16 row bits
@@ -222,7 +237,8 @@ def using(lib: ctypes.CDLL, fn):
     return call
 
 
-def ptxas_report(sources=("encode.cu", "probes.cu", "sketch.cu")) -> list[str]:
+def ptxas_report(sources=("encode.cu", "probes.cu", "sketch.cu",
+                         "collapse.cu")) -> list[str]:
     """ptxas's registers line of every kernel of the sources as built."""
     out = _kernels.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -329,7 +345,7 @@ def workloads(dev, rng) -> dict:
     """kernel -> its Workloads."""
     from . import probes as entry
     from .models.count import pack_bases_2bit
-    from .ops import encode, nthash, probes, sketch
+    from .ops import collapse, encode, nthash, probes, sketch
 
     x1, blk = entry.probe_inputs(dev)
     n = (1 << 25) + 3
@@ -349,6 +365,30 @@ def workloads(dev, rng) -> dict:
         for args in (("minimizer", kk[:m], w, kv[:m], None, mh),
                      ("syncmer", sk[:m], w, kv[:m], kk[:m], mh),
                      ("argmin", sk[:m], w))]
+    keys = np.sort(rng.integers(0, 1 << 46, size=n // 8, dtype=np.uint64)[
+        rng.integers(0, n // 8, size=n)])
+    keys[int(n * 0.6):] = np.uint64((1 << 64) - 1)  # union_all's padding
+    ck = torch.from_numpy(keys.view(np.int64)).to(dev)
+    cm = torch.rand(n, device=dev) < 0.5
+    caux = _u32(rng, (n,), dev)
+
+    def c1(keys, mode, threshold=1, mask=None, aux=None):
+        return collapse.collapse_pass(keys, mode, threshold=threshold,
+                                      mask=mask, aux=aux)
+
+    def c1_plain(keys, mode, threshold=1, mask=None, aux=None):
+        return collapse.collapse_plain(keys, mode, threshold=threshold,
+                                       mask=mask, aux=aux)
+
+    c1_work = {"distinct (union_all)": (ck, "distinct"),
+               "threshold 58 (common)": (ck, "threshold", 58),
+               "mask, int32 aux (a taxid intersect)": (ck, "mask", 1, cm,
+                                                       caux)}
+    c1_holds = [(ck[:m], mode, t, cm[:m] if mode == "mask" else None,
+                 caux[:m]) for m in (1, 4097, 70001)
+                for mode, t in (("distinct", 1), ("unique", 1),
+                                ("repeated", 1), ("threshold", 3),
+                                ("mask", 1))]
     rows = {"p1b": (blk, probes.p1b_distances(entry.ROWS)),
             **{f"p2a_{s}": (blk, probes.p2a_distances(s, entry.ROWS))
                for s in entry.P2A_STAGES},
@@ -376,7 +416,10 @@ def workloads(dev, rng) -> dict:
         "S1": [Workload(
             f"n=2^25+3 {name}", lambda f, m=m, a=a: f(m, *a),
             sketch.sketch_select, sketch.sketch_select_plain, "sketch_select",
-            s1_holds) for name, (m, a) in s1.items()]}
+            s1_holds) for name, (m, a) in s1.items()],
+        "C1": [Workload(
+            f"n=2^25 {name}", lambda f, a=a: f(*a), c1, c1_plain, "collapse_",
+            c1_holds) for name, a in c1_work.items()]}
 
 
 def smi(when: str) -> None:
@@ -398,7 +441,7 @@ def main(argv=None) -> int:
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 2
     kernels = list(argv if argv is not None else sys.argv[1:]) or [
-        "K1", "P1a", "P1b", "P1c", "S1"]
+        "K1", "P1a", "P1b", "P1c", "S1", "C1"]
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(20261016)
     _kernels.load()

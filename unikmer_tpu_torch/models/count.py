@@ -65,9 +65,8 @@ from ..ops.sketch import (
     compat_gap, minimizer_windows, sketch_select, syncmer_compat_select,
     syncmer_compat_windows, syncmer_windows, unpack_bits,
 )
-from ..ops.sort import (
-    _compact, collapse_dual_keyed, collapse_keyed, collapse_sorted,
-)
+from ..ops.collapse import collapse_pass
+from ..ops.sort import collapse_dual_keyed, collapse_keyed, collapse_sorted
 from ..taxonomy.lca import (
     collapse_keyed_taxids, compact_ids, device_lca_plan, upload_plan,
 )
@@ -692,16 +691,17 @@ def _linear_segments(bases: np.ndarray, cfg: CountConfig,
 def _linear_piece(bases: np.ndarray, cfg: CountConfig, device: torch.device,
                   limit: int, off: int = 0):
     """Dispatch one piece of :func:`linear_codes_all`: (codes, positions,
-    pending), the valid windows starting before ``limit`` compacted (scan
-    and scatter, their count kept on the device) to dense prefixes,
-    positions counted from ``off``; nothing waits on the card."""
+    pending), the valid windows starting before ``limit`` compacted (one
+    C1 pass, their count kept on the device) to dense prefixes, positions
+    counted from ``off``; nothing waits on the card."""
     keep: list = []
     keyed, valid = _encode_piece(bases, cfg, device, keep)
     with stage("collapse", device):
         kept = valid[:limit]
         pos = torch.arange(off, off + kept.shape[0], device=device)
-        return (_compact(keyed[:limit], kept), _compact(pos, kept, 0),
-                _Pending(device, [kept.sum(dtype=torch.int64)], keep))
+        codes, pos, n = collapse_pass(keyed[:limit], "mask", mask=kept,
+                                      aux=pos)
+        return codes, pos, _Pending(device, [n], keep)
 
 
 def count_linear(packed: PackedSeqs, cfg: CountConfig,
@@ -740,8 +740,7 @@ def count_taxids_step(keyed: torch.Tensor, valid: torch.Tensor,
                 keep = first & (run_valid > 1)
             else:
                 raise ValueError(f"unknown mode: {mode}")
-            out.append((_compact(s_codes, keep), _compact(tax, keep, 0),
-                        keep.sum(dtype=torch.int64)))
+            out.append(collapse_pass(s_codes, "mask", mask=keep, aux=tax))
     return out
 
 

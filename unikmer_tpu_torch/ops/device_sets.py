@@ -11,7 +11,8 @@ int64 tensor (no host sync).  A member equal to the sentinel is not
 supported here: it reads as padding, as in the JAX package.
 
 - :func:`union` and :func:`common` sort the concatenation with K2
-  (ops/sort._sort_u64) and keep the first slot of each run;
+  (ops/sort._sort_u64) and keep the first slot of each run (of at least
+  ``threshold`` slots for ``common``) by C1 (ops/collapse.py);
 - membership (:func:`intersect`, :func:`subtract`, :func:`member_bits`
   and the taxid variants) is a binary search, ``torch.searchsorted``,
   over the codes with the sign bit flipped (unsigned order read as
@@ -20,8 +21,9 @@ supported here: it reads as padding, as in the JAX package.
 - the taxid unions merge runs by LCA: :func:`union_with_taxids` by the
   tree walk of taxonomy/lca.py, :func:`union_taxids_compact` by the
   compact-id collapse whose sort is K3;
-- compaction is a scan plus a scatter (ops/sort._compact), not the JAX
-  package's sort-based ``compact_sorted``/``compact_aux``.
+- every compaction, of a run rule or of a mask with or without a taxid
+  column, is C1's one pass, not the JAX package's sort-based
+  ``compact_sorted``/``compact_aux``.
 
 Admission: every host entry here and in api.py compares the slots a
 route will hold with :func:`element_budget` (UNIKMER_TPU_MAX_ELEMS when
@@ -48,7 +50,8 @@ from ..taxonomy.lca import (
     lca_pairs_device, upload_plan,
 )
 from .codec import SENTINEL, SIGN
-from .sort import _compact, _sort_u64
+from .collapse import collapse_pass
+from .sort import _sort_u64
 
 SENT = np.uint64((1 << 64) - 1)  # CODE_SENTINEL as numpy sees it
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -153,15 +156,28 @@ def _lookup(ref: torch.Tensor, q: torch.Tensor):
 
 
 def _compact_mask(values: torch.Tensor, keep: torch.Tensor):
-    return _compact(values, keep), keep.sum(dtype=torch.int64)
+    """(values where keep, compacted; n) by C1."""
+    out, _, n = collapse_pass(values, "mask", mask=keep)
+    return out, n
 
 
 def union(a: torch.Tensor, b: torch.Tensor, code_bits: int = 64):
     """Union of two padded sorted sets -> (codes, n) with capacity
     len(a) + len(b).  ``code_bits`` bounds the members (sentinel padding
     aside), so K2 runs only the passes that width needs."""
-    merged = _sort_u64(torch.cat([a, b]), code_bits)
-    return _compact_mask(merged, _first(merged) & (merged != SENTINEL))
+    return union_many([a, b], code_bits)
+
+
+def union_many(sets, code_bits: int = 64):
+    """Union of padded sorted sets -> (codes, n) with their combined
+    capacity: one K2 sort of the concatenation, then C1's distinct rule
+    (no member is sentinel-valued, so none is counted apart)."""
+    merged = torch.cat(list(sets))
+    with stages.stage("sort", merged.device):
+        merged = _sort_u64(merged, code_bits)
+    with stages.stage("collapse", merged.device):
+        out, _, n = collapse_pass(merged, "distinct")
+    return out, n
 
 
 def intersect(a: torch.Tensor, b: torch.Tensor):
@@ -179,18 +195,13 @@ def subtract(a: torch.Tensor, b: torch.Tensor):
 def common(sets: torch.Tensor, threshold: int, code_bits: int = 64):
     """Codes in >= threshold of the stacked padded sets (sets: (F, C))
     -> (codes, n) with capacity F * C: one K2 sort; a run starting at i
-    holds >= t slots when slot i + t - 1 holds its code (one shifted
-    compare, where the JAX package takes run bounds from a cummax and a
-    reversed cummin)."""
+    holds >= t slots when slot i + t - 1 holds its code (C1's threshold
+    rule: one more read for each run start, where the JAX package takes
+    run bounds from a cummax and a reversed cummin)."""
     merged = _sort_u64(sets.reshape(-1), code_bits)
-    keep = _first(merged) & (merged != SENTINEL)
-    t, n = max(int(threshold), 1), merged.shape[0]
-    if t > 1:
-        reach = torch.zeros_like(keep)
-        if t <= n:
-            reach[: n - t + 1] = merged[t - 1:] == merged[: n - t + 1]
-        keep &= reach
-    return _compact_mask(merged, keep)
+    out, _, n = collapse_pass(merged, "threshold",
+                              threshold=max(int(threshold), 1))
+    return out, n
 
 
 def _packbits_little(bits: torch.Tensor) -> torch.Tensor:
@@ -263,10 +274,10 @@ def grep_device_route(n_query: int) -> bool:
         "membership", get_device())
 
 
-def _compact_mask_with(values, aux, keep, aux_fill: int = 0):
-    """Compact (values, aux) rows where keep -> (values, aux, n)."""
-    return (_compact(values, keep), _compact(aux, keep, aux_fill),
-            keep.sum(dtype=torch.int64))
+def _compact_mask_with(values, aux, keep):
+    """Compact (values, aux) rows where keep -> (values, aux, n), the aux
+    tail 0, in one C1 pass."""
+    return collapse_pass(values, "mask", mask=keep, aux=aux)
 
 
 def intersect_with_taxids(a, ta, b, tb, parent, depth, max_depth: int):

@@ -9,12 +9,13 @@ exactly as in the JAX package.
 The sort is always K2 (ops/radix_sort.py) on CUDA; the taxid
 pipeline's (code, payload) sort is K3, in taxonomy/lca.py.  The public
 sorts of the JAX module (``sort_codes``, ``sort_codes_taxids``,
-``sort_code_bits``) are entry points over the same two kernels.  Compaction
-is a scan plus a scatter in plain PyTorch, for codes and for int32 aux
-columns alike; the TPU's sort-based compaction is not ported.  Results
-keep the JAX contract: a full-length tensor whose first ``n`` slots are
-the kept codes in ascending order, the rest CODE_SENTINEL, and ``n`` as
-a 0-dim int64 tensor (no host sync).
+``sort_code_bits``) are entry points over the same two kernels.  The
+collapse after the sort is C1 (ops/collapse.py), one pass that keeps the
+first slot of each run (or of each run of one, or of more than one) and
+compacts; the TPU's sort-based compaction is not ported.  Results keep
+the JAX contract: a full-length tensor whose first ``n`` slots are the
+kept codes in ascending order, the rest CODE_SENTINEL, and ``n`` as a
+0-dim int64 tensor (no host sync).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 from .._lazy import torch
 from ..utils.stages import stage
 from .codec import SENTINEL
+from .collapse import collapse_pass
 from .radix_sort import radix_sort_kv_u64, radix_sort_u64
 
 MODES = ("distinct", "unique", "repeated")
@@ -86,34 +88,10 @@ def sort_codes_taxids(codes, taxids, code_bits: int = 64, device=None):
             st.cpu().numpy().view(np.uint32))
 
 
-def _compact(values: torch.Tensor, keep: torch.Tensor,
-             fill: int = SENTINEL) -> torch.Tensor:
-    """Stable-compact kept values to a dense prefix (scan + scatter);
-    dropped slots go to a spill slot past the end and the tail stays
-    ``fill`` (CODE_SENTINEL for codes)."""
-    n = values.shape[0]
-    pos = torch.cumsum(keep, 0) - 1
-    pos = torch.where(keep, pos, n)
-    out = torch.full((n + 1,), fill, dtype=values.dtype,
-                     device=values.device)
-    out.scatter_(0, pos, values)
-    return out[:n]
-
-
-def _run_edges(s: torch.Tensor):
-    """(first, last): masks of the first and last slot of each run of
-    equal values in a sorted array."""
-    diff = s[1:] != s[:-1]
-    one = diff.new_ones(1)
-    return torch.cat([one, diff]), torch.cat([diff, one])
-
-
-def _sentinel_accounting(keyed: torch.Tensor, valid: torch.Tensor):
-    """(n_sent_real, n_head) before the sort: sentinel-valued real codes,
-    and the number of non-sentinel real codes."""
-    n_sent_real = ((keyed == SENTINEL) & valid).sum(dtype=torch.int64)
-    n_tail = (~valid).sum(dtype=torch.int64) + n_sent_real
-    return n_sent_real, keyed.shape[0] - n_tail
+def _sentinel_count(keyed: torch.Tensor, valid: torch.Tensor):
+    """Real sentinel-valued codes, counted before the sort: after it they
+    cannot be told from the invalid slots keyed to the sentinel."""
+    return ((keyed == SENTINEL) & valid.bool()).sum(dtype=torch.int64)
 
 
 def collapse_keyed(keyed: torch.Tensor, valid: torch.Tensor,
@@ -126,23 +104,11 @@ def collapse_keyed(keyed: torch.Tensor, valid: torch.Tensor,
         return keyed.clone(), keyed.new_zeros((), dtype=torch.int64)
     dev = keyed.device
     with stage("collapse", dev):
-        n_sent_real, n_head = _sentinel_accounting(keyed, valid)
+        n_sent_real = _sentinel_count(keyed, valid)
     with stage("sort", dev):
         s = _sort_u64(keyed, code_bits)
     with stage("collapse", dev):
-        in_head = torch.arange(s.shape[0], device=dev) < n_head
-        first, last = _run_edges(s)
-        if mode == "distinct":
-            keep = first & in_head
-            extra = n_sent_real > 0
-        elif mode == "unique":
-            keep = first & last & in_head
-            extra = n_sent_real == 1
-        else:
-            keep = first & ~last & in_head
-            extra = n_sent_real > 1
-        out = _compact(s, keep)
-        n = keep.sum(dtype=torch.int64) + extra.to(torch.int64)
+        out, _, n = collapse_pass(s, mode, n_sent_real=n_sent_real)
     return out, n
 
 
@@ -168,11 +134,11 @@ def collapse_dual_keyed(keyed: torch.Tensor, valid: torch.Tensor,
         zero = keyed.new_zeros((), dtype=torch.int64)
         return keyed.clone(), zero, keyed.clone(), zero.clone()
     with stage("collapse", dev):
-        n_sent_real, n_head = _sentinel_accounting(keyed, valid)
+        n_sent_real = _sentinel_count(keyed, valid)
     with stage("sort", dev):
         s = _sort_u64(keyed, code_bits)
     with stage("collapse", dev):
-        return collapse_dual_from_sorted(s, n_sent_real, n_head)
+        return collapse_dual_from_sorted(s, n_sent_real)
 
 
 def collapse_sorted_dual(codes: torch.Tensor, valid: torch.Tensor,
@@ -184,14 +150,10 @@ def collapse_sorted_dual(codes: torch.Tensor, valid: torch.Tensor,
                                code_bits)
 
 
-def collapse_dual_from_sorted(s: torch.Tensor, n_sent_real, n_head):
+def collapse_dual_from_sorted(s: torch.Tensor, n_sent_real):
     """The post-sort half of :func:`collapse_sorted_dual`: the sorted
-    keyed array and the pre-sort sentinel accounting -> (distinct, n_d,
-    repeated, n_r)."""
-    in_head = torch.arange(s.shape[0], device=s.device) < n_head
-    first, last = _run_edges(s)
-    keep_d = first & in_head
-    keep_r = keep_d & ~last
-    n_d = keep_d.sum(dtype=torch.int64) + (n_sent_real > 0).to(torch.int64)
-    n_r = keep_r.sum(dtype=torch.int64) + (n_sent_real > 1).to(torch.int64)
-    return _compact(s, keep_d), n_d, _compact(s, keep_r), n_r
+    keyed array and the pre-sort count of real sentinel-valued codes ->
+    (distinct, n_d, repeated, n_r), by two C1 passes."""
+    out_d, _, n_d = collapse_pass(s, "distinct", n_sent_real=n_sent_real)
+    out_r, _, n_r = collapse_pass(s, "repeated", n_sent_real=n_sent_real)
+    return out_d, n_d, out_r, n_r

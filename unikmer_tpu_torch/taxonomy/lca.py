@@ -36,8 +36,8 @@ import os
 
 import numpy as np
 from .._lazy import torch
+from ..ops.collapse import run_edges as _run_edges
 from ..ops.radix_sort import radix_sort_kv_u64
-from ..ops.sort import _run_edges
 from ..utils.stages import stage
 
 _VALID_BIT = 1 << 30  # beside compact ids in the sort payload
