@@ -244,13 +244,15 @@ def test_admission_counts_memory_the_allocator_keeps(monkeypatch):
     warm = {"free": total - (9 << 30), "reserved": 8 << 30,
             "allocated": 0}
     budgets = []
+    monkeypatch.setattr(device_sets, "_CEILINGS", {})
     for state in (fresh, warm):
         monkeypatch.setattr(torch.cuda, "mem_get_info",
                             lambda d, s=state: (s["free"], total))
-        monkeypatch.setattr(torch.cuda, "memory_reserved",
-                            lambda d, s=state: s["reserved"])
-        monkeypatch.setattr(torch.cuda, "memory_allocated",
-                            lambda d, s=state: s["allocated"])
+        monkeypatch.setattr(
+            torch.cuda, "memory_stats_as_nested_dict",
+            lambda d, s=state: {
+                "reserved_bytes": {"all": {"current": s["reserved"]}},
+                "allocated_bytes": {"all": {"current": s["allocated"]}}})
         assert (device_sets._device_free_bytes(card)
                 == state["free"] + state["reserved"] - state["allocated"])
         budgets.append(device_sets.element_budget("union", card))

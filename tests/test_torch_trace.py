@@ -42,9 +42,11 @@ K = 15
 
 @pytest.fixture
 def fresh(monkeypatch):
-    """An empty span record and counters of the test's own."""
+    """An empty span record, counters and kept card readings of the
+    test's own."""
     monkeypatch.setattr(stages, "_SPANS", deque(maxlen=stages.MAX_SPANS))
     monkeypatch.setattr(stages, "COUNTERS", {})
+    monkeypatch.setattr(device_sets, "_CEILINGS", {})
     monkeypatch.delenv("UNIKMER_TPU_MAX_ELEMS", raising=False)
 
 
@@ -130,15 +132,15 @@ def test_host_route_is_one_root_with_no_device_stage(fresh, sets,
 
 
 def test_admit_span_wraps_the_free_bytes_read(fresh, monkeypatch):
-    """On a CUDA device the free-bytes read is an ``admit`` span
-    (mem_get_info stubbed: the CPU has no card)."""
-    state = dict(free=8 << 30, reserved=1 << 30, allocated=1 << 29)
+    """On a CUDA device the admission, with its free-bytes read, is an
+    ``admit`` span (mem_get_info and the allocator's stats stubbed: the
+    CPU has no card)."""
     monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda d=None: (state["free"], 80 << 30))
-    monkeypatch.setattr(torch.cuda, "memory_reserved",
-                        lambda d=None: state["reserved"])
-    monkeypatch.setattr(torch.cuda, "memory_allocated",
-                        lambda d=None: state["allocated"])
+                        lambda d=None: (8 << 30, 80 << 30))
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict",
+                        lambda d=None: {
+                            "reserved_bytes": {"all": {"current": 1 << 30}},
+                            "allocated_bytes": {"all": {"current": 1 << 29}}})
     card = torch.device("cuda", 0)
     assert device_sets._device_free_bytes(card) == (8 << 30) + (1 << 29)
     assert stages.snapshot()["spans"] == []
@@ -250,7 +252,8 @@ def test_library_loads_are_counted(fresh, monkeypatch, tmp_path):
 # the readers, on a planted record
 
 READERS = ("api.admit_ms_per_op", "api.readbacks_per_op",
-           "device.idle_in_ops_pct", "device.idle_admit_pct", "setup.load_s")
+           "device.idle_in_ops_pct", "device.idle_admit_pct", "setup.load_s",
+           "api.admit_reads_pct")
 BASE_NS = 1_790_857_026 * 10**9  # the start of a 7,889,238-second interval
 
 
@@ -280,7 +283,8 @@ def planted_run():
     spans = [{"id": i, "name": n, "parent": p, "root": p or i,
               "start_ns": at(a), "end_ns": at(b)}
              for i, n, p, a, b in rows]
-    counters = {"kernels.load_s": 0.25, "native.load_s": 0.5}
+    counters = {"kernels.load_s": 0.25, "native.load_s": 0.5,
+                "admit.calls": 400, "admit.reads": 2}
     return run, {"counters": counters, "spans": spans}
 
 
@@ -292,6 +296,7 @@ def planted_run():
     # idle inside admit: 60-100, 560-580
     ("device.idle_admit_pct", 100 * 60 / 1000),
     ("setup.load_s", 0.75),
+    ("api.admit_reads_pct", 100 * 2 / 400),
 ])
 def test_reader_on_a_planted_record(monkeypatch, name, want):
     run, rec = planted_run()
@@ -310,9 +315,11 @@ def test_reader_is_silent_without_the_record(monkeypatch, name):
 @pytest.mark.parametrize("name", READERS)
 def test_reader_is_silent_off_the_card(monkeypatch, name):
     """An untraced run, a trace with no device work, and counters without
-    the kernel library's load (a CPU run): None."""
+    the kernel library's load or an admission on a card (a CPU run):
+    None."""
     run, rec = planted_run()
-    rec["counters"].pop("kernels.load_s")
+    for counter in ("kernels.load_s", "admit.calls", "admit.reads"):
+        rec["counters"].pop(counter)
     run.trace.device = []
     monkeypatch.setattr(stages, "snapshot", lambda: rec)
     read = metric_reader(ROOT, name)

@@ -22,16 +22,19 @@ between sets on different devices raises.  Capacities are padded to
 ``_padded_len`` (2^20 times a power of two, the JAX package's quantum
 off the TPU), so ``capacity``, ``compact()`` and ``repr`` agree with it.
 Each constructor and operation admits its work by the device's element
-budget for its route (ops/device_sets.element_budget: the free bytes
-over the route's measured bytes a slot, or UNIKMER_TPU_MAX_ELEMS when
-set; none on the CPU).  Past it a set stays on the host and its
-operations take the host engine (ops/sets.py), as in the JAX package
-past its cap.
+budget for its route (ops/device_sets.fits: the free bytes over the
+route's measured bytes a slot, or UNIKMER_TPU_MAX_ELEMS when set; none
+on the CPU).  The free bytes are the process's kept reading of the card
+less what torch's allocator has allocated since; the card itself is read
+only at the first admission, near the budget, after an allocation
+failure, and after the server's release between requests.  Past the
+budget a set stays on the host and its operations take the host engine
+(ops/sets.py), as in the JAX package past its cap.
 
 Each public operation is a span of utils/stages.py (``KmerSet.<op>``), a
 root where no open span called it, recorded only while a profiler or a
-stage recorder listens.  The admission's free-bytes read is an ``admit``
-child and every read of a result's size a ``readback`` child
+stage recorder listens.  The admission on a card, kept or read, is an
+``admit`` child and every read of a result's size a ``readback`` child
 (ops/device_sets.py).
 """
 
@@ -171,7 +174,7 @@ class KmerSet:
         flags = dict(canonical=canonical, hashed=hashed, scale=scale,
                      taxdb=taxdb, device=device)
         cap = _padded_len(max(len(codes), 1))
-        if cap > device_sets.element_budget("from_codes", device):
+        if not device_sets.fits("from_codes", device, cap):
             # kept on the host: binary ops take the host engine (their
             # capacities add past the cap) and contains() runs numpy
             if not assume_sorted_unique:
@@ -229,8 +232,7 @@ class KmerSet:
         if len(packed.bases) <= chunk + cfg.k:
             return cls._from_token(count_packed_dispatch(packed, cfg, device),
                                    k, flags)
-        fits = len(packed.bases) <= device_sets.element_budget("from_fasta",
-                                                               device)
+        fits = device_sets.fits("from_fasta", device, len(packed.bases))
         if cfg.mode == "distinct" and fits:
             # a device set a piece, merged by one device union
             pieces = [cls._from_token(count_packed_dispatch(p, cfg, device),
@@ -410,7 +412,7 @@ class KmerSet:
             return False
         caps = [s.capacity for s in sets]
         slots = max(caps) * len(caps) if route == "common" else sum(caps)
-        return slots <= device_sets.element_budget(route, self.device)
+        return device_sets.fits(route, self.device, slots)
 
     def _tables(self, taxdb):
         from .taxonomy.lca import device_tables

@@ -183,7 +183,7 @@ class GenomeScan:
         the device route, numpy arrays on the host route."""
         from ...models.count import linear_codes_device
         from ...models.locate import joined_bases
-        from ...ops.device_sets import _lookup, element_budget
+        from ...ops.device_sets import _lookup, fits
 
         dev, k = self.device, self.cfg.k
         seqs = [seq for _, seq in self.by_file[fi]]
@@ -191,8 +191,7 @@ class GenomeScan:
         n = len(bases)
         ends = starts + np.fromiter((len(s) for s in seqs), np.int64,
                                     len(seqs)) - k + 1
-        if n > element_budget("map", dev,
-                              table_bytes=8 * self.query.shape[0]):
+        if not fits("map", dev, n, table_bytes=8 * self.query.shape[0]):
             self.routes[fi] = "host"
             return self._windows_host(bases, starts, ends)
         self.routes[fi] = "device"

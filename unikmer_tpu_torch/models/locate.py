@@ -37,7 +37,7 @@ from .._device import get_device
 from ..io.fastx import read_fastx
 from ..ops import codec
 from ..ops.codec import SIGN
-from ..ops.device_sets import element_budget
+from ..ops.device_sets import fits
 from ..ops.radix_sort import radix_sort_kv_u64
 from ..utils.stages import stage
 from .count import CountConfig, linear_codes_all, linear_codes_device
@@ -122,8 +122,7 @@ def joined_bases(sequences: list[bytes]):
 
 def device_route(slots: int, device: torch.device) -> bool:
     """Does an index over ``slots`` bases sort on ``device`` (K3)?"""
-    return slots <= min(element_budget("genome_index", device),
-                        MAX_ORDINALS)
+    return slots <= MAX_ORDINALS and fits("genome_index", device, slots)
 
 
 def build_genome_index(

@@ -25,15 +25,24 @@ supported here: it reads as padding, as in the JAX package.
   column, is C1's one pass, not the JAX package's sort-based
   ``compact_sorted``/``compact_aux``.
 
-Admission: every host entry here and in api.py compares the slots a
-route will hold with :func:`element_budget` (UNIKMER_TPU_MAX_ELEMS when
-set, else ADMIT_SHARE of the device's free bytes, less a table the route
-uploads, over the route's measured peak bytes a slot, ``SLOT_BYTES``, plus
-``PATH_COLUMN_BYTES`` a column of the paths tier's table; no budget on
-the CPU) and takes the host route past it, as the JAX package does past
-its 2^25 cap.  The TPU's staged and
-split3 taxid programs, compressed ingress and egress and watchdogs are
-not ported (ROADMAP.md).
+Admission: every host entry here and in api.py asks :func:`fits`
+whether the slots a route will hold are within its element budget
+(UNIKMER_TPU_MAX_ELEMS when set, else ADMIT_SHARE of the device's free
+bytes, less a table the route uploads, over the route's measured peak
+bytes a slot, ``SLOT_BYTES``, plus ``PATH_COLUMN_BYTES`` a column of the
+paths tier's table; no budget on the CPU) and takes the host route past
+it, as the JAX package does past its 2^25 cap.  The card is not asked
+on every admission: one ``torch.cuda.mem_get_info`` read gives the
+device's ceiling, its free bytes plus what torch's caching allocator
+holds reserved, which stays constant while no other process allocates
+(the allocator only moves bytes between the two).  An admission then
+takes the ceiling less the allocator's allocated bytes as the free
+bytes, and reads the card again only where there is no reading yet,
+where the route would take more than half of those free bytes, where
+the allocator's OOM or retry count rose since the reading, or after
+:func:`forget_free_bytes` (the server calls it after each request).
+The TPU's staged and split3 taxid programs, compressed ingress and
+egress and watchdogs are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -99,18 +108,65 @@ PATH_COLUMN_BYTES = 22
 ADMIT_SHARE = 0.8
 
 
+# device -> (ceiling, the allocator's failures) at the last read of the
+# card: the free bytes plus the allocator's reserved bytes, constant while
+# no other process allocates on the device (see the module's docstring)
+_CEILINGS: dict = {}
+
+
+def _allocator_stats(device) -> tuple[int, int, int]:
+    """(reserved, allocated, failures) of torch's caching allocator on
+    ``device`` from one stats snapshot: its reserved and allocated bytes
+    and num_ooms + num_alloc_retries."""
+    st = torch.cuda.memory_stats_as_nested_dict(device)
+
+    def current(key):
+        return st.get(key, {}).get("all", {}).get("current", 0)
+
+    return (current("reserved_bytes"), current("allocated_bytes"),
+            st.get("num_ooms", 0) + st.get("num_alloc_retries", 0))
+
+
 def _device_free_bytes(device) -> int | None:
-    """The bytes ``device`` can still give: torch.cuda.mem_get_info's
-    free bytes plus what torch's caching allocator holds reserved and
-    unused; None on the CPU, which has no budget.  The read is an
-    ``admit`` span."""
+    """The bytes ``device`` can still give, read from the card:
+    torch.cuda.mem_get_info's free bytes plus what torch's caching
+    allocator holds reserved and unused; None on the CPU, which has no
+    budget."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
+    free, _ = torch.cuda.mem_get_info(device)
+    reserved, allocated, _ = _allocator_stats(device)
+    return free + reserved - allocated
+
+
+def forget_free_bytes() -> None:
+    """Drop every device's kept reading, so that the next admission on
+    each reads the card."""
+    _CEILINGS.clear()
+
+
+def _free_bytes(device, need: int | None) -> int | None:
+    """The free bytes an admission of ``need`` bytes (None: unknown)
+    counts on ``device``: on a card the kept ceiling less the allocator's
+    allocated bytes, read from the card again (:func:`_device_free_bytes`)
+    where the module's docstring says.  One ``admit`` span, counted in
+    ``admit.calls`` and, where it read the card, ``admit.reads``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _device_free_bytes(device)
     with stages.stage("admit"):
-        free, _ = torch.cuda.mem_get_info(device)
-        return (free + torch.cuda.memory_reserved(device)
-                - torch.cuda.memory_allocated(device))
+        stages.count("admit.calls")
+        _, allocated, failures = _allocator_stats(device)
+        kept = _CEILINGS.get(device)
+        if need is not None and kept is not None and kept[1] == failures:
+            free = kept[0] - allocated
+            if 2 * need <= free:
+                return free
+        stages.count("admit.reads")
+        free = _device_free_bytes(device)
+        _CEILINGS[device] = (free + allocated, failures)
+        return free
 
 
 def read_back(t: torch.Tensor):
@@ -121,6 +177,19 @@ def read_back(t: torch.Tensor):
         return int(t) if t.dim() == 0 else t.cpu()
 
 
+def _budget(route: str, device, columns: int, table_bytes: int,
+            slots: int | None) -> int:
+    env = os.environ.get("UNIKMER_TPU_MAX_ELEMS")
+    if env:
+        return int(env)
+    per = SLOT_BYTES[route] + columns * PATH_COLUMN_BYTES
+    need = None if slots is None else slots * per + table_bytes
+    free = _free_bytes(device, need)
+    if free is None:
+        return 1 << 62
+    return max(int(free * ADMIT_SHARE) - table_bytes, 0) // per
+
+
 def element_budget(route: str, device, columns: int = 0,
                    table_bytes: int = 0) -> int:
     """The most slots ``route`` (a key of SLOT_BYTES) may take on
@@ -128,15 +197,17 @@ def element_budget(route: str, device, columns: int = 0,
     else ADMIT_SHARE of the free bytes, less ``table_bytes`` (a table the
     route uploads before its slots), over the route's bytes a slot, plus
     PATH_COLUMN_BYTES for each of ``columns`` (the paths tier's table
-    width); 2^62 on the CPU."""
-    env = os.environ.get("UNIKMER_TPU_MAX_ELEMS")
-    if env:
-        return int(env)
-    free = _device_free_bytes(device)
-    if free is None:
-        return 1 << 62
-    per = SLOT_BYTES[route] + columns * PATH_COLUMN_BYTES
-    return max(int(free * ADMIT_SHARE) - table_bytes, 0) // per
+    width); 2^62 on the CPU.  Knowing no slots, it reads the card."""
+    return _budget(route, device, columns, table_bytes, None)
+
+
+def fits(route: str, device, slots: int, columns: int = 0,
+         table_bytes: int = 0) -> bool:
+    """Are ``slots`` within :func:`element_budget`?  On a card the budget
+    comes from the kept reading while the route's bytes, ``slots`` times
+    its bytes a slot plus ``table_bytes``, are at most half of the free
+    bytes it gives; nearer the budget the card is read."""
+    return slots <= _budget(route, device, columns, table_bytes, slots)
 
 
 def _first(s: torch.Tensor) -> torch.Tensor:
@@ -270,8 +341,7 @@ def grep_device_route(n_query: int) -> bool:
         return False
     from ..models.count import _padded_len
 
-    return _padded_len(max(n_query, 1)) <= element_budget(
-        "membership", get_device())
+    return fits("membership", get_device(), _padded_len(max(n_query, 1)))
 
 
 def _compact_mask_with(values, aux, keep):
@@ -385,9 +455,8 @@ def union_taxids_device(code_arrays, taxid_arrays, taxdb,
     if len(codes) and codes.max() == SENT:
         return None
     kind, _, tab = plan
-    if len(codes) > element_budget(
-            f"union_taxids_{kind}", device,
-            tab.shape[1] if kind == "paths" else 0, tab.nbytes):
+    if not fits(f"union_taxids_{kind}", device, len(codes),
+                tab.shape[1] if kind == "paths" else 0, tab.nbytes):
         return None
     kind, closure, tab = upload_plan(plan, device)
     ctax = torch.from_numpy(compact_ids(closure, all_tax)).to(device)

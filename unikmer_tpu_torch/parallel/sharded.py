@@ -57,7 +57,7 @@ from ..models.count import (
 from ..ops import device_sets
 from ..ops import sets as host_sets
 from ..ops.codec import INVALID_BASE, SIGN
-from ..ops.device_sets import _to_device, element_budget
+from ..ops.device_sets import _to_device, fits
 from ..ops.radix_sort import radix_sort_kv_u64
 from ..ops.sort import _sort_u64, collapse_dual_keyed, collapse_keyed
 from ..taxonomy.lca import compact_ids, device_lca_plan, upload_plan
@@ -630,12 +630,11 @@ def _admitted(mesh: Mesh, needs) -> bool:
     """Do the shards' routes fit their devices?  ``needs``: (route,
     slots a shard, path columns, table bytes) for each route a shard
     runs; a device holds the slots of every shard it hosts (all D when
-    they share one card), as ops/device_sets.element_budget counts them."""
+    they share one card), as ops/device_sets.fits counts them."""
     for dev in set(mesh):
         held = mesh.count(dev)
         for route, slots, columns, table_bytes in needs:
-            if held * slots > element_budget(route, dev, columns,
-                                             table_bytes):
+            if not fits(route, dev, held * slots, columns, table_bytes):
                 return False
     return True
 

@@ -31,9 +31,10 @@ for each request: its exit code, its seconds and the launches of each
 device kernel's wrapper it made.  After each request (and the warm-up)
 the server hands the memory torch's caching allocator keeps back to
 the card, so an idle server holds its CUDA context and little else, and
-a later request's admission (ops/device_sets.element_budget), in the
-server or in another process on the card, finds the earlier requests'
-memory free.
+a later request's admission (ops/device_sets.fits), in the server or in
+another process on the card, finds the earlier requests' memory free;
+it also drops the admission's kept reading of the card, so that each
+request's first admission reads the card as it finds it.
 
 Run:    python -m unikmer_tpu_torch.server --socket /tmp/u.sock --warm
 Client: UNIKMER_TPU_SERVER=/tmp/u.sock python -m unikmer_tpu_torch.cli.main count ...
@@ -241,12 +242,17 @@ def _release_device_memory() -> None:
     """Return the cached blocks of torch's allocator to the card, and the
     pinned host blocks of its host allocator (a streamed count's uploads)
     to the host, so that a served stream holds no pinned
-    memory between requests (torch is looked up, not imported: a server
-    that ran no device work has none)."""
+    memory between requests, and drop the admission's kept reading of the
+    card, which other processes may have changed by the next request
+    (torch and the admission are looked up, not imported: a server that
+    ran no device work has neither)."""
     torch = sys.modules.get("torch")
     if torch is not None and torch.cuda.is_initialized():
         torch.cuda.empty_cache()
         torch._C._host_emptyCache()
+    device_sets = sys.modules.get(f"{__package__}.ops.device_sets")
+    if device_sets is not None:
+        device_sets.forget_free_bytes()
 
 
 def serve(sock_path: str, idle_timeout: float | None = None,

@@ -41,8 +41,11 @@ prints the report to stderr after its run and turns it off again
 Counters.  :func:`timed` adds a block's host seconds to an always-on
 counter in a plain dict: the loads of the kernel and host libraries
 (``kernels.load_s``, ``native.load_s``: a build where the checkout has
-none, the dlopen), which run before any profiler does.
-:func:`snapshot` returns a copy of the counters and of the spans.
+none, the dlopen), which run before any profiler does.  :func:`count`
+adds 1 to one: ``admit.calls``, the admissions against a card's budget,
+and ``admit.reads``, those that read the card's free bytes
+(ops/device_sets.py).  :func:`snapshot` returns a copy of the counters
+and of the spans.
 """
 
 from __future__ import annotations
@@ -227,6 +230,12 @@ def timed(name: str):
         secs = time.perf_counter() - t0
         with _COUNT_LOCK:
             COUNTERS[name] = COUNTERS.get(name, 0.0) + secs
+
+
+def count(name: str) -> None:
+    """Add 1 to the always-on counter ``name``."""
+    with _COUNT_LOCK:
+        COUNTERS[name] = COUNTERS.get(name, 0) + 1
 
 
 def snapshot() -> dict:
