@@ -165,17 +165,13 @@ operation) and read after it, show that the run went through the kernels
 of its path (and that a hashed run launched H1 and no K1; that ``|``
 (the one-sided taxid union too), ``union_all`` and ``common`` launched
 K2 once, ``&``, ``-`` and the per-set transforms no sort,
-and the CLI's taxid union K3 and no host reduction).  P1a and P1c are timed in turns with
-their library calls (library, kernel, kernel, library; TURNS rounds), S1
-with torch.argmin over an unfold view of its keys (``unfold_argmin``); K1
-and P1b/P2a in turns with their earlier designs (csrc/earlier/, built by
-unikmer_tpu_torch/kernel_variants.py, which times the other design
-variants on its own), H1 with K1 at the same k.  The host cost of the
-launch path is read as host microseconds per wrapper call over
-HOST_CALLS un-synchronised calls: for P1c's call step by step as the
-path stood before the launch helper of _kernels.py
-(``launch_breakdown``), and for every wrapper (``host_us`` in the
-kernels line).
+and the CLI's taxid union K3 and no host reduction).  P1a and P1c are
+timed in turns with their library calls (library, kernel, kernel,
+library; TURNS timings each), S1 with torch.argmin over an unfold view
+of its keys (``unfold_argmin``), H1 with K1 at the same k.  The host
+cost of every wrapper's launch path is read as host microseconds per
+call over HOST_CALLS un-synchronised calls (``host_us`` in the kernels
+line).
 
 The count oracle is this script's own numpy count (every window's 2-bit
 code, the canonical form written out below, a sort and its distinct
@@ -253,7 +249,7 @@ LINE = 60
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 FLUSH_BYTES = 256 << 20  # written between P1a's repetitions: > the 50 MB L2
 HOST_CALLS = 1000  # un-synchronised wrapper calls in one host-cost reading
-TURNS = 20  # rounds of kernel-and-library timings in turns
+TURNS = 40  # timings of each kernel and library call in turns
 P1C_BIG_TILES = 65537  # more tiles than a grid's z extent holds
 P2A_BIG_ROWS = 1 << 16  # P2A's 64 stages over 16 row bits: tile and registers
 
@@ -262,29 +258,48 @@ def say(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5, before=None) -> float:
-    """Median CUDA-event milliseconds of fn() over reps, after a warm-up;
-    ``before()`` runs ahead of each repetition, outside the events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if before is not None:
-            before()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
+def quartiles(v) -> dict:
+    """Median and spread (the distance between the quartiles) of v, as
+    numpy's linear percentiles; one value is its own median, spread 0."""
+    if len(v) == 1:
+        return {"median": v[0], "spread": 0.0}
+    q1, q2, q3 = statistics.quantiles(v, n=4, method="inclusive")
+    return {"median": q2, "spread": q3 - q1}
+
+
+def turns_ms(fns: dict, timings: int = TURNS, before=None) -> dict:
+    """{name: quartiles} of the CUDA-event ms of every fn over ``timings``
+    timings each, after a warm-up, taken in turns: the fns in order and
+    then in reverse (library, kernel, kernel, library); ``before()`` runs
+    ahead of each timing, outside the events."""
+    for fn in fns.values():
         fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    got = {name: [] for name in fns}
+    for r in range(timings):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            if before is not None:
+                before()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fns[name]()
+            t1.record()
+            t1.synchronize()
+            got[name].append(t0.elapsed_time(t1))
+    return {name: quartiles(v) for name, v in got.items()}
 
 
-def ms_spread(fn, rounds: int = 5) -> dict:
+def cuda_ms(fn, reps: int = 5, before=None) -> float:
+    """Median CUDA-event milliseconds of fn() over reps, after a warm-up
+    (turns_ms of fn alone)."""
+    return turns_ms({"fn": fn}, reps, before)["fn"]["median"]
+
+
+def ms_spread(fn) -> dict:
     """CUDA-event ms of fn() as the kernels-line keys ms (the median of
-    2 * rounds timings) and ms_spread (the distance between quartiles)."""
-    t = turns_ms({"kernel": fn}, rounds)["kernel"]
+    10 timings) and ms_spread (the distance between quartiles)."""
+    t = turns_ms({"kernel": fn}, 10)["kernel"]
     return dict(ms=t["median"], ms_spread=t["spread"])
 
 
@@ -296,12 +311,37 @@ def device_ms(fn, kernel: str, reps: int = 20):
     the calls launched (lost events): it is taken as the mean of the
     kernels it recorded times the whole number of them a call.  None when
     the profiler records no device time."""
-    from unikmer_tpu_torch.kernel_variants import device_profile
+    from torch.profiler import ProfilerActivity, profile
 
-    ms, per_call = device_profile(fn, kernel, reps)
-    if ms is None:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    total_us = sum(getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0.0) for e in events)
+    if not total_us:
         return None
-    return ms * max(round(per_call), 1) / per_call
+    per_call = sum(e.count for e in events) / reps
+    return total_us / reps / 1e3 * max(round(per_call), 1) / per_call
+
+
+def kernels_per_call(fn) -> int:
+    """The kernels one row_cmpex_u32 call of fn() launches, from the
+    wrapper's ``.kernels`` count over 10 calls."""
+    from unikmer_tpu_torch.ops.probes import row_cmpex_u32
+
+    calls = 10
+    k0, l0 = row_cmpex_u32.kernels, row_cmpex_u32.launches
+    for _ in range(calls):
+        fn()
+    kernels, launches = row_cmpex_u32.kernels - k0, row_cmpex_u32.launches - l0
+    if launches != calls or kernels % calls:
+        raise RuntimeError(f"{kernels} kernels in {launches} launching calls "
+                           f"of {calls}")
+    return kernels // calls
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -346,9 +386,9 @@ def k1_lengths() -> tuple:
                          block + 1, 2 * block + 1}))
 
 
-def check_k1(dev, rng, first):
-    """K1 held to its plain version (and ``first``, the earlier design) at
-    every length of k1_lengths, then timed in turns with it."""
+def check_k1(dev, rng):
+    """K1 held to its plain version at every length of k1_lengths, then
+    timed in turns canonical and not."""
     from unikmer_tpu_torch.models.count import pack_bases_2bit
     from unikmer_tpu_torch.ops.encode import encode_2bit, encode_2bit_plain
 
@@ -364,22 +404,19 @@ def check_k1(dev, rng, first):
         for k in K1_KS:
             for canonical in (False, True):
                 pk, pv = encode_2bit_plain(p2, vm, n, k, canonical)
-                for which, fn in (("kernel", encode_2bit),
-                                  ("earlier design", first)):
-                    kk, kv = fn(p2, vm, n, k, canonical)
-                    torch.cuda.synchronize()
-                    e = abs_err(kk, pk)
-                    err = max(err, e)
-                    cases += 1
-                    if e or not torch.equal(kv, pv):
-                        i = int(torch.nonzero((kk != pk) | (kv != pv))[0])
-                        raise SystemExit(
-                            f"K1 ({which}) mismatch: n={n} k={k} canonical="
-                            f"{canonical} err={e}; first differing window "
-                            f"{i}: kernel code {int(kk[i]) & (2**64 - 1):#x} "
-                            f"valid {int(kv[i])}, plain code "
-                            f"{int(pk[i]) & (2**64 - 1):#x} valid "
-                            f"{int(pv[i])}")
+                kk, kv = encode_2bit(p2, vm, n, k, canonical)
+                torch.cuda.synchronize()
+                e = abs_err(kk, pk)
+                err = max(err, e)
+                cases += 1
+                if e or not torch.equal(kv, pv):
+                    i = int(torch.nonzero((kk != pk) | (kv != pv))[0])
+                    raise SystemExit(
+                        f"K1 mismatch: n={n} k={k} canonical={canonical} "
+                        f"err={e}; first differing window {i}: kernel code "
+                        f"{int(kk[i]) & (2**64 - 1):#x} valid {int(kv[i])}, "
+                        f"plain code {int(pk[i]) & (2**64 - 1):#x} valid "
+                        f"{int(pv[i])}")
     # poly-T: the k=32 non-canonical code of TTTT... is 2^64-1
     poly = np.full(4099, 3, np.uint8)
     poly[[100, 2000]] = 255
@@ -392,15 +429,14 @@ def check_k1(dev, rng, first):
     n = (1 << 25) + 3
     p2, vm = upload(big[:n])
     fns = {"kernel": lambda: encode_2bit(p2, vm, n, 23, True),
-           "kernel, not canonical": lambda: encode_2bit(p2, vm, n, 23, False),
-           "earlier design": lambda: first(p2, vm, n, 23, True)}
+           "kernel, not canonical": lambda: encode_2bit(p2, vm, n, 23, False)}
     t = turns_ms(fns)
     plain_ms = cuda_ms(lambda: encode_2bit_plain(p2, vm, n, 23, True))
     # packed bases and mask read once, the u64 codes and bool flags written
     bound = bytes_ms(p2.numel() + vm.numel() + 9 * n)
     dms = {name: device_ms(fn, "encode_2bit") for name, fn in fns.items()}
-    say(f"K1 encode_2bit: exact on {cases + 1} cases (n in {ns}, the "
-        f"earlier design beside it); n={n} k=23 canonical, in turns: "
+    say(f"K1 encode_2bit: exact on {cases + 1} cases (n in {ns}); n={n} "
+        f"k=23 canonical, in turns: "
         + "; ".join(
             f"{name} {t[name]['median']} ms (spread {t[name]['spread']}, "
             f"device {dms[name]})" for name in fns)
@@ -1561,8 +1597,6 @@ PIPELINE_KEYS = 1 << 25  # K2/K3's plan cases
 PIPELINE_TURNS = ("0", "1", "1", "0")  # UNIKMER_TPU_PIPELINE_DEPTH in turns
 PIPELINE_PIECE = 1 << 25  # the bases of the dispatch checks' piece
 INFLATE_TURNS = ("parallel", "stream", "cap0", "parallel")
-# K2's and K3's host us a call when each read its pass flags back (PERF.md)
-EARLIER_HOST_US = {"k2": 151.991, "k3": 161.135}
 # the pipeline phase holds the launches it expects (the CPU tests, whose
 # plain versions count none, turn this off)
 PIPELINE_COUNTS = True
@@ -1713,9 +1747,11 @@ def pipeline_no_waits(dev, rng) -> dict:
 def device_busy(fn) -> dict:
     """fn() under torch.profiler (CUDA activity): its wall seconds, the
     seconds the card was busy (the union of its kernels' and copies'
-    intervals) and their share of the wall; busy None when the trace
-    holds no device event."""
+    intervals, portbench's union) and their share of the wall; busy None
+    when the trace holds no device event."""
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench.records import covered
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1723,21 +1759,13 @@ def device_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy_us += b - a
-            end = b
-        elif b > end:
-            busy_us += b - end
-            end = b
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
         return {"traced_s": round(wall, 4), "busy_s": None, "busy_share": None}
-    return {"traced_s": round(wall, 4), "busy_s": round(busy_us / 1e6, 6),
-            "busy_share": round(busy_us / 1e6 / wall, 6)}
+    busy_s = covered(spans) / 1e6
+    return {"traced_s": round(wall, 4), "busy_s": round(busy_s, 6),
+            "busy_share": round(busy_s / wall, 6)}
 
 
 def pipeline_counts(tmp, runs) -> dict:
@@ -1850,7 +1878,7 @@ def pipeline_gzip(tmp, fa: str, plain_unik: str) -> dict:
     return row
 
 
-def pipeline_path(tmp, rng, dev, inputs: dict, results: dict) -> dict:
+def pipeline_path(tmp, rng, dev, inputs: dict) -> dict:
     """The pipeline phase: K2/K3's plan cases, the dispatch's sync check,
     the 134 Mbp streamed count (2-bit and -H), -W 15 over its first two
     records (a sketch piece is a whole record) and -l over the 37.7 Mbp
@@ -1862,9 +1890,6 @@ def pipeline_path(tmp, rng, dev, inputs: dict, results: dict) -> dict:
     t0 = time.perf_counter()
     row = {"plan": pipeline_sorts(dev, rng), "dispatch": pipeline_no_waits(
         dev, rng)}
-    row["host_us"] = {key: {"plan on the card": results[key].get("host_us"),
-                            "flags read back": EARLIER_HOST_US[key]}
-                      for key in EARLIER_HOST_US}
     lin = os.path.join(tmp, "pipe_l.oracle.unik")
     write_oracle(lin, 23, unik.CANONICAL, inputs["one_windows"], number=-1)
     two_bit = {"k1": True, "h1": False, "k2": True}
@@ -4849,23 +4874,11 @@ def hold(name, kernel, plain, cases) -> float:
     return err
 
 
-def turns_ms(fns: dict, rounds: int = TURNS, before=None) -> dict:
-    """{name: quartiles} of the CUDA-event ms of every fn, timed in turns:
-    each round runs them in order and then in reverse (library, kernel,
-    kernel, library); ``before()`` runs ahead of each timing, outside the
-    events."""
-    from unikmer_tpu_torch.kernel_variants import turns_ms as in_turns
-
-    return in_turns(fns, rounds, before)
-
-
-def check_probes(dev, rng, first_row_cmpex):
+def check_probes(dev, rng):
     """The four probe kernels held to their plain versions at the
     scripts' sizes and at ragged ones, then timed at the scripts' sizes
-    (P1a and P1c in turns with their library calls, P1b/P2a with
-    ``first_row_cmpex``, its earlier design); returns one result dict per
-    kernel."""
-    from unikmer_tpu_torch.kernel_variants import kernels_per_call
+    (P1a and P1c in turns with their library calls); returns one result
+    dict per kernel."""
     from unikmer_tpu_torch import probes as entry
     from unikmer_tpu_torch.ops import probes
 
@@ -4918,30 +4931,19 @@ def check_probes(dev, rng, first_row_cmpex):
                   probes.p2a_distances(64, P2A_BIG_ROWS))]
     err = hold("P1b/P2a row_cmpex_u32", probes.row_cmpex_u32,
                probes.row_cmpex_u32_plain, row_cases)
-    hold("P1b/P2a earlier design", first_row_cmpex, probes.row_cmpex_u32_plain,
-         [(blk, p1b), *((blk, d) for d in p2a.values())])
     schedules = {"p1b": p1b, **{f"p2a_{s}": d for s, d in p2a.items()}}
     row = {}
     for sched, ds in schedules.items():
-        fns = {"kernel": lambda ds=ds: probes.row_cmpex_u32(blk, ds),
-               "earlier design": lambda ds=ds: first_row_cmpex(blk, ds)}
-        t = turns_ms(fns)
-        row[sched] = dict(
-            ms=t["kernel"]["median"], ms_spread=t["kernel"]["spread"],
-            device_ms=device_ms(fns["kernel"], "row_cmpex"),
-            kernels_per_call=kernels_per_call(fns["kernel"]),
-            variants={"earlier design": dict(
-                ms=t["earlier design"]["median"],
-                ms_spread=t["earlier design"]["spread"],
-                device_ms=device_ms(fns["earlier design"], "row_cmpex"),
-                kernels_per_call=kernels_per_call(fns["earlier design"]))})
+        fn = functools.partial(probes.row_cmpex_u32, blk, ds)
+        t = turns_ms({"kernel": fn})["kernel"]
+        row[sched] = dict(ms=t["median"], ms_spread=t["spread"],
+                          device_ms=device_ms(fn, "row_cmpex"),
+                          kernels_per_call=kernels_per_call(fn))
     out["P1b"] = dict(
-        max_abs_err=err, **{k: v for k, v in row["p1b"].items()
-                            if k != "variants"},
+        max_abs_err=err, **row["p1b"],
         plain_ms=cuda_ms(lambda: probes.row_cmpex_u32_plain(blk, p1b), 5),
         library_ms=None, bound_ms=bytes_ms(two_mib), bound_by="bytes",
         rows_held=sorted({int(x.shape[0]) for x, _ in row_cases}),
-        variants=row["p1b"]["variants"],
         **{f"{k}_{s}": v for s, r in row.items() if s != "p1b"
            for k, v in r.items()})
 
@@ -4990,12 +4992,6 @@ def check_probes(dev, rng, first_row_cmpex):
 # the launch path: host cost of a wrapper call
 
 
-def quartiles(v) -> dict:
-    """Median and spread (the distance between the quartiles) of v."""
-    q1, q2, q3 = statistics.quantiles(v, n=4, method="inclusive")
-    return {"median": q2, "spread": q3 - q1}
-
-
 def host_us(fn, calls: int = HOST_CALLS) -> float:
     """Host microseconds per call of fn() over ``calls`` calls with no
     synchronize between them; the card is drained before and after."""
@@ -5018,54 +5014,6 @@ def host_us_turns(fns: dict, rounds: int = 15) -> dict:
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
             got[name].append(host_us(fns[name]))
     return {name: quartiles(v) for name, v in got.items()}
-
-
-OLD_STEPS = ("checks", "contiguous", "empty_like", "device context", "load",
-             "stream lookup", "getattr", "ctypes call", "check")
-
-
-def old_transpose_launch(x, skip=()):
-    """transpose128_u32(x) as its launch path stood before the launch
-    helper of _kernels.py, step by step (ops/probes.py before it): each
-    step named in ``skip`` is left out, its result taken from one call
-    made ahead."""
-    from unikmer_tpu_torch import _kernels
-    from unikmer_tpu_torch.ops import probes
-
-    name = "ukt_transpose128_u32"
-    tiles = x.shape[0] // 128
-    lib = _kernels.load()
-    fn = getattr(lib, name)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    out0 = torch.empty_like(x)
-
-    def body(xc, out):
-        lib_ = lib if "load" in skip else _kernels.load()
-        if "stream lookup" in skip:
-            s = stream
-        else:
-            s = torch.cuda.current_stream(torch.cuda.current_device()).cuda_stream
-        f = fn if "getattr" in skip else getattr(lib_, name)
-        err = 0 if "ctypes call" in skip else f(xc.data_ptr(), out.data_ptr(),
-                                                  tiles, s)
-        if "check" not in skip:
-            _kernels.check(lib_, err, name)
-
-    def call():
-        if "checks" not in skip:
-            t = probes._check_tiles("transpose128_u32", x)
-            if x.device.type == "cpu" or t > 65535 or t == 0:
-                raise ValueError("not a launch")
-        xc = x if "contiguous" in skip else x.contiguous()
-        out = out0 if "empty_like" in skip else torch.empty_like(xc)
-        if "device context" in skip:
-            body(xc, out)
-        else:
-            with torch.cuda.device(xc.device):
-                body(xc, out)
-        return out
-
-    return call
 
 
 def machine_facts(dev) -> dict:
@@ -5103,50 +5051,13 @@ def smi_clocks(when: str) -> None:
     say(f"clocks {when}: {q.stdout.strip()}")
 
 
-def launch_breakdown(blk) -> dict:
-    """The host cost of one transpose128_u32(blk), the P1c probe's call,
-    in HOST_CALLS un-synchronised calls a reading, all readings in turns:
-    the launch path as it stood before the launch helper, that path with
-    each of its steps left out (a step's cost is the difference), the
-    wrapper as it is, the library call, and the torch primitives a
-    launch path may use.  Prints one line a reading; returns them."""
-    from unikmer_tpu_torch.ops import probes
-
-    fns = {"old path": old_transpose_launch(blk)}
-    fns.update({f"old path without {s}": old_transpose_launch(blk, {s})
-                for s in OLD_STEPS})
-    fns["wrapper as built"] = lambda: probes.transpose128_u32(blk)
-    fns["library call"] = (
-        lambda: blk.view(-1, 128, 128).transpose(1, 2).contiguous())
-    fns["torch.cuda.current_device()"] = torch.cuda.current_device
-    fns["torch.cuda.current_stream(0).cuda_stream"] = (
-        lambda: torch.cuda.current_stream(0).cuda_stream)
-    for prim, args in (("_cuda_getDevice", ()),
-                       ("_cuda_getCurrentRawStream", (0,))):
-        f = getattr(torch._C, prim, None)
-        say(f"torch._C.{prim}: {'present' if f else 'absent'}")
-        if f is not None:
-            fns[f"torch._C.{prim}{args}"] = lambda f=f, a=args: f(*a)
-    smi_clocks("before the launch breakdown")
-    got = host_us_turns(fns)
-    smi_clocks("after it")
-    full = got["old path"]["median"]
-    for name, q in got.items():
-        step = (f"; step {full - q['median']:.3f} us"
-                if name.startswith("old path without") else "")
-        say(f"host us/call {name}: {q['median']:.3f} "
-            f"(spread {q['spread']:.3f}){step}")
-    return got
-
-
 def host_costs(dev, rng) -> dict:
     """host_us of every wrapper: host microseconds per call over
     HOST_CALLS un-synchronised calls, the median of 15 readings in turns,
     at inputs where the card keeps up with the host, so the reading is
     the launch path's: P1c and P2b at the probe's (4096, 128) block, the
     others at a few thousand elements.  K2 and K3 plan their passes on
-    the card, so no call waits on it (EARLIER_HOST_US: theirs when each
-    call read its pass flags back)."""
+    the card, so no call waits on it."""
     from unikmer_tpu_torch import probes as entry
     from unikmer_tpu_torch.models.count import pack_bases_2bit
     from unikmer_tpu_torch.ops import probes
@@ -5270,24 +5181,11 @@ def main() -> int:
     t0 = time.perf_counter()
     say(f"host engine: {native.engine()} "
         f"(build+load {time.perf_counter() - t0:.3f} s); the oracles: numpy")
-    from unikmer_tpu_torch import kernel_variants as kv
-    from unikmer_tpu_torch.ops.encode import encode_2bit
-    from unikmer_tpu_torch.ops.probes import row_cmpex_u32
-
-    t0 = time.perf_counter()
-    pr5 = kv.build([kv.EARLIER_K1, kv.EARLIER_ROW_CMPEX])
-    say(f"the earlier designs of K1 and row_cmpex_u32 built in "
-        f"{time.perf_counter() - t0:.3f} s")
     results = {
-        "k1": check_k1(dev, rng, kv.using(pr5[kv.EARLIER_K1], encode_2bit)),
-        "h1": check_h1(dev, rng), "s1": check_s1(dev, rng),
-        "k2": check_k2(dev, rng), "k3": check_k3(dev, rng),
-        "c1": check_c1(dev, rng),
-        **check_probes(dev, rng,
-                       kv.using(pr5[kv.EARLIER_ROW_CMPEX], row_cmpex_u32))}
-    from unikmer_tpu_torch import probes as entry
-
-    launch_breakdown(entry.probe_inputs(dev)[1])
+        "k1": check_k1(dev, rng), "h1": check_h1(dev, rng),
+        "s1": check_s1(dev, rng), "k2": check_k2(dev, rng),
+        "k3": check_k3(dev, rng), "c1": check_c1(dev, rng),
+        **check_probes(dev, rng)}
     for key, us in host_costs(dev, rng).items():
         results[key]["host_us"] = us
     from unikmer_tpu_torch.ops.collapse import collapse_pass
@@ -5302,7 +5200,7 @@ def main() -> int:
             "fa": mesh_in["fa"], "k23": mesh_in["k23"],
             "one": mesh_in.pop("one"), "k31H": mesh_in.pop("k31H"),
             "one_windows": mesh_in.pop("one_windows"),
-            "fa2": mesh_in.pop("fa2"), "k31W": mesh_in.pop("k31W")}, results)
+            "fa2": mesh_in.pop("fa2"), "k31W": mesh_in.pop("k31W")})
         t_pipe = time.perf_counter()
         startup = startup_path(tmp, rng, mesh_in, dev, card)
         t = [time.perf_counter()]

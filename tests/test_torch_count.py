@@ -334,7 +334,7 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_follows_a_swapped_library(monkeypatch):
     """A Kernel binds its C function once and again only when the library
-    in use is replaced, as radix_variants.py replaces it."""
+    in use is replaced, as a test's fake or a fresh build replaces it."""
     first = types.SimpleNamespace(ukt_copy_inc_u32=lambda *a: 0)
     second = types.SimpleNamespace(ukt_copy_inc_u32=lambda *a: 0)
     kernel = _kernels.Kernel("ukt_copy_inc_u32")

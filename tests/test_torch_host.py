@@ -10,14 +10,17 @@ import io
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import profiler
 
 import chip_smoke
+from portbench.records import covered, merged
 from unikmer_tpu.io import fastx as jax_fastx
 from unikmer_tpu.io import unik as jax_unik
 from unikmer_tpu.ops.codec import canonical_np as jax_canonical_np
@@ -827,6 +830,92 @@ def test_chip_smoke_unique_counts_matches_np_unique(n):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert got[0].dtype == np.uint64
+
+
+@pytest.mark.parametrize("v", [
+    [3.0, 1.0, 2.0, 5.0, 4.0],  # odd length
+    [1.0, 2.0, 3.0, 4.0, 10.0, 20.0],  # even length
+    [2.0, 2.0, 2.0, 5.0, 5.0],  # ties
+    [1.5, 4.0],  # two values
+    [7.25],  # one value
+    list(np.random.default_rng(40).random(40) * 3),  # TURNS timings
+], ids=["odd", "even", "ties", "two", "one", "turns"])
+def test_chip_smoke_quartiles(v):
+    """chip_smoke's median and spread are numpy's linear percentiles."""
+    q1, q2, q3 = np.percentile(v, [25, 50, 75], method="linear")
+    got = chip_smoke.quartiles(v)
+    assert got["median"] == pytest.approx(q2, rel=1e-12, abs=1e-12)
+    assert got["spread"] == pytest.approx(q3 - q1, rel=1e-12, abs=1e-12)
+
+
+BUSY_CASES = {
+    "empty": [],
+    "one": [(3, 9)],
+    "disjoint": [(0, 2), (5, 7), (10, 11)],
+    "touching": [(0, 4), (4, 6), (6, 9)],
+    "nested": [(0, 20), (3, 5), (8, 19)],
+    "chain": [(0, 5), (3, 9), (8, 14), (13, 20)],
+    "unsorted": [(12, 15), (0, 3), (2, 6), (14, 18)],
+    "zero-length": [(4, 4), (2, 8), (10, 10)],
+    "zero-length alone": [(5, 5)],
+    "repeated": [(1, 4), (1, 4), (0, 2)],
+}
+
+
+def grid_runs(intervals) -> list:
+    """The union of integer (start, end) intervals by brute force: every
+    unit cell [t, t + 1) some interval covers, as runs of cells."""
+    cells = sorted({t for a, b in intervals for t in range(a, b)})
+    runs = []
+    for t in cells:
+        if runs and runs[-1][1] == t:
+            runs[-1][1] = t + 1
+        else:
+            runs.append([t, t + 1])
+    return [tuple(r) for r in runs]
+
+
+@pytest.mark.parametrize("name", list(BUSY_CASES))
+def test_chip_smoke_busy_union(name, monkeypatch):
+    """device_busy's busy time, the union of the traced device intervals
+    (portbench.records), against a union on an integer grid; a CPU event
+    of the trace stays out of it."""
+    spans = BUSY_CASES[name]
+    want = grid_runs(spans)
+    assert [(a, b) for a, b in merged(spans) if b > a] == want
+    assert covered(spans) == sum(b - a for a, b in want)
+
+    def event(a, b, kind):
+        return types.SimpleNamespace(
+            time_range=types.SimpleNamespace(start=a, end=b),
+            device_type=kind)
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    trace = [event(a, b, cuda) for a, b in spans] + [event(0, 10 ** 6, cpu)]
+
+    class Profile:
+        def __init__(self, activities):
+            assert activities == [profiler.ProfilerActivity.CUDA]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return trace
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(profiler, "profile", Profile)
+    ran = []
+    got = chip_smoke.device_busy(lambda: ran.append(1))
+    assert ran == [1] and got["traced_s"] >= 0
+    if spans:
+        assert got["busy_s"] == round(sum(b - a for a, b in want) / 1e6, 6)
+        assert got["busy_share"] is not None
+    else:
+        assert got["busy_s"] is None and got["busy_share"] is None
 
 
 def test_chip_smoke_hashed_oracles_match_the_port_cli(tmp_path, monkeypatch):

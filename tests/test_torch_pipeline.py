@@ -598,8 +598,7 @@ def test_chip_smoke_pipeline_path_on_the_cpu(tmp_path, monkeypatch):
     inputs = {"fa": fa, "k23": str(tmp_path / "k23.unik"), "one": one,
               "k31H": str(tmp_path / "k31H.unik"), "one_windows": windows,
               "fa2": fa2, "k31W": str(tmp_path / "k31W.unik")}
-    results = {"k2": {"host_us": 1.5}, "k3": {"host_us": 2.5}}
-    launches = chip_smoke.pipeline_path(tmp, rng, CPU, inputs, results)
+    launches = chip_smoke.pipeline_path(tmp, rng, CPU, inputs)
     assert set(launches) == {"k1", "h1", "s1", "k2", "k3"}
     assert sorted(p.name for p in tmp_path.iterdir()) == ["in.fa",
                                                           "k23.unik"]

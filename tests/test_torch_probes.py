@@ -26,7 +26,6 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from unikmer_tpu_torch.ops import probes
-from unikmer_tpu_torch import kernel_variants
 from unikmer_tpu_torch import probes as probe_main
 
 REPO = Path(__file__).resolve().parent.parent
@@ -823,18 +822,6 @@ def test_row_cmpex_walk_of_both_tile_widths(rows, cols, distances,
     for launch in row_cmpex_plan(rows, distances, column_groups):
         if launch[0] == "tile":
             assert popcount(launch[1]) <= most
-
-
-@pytest.mark.parametrize("name", list(kernel_variants.VARIANTS))
-def test_kernel_variants_apply_to_the_sources(name):
-    """Each variant's substitutions find their text in csrc/ as it is,
-    and an earlier design's source exists."""
-    _, source, subs, earlier, _ = kernel_variants.VARIANTS[name]
-    csrc = REPO / "unikmer_tpu_torch" / "csrc"
-    text = (csrc / source).read_text()
-    for old, _new in subs:
-        assert text.count(old) == 1
-    assert earlier is None or (csrc / earlier).is_file()
 
 
 def test_row_cmpex_plan_of_column_group_tiles():

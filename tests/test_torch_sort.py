@@ -15,7 +15,7 @@ import torch
 
 from unikmer_tpu.ops import sort as jax_sort
 from unikmer_tpu.ops.pallas_sort import sort_codes_pallas
-from unikmer_tpu_torch import _kernels, radix_variants
+from unikmer_tpu_torch import _kernels
 from unikmer_tpu_torch.ops import collapse as port_collapse
 from unikmer_tpu_torch.ops import sort as port_sort
 from unikmer_tpu_torch.ops.radix_sort import (
@@ -643,12 +643,3 @@ def test_c1_kernel_matches_plain_on_card(cuda_device):
                     if dt is not None:
                         assert got[1].dtype == dt
                         assert torch.equal(got[1], want[1]), what
-
-
-@pytest.mark.parametrize("name", sorted(radix_variants.VARIANTS))
-def test_radix_variants_apply_to_the_source(name):
-    """Every substitution of radix_variants.VARIANTS finds its text in
-    csrc/radix_sort.cu, so each variant still undoes one choice."""
-    src = (_kernels.CSRC / "radix_sort.cu").read_text()
-    for old, new in radix_variants.VARIANTS[name]:
-        assert old in src and old != new

@@ -171,8 +171,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 class Kernel:
     """One C entry point of the library, launched on the current stream of
     a device.  The C function is resolved at the first call, and again
-    only when ``_lib`` is replaced (radix_variants.py swaps in libraries
-    of its own), so a launch takes no lock and looks up no symbol.  The
+    only when ``_lib`` is replaced (a test swaps in a fake or a fresh
+    build), so a launch takes no lock and looks up no symbol.  The
     stream is torch's raw current-stream handle of the device, read
     without building a ``torch.cuda.Stream``; the current device is
     switched only when the tensors lie on another one."""

@@ -57,8 +57,8 @@
 //      with the sentinel (aux 0) by 16-byte stores, the total read on the
 //      card.  A fill ahead of the kernel (cudaMemsetAsync) writes every
 //      slot twice and measured no faster (slower with an aux column:
-//      kernel_variants.py C1); a tile could not write the tail, since only
-//      the last tile to finish knows the total.
+//      PERF.md section 6, C1's row); a tile could not write the tail,
+//      since only the last tile to finish knows the total.
 // Look-back memory order, as K2's (csrc/radix_sort.cu): a status word is 64
 // bits, 2 flag bits (aggregate, inclusive prefix) above a 62-bit count,
 // stored and loaded as device-scope relaxed atomics; nothing else is

@@ -68,8 +68,8 @@
 //                   column a block at the probes' 4,096 rows and several
 //                   times faster at 2^16 rows.  The phase-0 load stays a
 //                   select: as an if/else it compiles to more branches
-//                   and runs slower (kernel_variants.py times both
-//                   choices; PERF.md holds the numbers).  (The TPU kept
+//                   and runs slower (PERF.md section 6, P1b's row,
+//                   holds the numbers).  (The TPU kept
 //                   the whole block in VMEM; here no block can hold it.)
 // transpose128_u32  replaces probe3 (exp_pallas_dma.py:130, call :138): each
 //                   (128, 128) tile is transposed.  A block takes one

@@ -69,7 +69,7 @@
 // so the words are stored and loaded as device-scope relaxed atomics through
 // cuda::atomic_ref, spinning while the flag is 0.  A release store (a fence
 // before it) ordered nothing more and made each pass about 20% slower on an
-// H100 (radix_variants.py measures it).  Each block publishes its aggregates
+// H100 (PERF.md section 6, K2's row).  Each block publishes its aggregates
 // before it waits on anything, and waits only on tiles taken before its own,
 // so every wait ends.
 // Tile: 256 threads x 16 keys = 4096 keys.  The stage takes 32 KB of dynamic
