@@ -114,6 +114,182 @@ def test_union_all_and_common_match_jax(threshold):
             mk.union_all([])
 
 
+# ---------------------------------------------------------------------
+# the member path: union, union_all and common sort each set's n members,
+# not its padded capacity, and keep the padded inputs' capacity
+
+Q = 1 << 20  # the padding quantum: a set's capacity is Q times 2^j
+
+
+def member_case(name):
+    """(code arrays, from_codes flags) of a named case: sets of unequal
+    fill and capacity, an empty one, all empty, a full one (n ==
+    capacity) and hashed k = 31 codes past 2^63."""
+    rng = np.random.default_rng(sorted(MEMBER_CASES).index(name) + 40)
+    hi = 1 << 46
+    if name == "unequal":
+        big = rng.integers(0, hi, Q + 5000, dtype=np.uint64)
+        return [big, big[:3000], rng.integers(0, hi, 40, dtype=np.uint64),
+                np.concatenate([big[-2000:], rng.integers(
+                    0, hi, 70000, dtype=np.uint64)])], {}
+    if name == "one_empty":
+        a = rng.integers(0, hi, 5000, dtype=np.uint64)
+        return [a, np.zeros(0, np.uint64), a[1000:3000]], {}
+    if name == "all_empty":
+        return [np.zeros(0, np.uint64)] * 3, {}
+    if name == "at_capacity":
+        full = rng.permutation(Q * 4)[:Q].astype(np.uint64)
+        return [full, full[::7], rng.integers(0, Q * 4, 900,
+                                              dtype=np.uint64)], {}
+    top = np.uint64(1 << 63)  # hashed: half of each set past 2^63
+    a = rng.integers(0, (1 << 64) - 1, 6000, dtype=np.uint64)
+    return ([a, a[::2] ^ top, a[:500], rng.integers(
+                0, 1 << 62, 800, dtype=np.uint64) | top],
+            dict(k=31, hashed=True, canonical=True))
+
+
+# (no case is named "full": conftest.py skips that keyword without --full)
+MEMBER_CASES = ("unequal", "one_empty", "all_empty", "at_capacity",
+                "hashed")
+MEMBER_OPS = {
+    "union_all": lambda mk, s: mk.union_all(s),
+    "or": lambda mk, s: s[0] | s[1],
+    "common_1": lambda mk, s: mk.common(s, 1),
+    "common_2": lambda mk, s: mk.common(s, 2),
+    "common_all": lambda mk, s: mk.common(s, len(s)),
+}
+
+
+@pytest.fixture(scope="module")
+def member_sets():
+    """Each case's (JAX sets, port sets), built once."""
+    built = {}
+
+    def get(name):
+        if name not in built:
+            arrays, kw = member_case(name)
+            pairs = [both(c, **kw) for c in arrays]
+            built[name] = [p[0] for p in pairs], [p[1] for p in pairs]
+        return built[name]
+    return get
+
+
+@pytest.mark.parametrize("op", sorted(MEMBER_OPS))
+@pytest.mark.parametrize("case", MEMBER_CASES)
+def test_member_path_matches_jax(member_sets, case, op):
+    """The members, n, capacity and repr of the JAX package's result, and
+    a sentinel tail past the members."""
+    js, ps = member_sets(case)
+    if case == "unequal":
+        assert sorted({s.capacity for s in ps}) == [Q, 2 * Q]
+    if case == "at_capacity":
+        assert len(ps[0]) == ps[0].capacity == Q
+    got = MEMBER_OPS[op](PK, ps)
+    assert_same(MEMBER_OPS[op](JK, js), got)
+    assert (got._codes[len(got):] == -1).all()
+
+
+@pytest.mark.parametrize("op", ["union_all", "or", "common_2"])
+@pytest.mark.parametrize("case", ["unequal", "all_empty"])
+def test_member_path_counts_its_slots(member_sets, monkeypatch, case, op):
+    """The counters rise by the members handed to K2 and by the padded
+    slots they replace: the capacities' sum for a union, the set count
+    times the largest capacity for common."""
+    from unikmer_tpu_torch.utils import stages
+
+    monkeypatch.setattr(stages, "COUNTERS", {})
+    ps = member_sets(case)[1]
+    ps = ps[:2] if op == "or" else ps
+    MEMBER_OPS[op](PK, ps)
+    caps = [s.capacity for s in ps]
+    replaced = len(caps) * max(caps) if op == "common_2" else sum(caps)
+    assert stages.snapshot()["counters"] == {
+        "sets.member_slots": sum(len(s) for s in ps),
+        "sets.capacity_slots": replaced}
+
+
+def test_sharded_callers_keep_the_padded_path(monkeypatch):
+    """device_sets.union and common without lengths (the sharded routes'
+    padded tensors, whose counts stay on the device) sort the padding
+    too: no member path, no slot count and no read-back."""
+    from unikmer_tpu_torch.ops import device_sets
+    from unikmer_tpu_torch.parallel import sharded
+    from unikmer_tpu_torch.utils import stages
+
+    def boom(*a, **kw):
+        raise AssertionError("the member path or a read-back ran")
+
+    monkeypatch.setattr(stages, "COUNTERS", {})
+    monkeypatch.setattr(device_sets, "_members", boom)
+    monkeypatch.setattr(device_sets, "read_back", boom)
+    rng = np.random.default_rng(47)
+    rows = [np.unique(rng.integers(0, 1 << 30, m, dtype=np.uint64))
+            for m in (300, 500, 200, 700)]
+    sent = np.uint64((1 << 64) - 1)
+
+    def padded(c, cap=1024):
+        return torch.from_numpy(np.concatenate(
+            [c, np.full(cap - len(c), sent)]).view(np.int64))
+
+    shards_a, shards_b = [padded(rows[0]), padded(rows[1])], \
+        [padded(rows[2]), padded(rows[3])]
+    got = sharded.sharded_set_op("union", shards_a, shards_b, 30)
+    stacked = [torch.stack([padded(rows[0]), padded(rows[2])]),
+               torch.stack([padded(rows[1]), padded(rows[3])])]
+    got_c = sharded.sharded_common(stacked, 1, 30)
+    for i, ((c, n), (cc, nc)) in enumerate(zip(got, got_c)):
+        want = np.union1d(rows[i], rows[i + 2])
+        assert c.shape[0] == 2048 and cc.shape[0] == 2048
+        for codes, count in ((c, n), (cc, nc)):
+            assert isinstance(count, torch.Tensor) and count.dim() == 0
+            np.testing.assert_array_equal(
+                codes.numpy().view(np.uint64)[: len(want)], want)
+            assert int(count) == len(want)
+            assert (codes[len(want):] == -1).all()
+    assert stages.snapshot()["counters"] == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MEMBER_CASES)
+def test_member_path_on_card_matches_the_padded_path(case):
+    """On the card (K2 and C1) the member path gives the padded path's
+    members and n, the full capacity with an all-sentinel tail, and the
+    CPU KmerSet's results; larger sets take many of C1's tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from unikmer_tpu_torch.ops import device_sets
+
+    arrays, kw = member_case(case)
+    if case not in ("all_empty", "at_capacity"):
+        rng = np.random.default_rng(48)
+        top = (1 << 64) - 1 if kw else 1 << 46
+        arrays = arrays + [rng.integers(0, top, (1 << 22) + 7,
+                                        dtype=np.uint64)]
+    kw = {"k": 23, **kw}
+    bits = 64 if kw.get("hashed") else 46
+    cards = [PK.from_codes(c, device="cuda", **kw) for c in arrays]
+    cpus = [PK.from_codes(c, device="cpu", **kw) for c in arrays]
+    codes, lengths = [s._codes for s in cards], [len(s) for s in cards]
+    cap = max(s.capacity for s in cards)
+    stacked = torch.stack([torch.cat([c, c.new_full((cap - c.shape[0],),
+                                                    -1)]) for c in codes])
+    runs = {"union": (device_sets.union_many(codes, bits, lengths),
+                      device_sets.union_many(codes, bits)),
+            "common": (device_sets.common(codes, 2, bits, lengths),
+                       device_sets.common(stacked, 2, bits))}
+    for name, ((c, n), (pc, pn)) in runs.items():
+        n = int(n)
+        assert n == int(pn), name
+        assert c.shape == pc.shape, name
+        torch.testing.assert_close(c[:n], pc[:n], rtol=0, atol=0)
+        assert (c[n:] == -1).all(), name
+    for op in MEMBER_OPS.values():
+        got, want = op(PK, cards), op(PK, cpus)
+        np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+        assert (len(got), got.capacity) == (len(want), want.capacity)
+        assert (got._codes[len(got):] == -1).all()
+
+
 def taxid_sets(taxdbs, seed):
     """Four sets with per-code taxids from the taxdump; the first holds
     an unknown nonzero taxid and some 0s."""

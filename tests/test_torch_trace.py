@@ -155,7 +155,8 @@ def test_admit_span_wraps_the_free_bytes_read(fresh, monkeypatch):
 
 
 def test_nothing_records_without_a_listener(fresh, sets, monkeypatch):
-    """No profiler and no recorder: no span, no counter, and
+    """No profiler and no recorder: no span, no counter but the member
+    path's slot counts (which count work, listened to or not), and
     record_function is never entered."""
     def boom(*a, **kw):
         raise AssertionError("record_function entered")
@@ -168,7 +169,10 @@ def test_nothing_records_without_a_listener(fresh, sets, monkeypatch):
     assert sets[0].contains(sets[0].to_numpy()[:10]).all()
     assert stages.snapshot()["spans"] == []
     assert stages.stage("x", CPU) is stages.stage("y") is stages._NULL
-    assert stages.snapshot()["counters"] == {}
+    # union_all and common, each over the sets' members
+    assert stages.snapshot()["counters"] == {
+        "sets.member_slots": 2 * sum(len(s) for s in sets),
+        "sets.capacity_slots": 2 * sum(s.capacity for s in sets)}
 
 
 def test_recorder_takes_spans_and_stage_seconds(fresh, sets):

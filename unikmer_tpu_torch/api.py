@@ -21,15 +21,18 @@ CUDA unless UNIKMER_TPU_TORCH_DEVICE says otherwise); an operation
 between sets on different devices raises.  Capacities are padded to
 ``_padded_len`` (2^20 times a power of two, the JAX package's quantum
 off the TPU), so ``capacity``, ``compact()`` and ``repr`` agree with it.
-Each constructor and operation admits its work by the device's element
-budget for its route (ops/device_sets.fits: the free bytes over the
-route's measured bytes a slot, or UNIKMER_TPU_MAX_ELEMS when set; none
-on the CPU).  The free bytes are the process's kept reading of the card
-less what torch's allocator has allocated since; the card itself is read
-only at the first admission, near the budget, after an allocation
-failure, and after the server's release between requests.  Past the
-budget a set stays on the host and its operations take the host engine
-(ops/sets.py), as in the JAX package past its cap.
+The sorts of ``|``, ``union_all`` and ``common`` take each set's members
+(its first n slots, n a host int), not its padding; their results keep
+the padded inputs' capacity until ``compact()``.  Each constructor and
+operation admits its work by the device's element budget for its route
+(ops/device_sets.fits: the free bytes over the route's measured bytes a
+slot, or UNIKMER_TPU_MAX_ELEMS when set; none on the CPU).  The free
+bytes are the process's kept reading of the card less what torch's
+allocator has allocated since; the card itself is read only at the
+first admission, near the budget, after an allocation failure, and after
+the server's release between requests.  Past the budget a set stays on
+the host and its operations take the host engine (ops/sets.py), as in
+the JAX package past its cap.
 
 Each public operation is a span of utils/stages.py (``KmerSet.<op>``), a
 root where no open span called it, recorded only while a profiler or a
@@ -449,7 +452,8 @@ class KmerSet:
                 parent, depth, max_depth, 1, bits,
             )
             return self._new(c, n, t, taxdb)
-        c, n = device_sets.union(self._codes, other._codes, code_bits=bits)
+        c, n = device_sets.union(self._codes, other._codes, code_bits=bits,
+                                 lengths=(self._n, other._n))
         return self._new(c, n)
 
     def _zero_taxids(self):
@@ -511,8 +515,9 @@ class KmerSet:
     @staticmethod
     @_op
     def union_all(sets) -> "KmerSet":
-        """N-way union in one device pass (concatenation, one K2 sort and
-        the collapse), cheaper than a chain of pairwise unions."""
+        """N-way union in one device pass (the members' concatenation, one
+        K2 sort and the collapse), cheaper than a chain of pairwise
+        unions."""
         sets = list(sets)
         if not sets:
             raise ValueError("union_all() needs at least one set")
@@ -532,7 +537,8 @@ class KmerSet:
             c, _ = host_sets.union([s.to_numpy() for s in sets])
             return first._from_host(c, None)
         c, n = device_sets.union_many([s._codes for s in sets],
-                                      first._code_bits)
+                                      first._code_bits,
+                                      lengths=[s._n for s in sets])
         return first._new(c, n)
 
     @staticmethod
@@ -555,15 +561,9 @@ class KmerSet:
             c, _ = host_sets.common(
                 [s.to_numpy() for s in sets], None, threshold)
             return first._from_host(c, None)
-        cap = max(s.capacity for s in sets)
-        stacked = torch.stack([
-            s._codes if s.capacity == cap
-            else torch.cat([s._codes, s._codes.new_full(
-                (cap - s.capacity,), SENTINEL)])
-            for s in sets
-        ])
-        c, n = device_sets.common(stacked, threshold,
-                                  code_bits=first._code_bits)
+        c, n = device_sets.common([s._codes for s in sets], threshold,
+                                  code_bits=first._code_bits,
+                                  lengths=[s._n for s in sets])
         return first._new(c, n)
 
     # ------------------------------------------------------------ queries

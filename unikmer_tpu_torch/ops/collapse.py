@@ -104,7 +104,7 @@ def collapse_plain(keys: torch.Tensor, mode: str = "distinct", *,
     return compact_plain(keys, keep), aux_out, n
 
 
-def _check(keys, mode, threshold, mask, aux, n_sent_real) -> None:
+def _check(keys, mode, threshold, mask, aux, n_sent_real, out) -> None:
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise ValueError("collapse_pass takes a 1-D int64 tensor of keys")
     if keys.device.type not in ("cpu", "cuda"):
@@ -127,7 +127,12 @@ def _check(keys, mode, threshold, mask, aux, n_sent_real) -> None:
                                     or n_sent_real.dim() != 0):
         raise ValueError("n_sent_real is a 0-dim int64 tensor of a "
                          "distinct, unique or repeated collapse")
-    for t in (mask, aux, n_sent_real):
+    if out is not None and (out.dtype != torch.int64
+                            or out.shape != keys.shape
+                            or not out.is_contiguous()):
+        raise ValueError("out is a contiguous int64 tensor shaped like the "
+                         "keys")
+    for t in (mask, aux, n_sent_real, out):
         if t is not None and t.device != keys.device:
             raise ValueError("every tensor of a collapse on one device")
 
@@ -135,18 +140,24 @@ def _check(keys, mode, threshold, mask, aux, n_sent_real) -> None:
 def collapse_pass(keys: torch.Tensor, mode: str = "distinct", *,
                   threshold: int = 1, mask: torch.Tensor | None = None,
                   aux: torch.Tensor | None = None,
-                  n_sent_real: torch.Tensor | None = None):
+                  n_sent_real: torch.Tensor | None = None,
+                  out: torch.Tensor | None = None):
     """C1 on CUDA tensors, its plain version on CPU tensors: the slots of
     ``keys`` that ``mode`` keeps, compacted.  Returns (out, aux_out, n):
     ``out`` and ``aux_out`` (None without ``aux``) new tensors of the
     input's length, ``n`` a 0-dim int64 tensor; the inputs are left as
-    they are."""
-    _check(keys, mode, threshold, mask, aux, n_sent_real)
+    they are.  Given ``out`` (contiguous, shaped like the keys: a prefix
+    view of a longer result, say), the keys are written there and it is
+    returned."""
+    _check(keys, mode, threshold, mask, aux, n_sent_real, out)
     if keys.device.type == "cpu" or keys.shape[0] == 0:  # nothing to launch
-        return collapse_plain(keys, mode, threshold=int(threshold),
-                              mask=mask, aux=aux, n_sent_real=n_sent_real)
+        kept, aux_out, n = collapse_plain(
+            keys, mode, threshold=int(threshold), mask=mask, aux=aux,
+            n_sent_real=n_sent_real)
+        return (kept if out is None else out.copy_(kept)), aux_out, n
     dev, n = keys.device, keys.shape[0]
-    out = torch.empty(n, dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.empty(n, dtype=torch.int64, device=dev)
     aux_out = None if aux is None else torch.empty(n, dtype=aux.dtype,
                                                    device=dev)
     keys = keys.contiguous()

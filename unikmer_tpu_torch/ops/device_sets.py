@@ -12,7 +12,10 @@ supported here: it reads as padding, as in the JAX package.
 
 - :func:`union` and :func:`common` sort the concatenation with K2
   (ops/sort._sort_u64) and keep the first slot of each run (of at least
-  ``threshold`` slots for ``common``) by C1 (ops/collapse.py);
+  ``threshold`` slots for ``common``) by C1 (ops/collapse.py); where the
+  caller passes the sets' member counts as host ints (``KmerSet`` does),
+  only the members are concatenated, sorted and collapsed, and the
+  result still has the padded inputs' capacity;
 - membership (:func:`intersect`, :func:`subtract`, :func:`member_bits`
   and the taxid variants) is a binary search, ``torch.searchsorted``,
   over the codes with the sign bit flipped (unsigned order read as
@@ -232,23 +235,57 @@ def _compact_mask(values: torch.Tensor, keep: torch.Tensor):
     return out, n
 
 
-def union(a: torch.Tensor, b: torch.Tensor, code_bits: int = 64):
+def _members(sets, lengths, capacity: int):
+    """The member path of :func:`union_many` and :func:`common`: (the
+    concatenation of each set's first ``lengths[i]`` slots, a result of
+    ``capacity`` slots whose tail past those members is the sentinel).
+    Counts the members in ``sets.member_slots`` and the capacity they
+    replace in ``sets.capacity_slots``."""
+    total = sum(lengths)
+    stages.count("sets.member_slots", total)
+    stages.count("sets.capacity_slots", capacity)
+    out = torch.empty(capacity, dtype=torch.int64, device=sets[0].device)
+    out[total:].fill_(SENTINEL)
+    merged = torch.cat([s[:m] for s, m in zip(sets, lengths)])
+    return merged, out
+
+
+def _prefix(out, n: int):
+    """The first ``n`` slots of the member path's result (None off it)."""
+    return None if out is None else out[:n]
+
+
+def union(a: torch.Tensor, b: torch.Tensor, code_bits: int = 64,
+          lengths=None):
     """Union of two padded sorted sets -> (codes, n) with capacity
     len(a) + len(b).  ``code_bits`` bounds the members (sentinel padding
-    aside), so K2 runs only the passes that width needs."""
-    return union_many([a, b], code_bits)
+    aside), so K2 runs only the passes that width needs; ``lengths`` as
+    for :func:`union_many`."""
+    return union_many([a, b], code_bits, lengths)
 
 
-def union_many(sets, code_bits: int = 64):
+def union_many(sets, code_bits: int = 64, lengths=None):
     """Union of padded sorted sets -> (codes, n) with their combined
     capacity: one K2 sort of the concatenation, then C1's distinct rule
-    (no member is sentinel-valued, so none is counted apart)."""
-    merged = torch.cat(list(sets))
+    (no member is sentinel-valued, so none is counted apart).  Given
+    ``lengths``, each set's member count as a host int, only the members
+    are sorted and collapsed; the result keeps the combined capacity,
+    its tail the sentinel.  Without them (a sharded caller, whose counts
+    are on the card) the padded sets are sorted whole."""
+    sets = list(sets)
+    if lengths is None:
+        merged, out = torch.cat(sets), None
+    else:
+        merged, out = _members(sets, lengths,
+                               sum(s.shape[0] for s in sets))
+        if merged.shape[0] == 0:
+            return out, out.new_zeros(())
     with stages.stage("sort", merged.device):
         merged = _sort_u64(merged, code_bits)
     with stages.stage("collapse", merged.device):
-        out, _, n = collapse_pass(merged, "distinct")
-    return out, n
+        kept, _, n = collapse_pass(merged, "distinct",
+                                   out=_prefix(out, merged.shape[0]))
+    return (kept if out is None else out), n
 
 
 def intersect(a: torch.Tensor, b: torch.Tensor):
@@ -263,16 +300,29 @@ def subtract(a: torch.Tensor, b: torch.Tensor):
     return _compact_mask(a, ~hit & (a != SENTINEL))
 
 
-def common(sets: torch.Tensor, threshold: int, code_bits: int = 64):
+def common(sets, threshold: int, code_bits: int = 64, lengths=None):
     """Codes in >= threshold of the stacked padded sets (sets: (F, C))
     -> (codes, n) with capacity F * C: one K2 sort; a run starting at i
     holds >= t slots when slot i + t - 1 holds its code (C1's threshold
     rule: one more read for each run start, where the JAX package takes
-    run bounds from a cummax and a reversed cummin)."""
-    merged = _sort_u64(sets.reshape(-1), code_bits)
-    out, _, n = collapse_pass(merged, "threshold",
-                              threshold=max(int(threshold), 1))
-    return out, n
+    run bounds from a cummax and a reversed cummin).  Given ``lengths``,
+    ``sets`` is a sequence of F padded sets of any capacities, of which
+    only each one's first ``lengths[i]`` slots, its members, are sorted
+    and counted (padding never makes a run that counts); the result
+    keeps the capacity F times the largest, its tail the sentinel."""
+    if lengths is None:
+        merged, out = sets.reshape(-1), None
+    else:
+        sets = list(sets)
+        merged, out = _members(sets, lengths,
+                               len(sets) * max(s.shape[0] for s in sets))
+        if merged.shape[0] == 0:
+            return out, out.new_zeros(())
+    merged = _sort_u64(merged, code_bits)
+    kept, _, n = collapse_pass(merged, "threshold",
+                               threshold=max(int(threshold), 1),
+                               out=_prefix(out, merged.shape[0]))
+    return (kept if out is None else out), n
 
 
 def _packbits_little(bits: torch.Tensor) -> torch.Tensor:

@@ -42,8 +42,11 @@ Counters.  :func:`timed` adds a block's host seconds to an always-on
 counter in a plain dict: the loads of the kernel and host libraries
 (``kernels.load_s``, ``native.load_s``: a build where the checkout has
 none, the dlopen), which run before any profiler does.  :func:`count`
-adds 1 to one: ``admit.calls``, the admissions against a card's budget,
-and ``admit.reads``, those that read the card's free bytes
+adds 1, or an amount, to one: ``admit.calls``, the admissions against a
+card's budget, and ``admit.reads``, those that read the card's free
+bytes; ``sets.member_slots``, the members that ``union_many`` and
+``common`` hand to K2 where the caller gives the sets' lengths, and
+``sets.capacity_slots``, the padded slots those sorts would have taken
 (ops/device_sets.py).  :func:`snapshot` returns a copy of the counters
 and of the spans.
 """
@@ -232,10 +235,10 @@ def timed(name: str):
             COUNTERS[name] = COUNTERS.get(name, 0.0) + secs
 
 
-def count(name: str) -> None:
-    """Add 1 to the always-on counter ``name``."""
+def count(name: str, amount: int = 1) -> None:
+    """Add ``amount`` (1 by default) to the always-on counter ``name``."""
     with _COUNT_LOCK:
-        COUNTERS[name] = COUNTERS.get(name, 0) + 1
+        COUNTERS[name] = COUNTERS.get(name, 0) + amount
 
 
 def snapshot() -> dict:
