@@ -19,6 +19,13 @@ after ``seconds``.  Afterwards the answers of a sample of the window's
 requests, and every set that set-up made, are fetched and compared with
 the plain reference, which reads the same FASTA files and works
 everything out again.
+
+A configuration with a ``taxonomy`` block (gen/taxonomy.py names its
+keys) carries taxids: set-up also writes the seed's ``nodes.dmp`` and
+tags each genome's set with its genome's taxid, through the program's
+own loader and ``KmerSet.from_codes``; the comparison then holds every
+member's taxid to the reference's (reference/taxa.py), as
+``taxids_wrong``.  A configuration without one takes none of this.
 """
 
 from __future__ import annotations
@@ -40,9 +47,11 @@ from portbench.gen.traffic import (
 from portbench.records import (
     RunRecords, Trace, breakdown, busy_us, host_calls,
 )
-from portbench.reference.compare import members_wrong
+from portbench.gen.taxonomy import write_taxonomy
+from portbench.reference.compare import members_wrong, taxids_wrong
 from portbench.reference.encode import genome_set
 from portbench.reference.sets import ReferenceSets
+from portbench.reference.taxa import TaxaSets
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "unikmer_tpu")
@@ -110,6 +119,23 @@ class ProgramSets:
 
     def size(self, x) -> int:
         return len(x)
+
+
+def tag_sets(KmerSet, sets: list, taxa, cfg: dict, dev) -> None:
+    """Replace each genome's set by the same members tagged with its
+    genome's taxid, over the taxonomy loaded by the program's loader."""
+    import numpy as np
+
+    from unikmer_tpu_torch.taxonomy.taxdump import load_taxonomy
+
+    taxdb = load_taxonomy(taxa.directory)
+    for i, taxid in enumerate(taxa.genome_taxids):
+        codes = sets[i].to_numpy()
+        sets[i] = None
+        sets[i] = KmerSet.from_codes(
+            codes, cfg["k"], canonical=cfg["canonical"],
+            hashed=cfg["hashed"], taxids=np.full(len(codes), taxid, np.uint32),
+            taxdb=taxdb, assume_sorted_unique=True, device=dev)
 
 
 def on_host(kset) -> bool:
@@ -197,22 +223,46 @@ def _trace_window(torch, traced: bool):
                    profile_memory=False)
 
 
-def check(cfg: dict, mix: dict, paths: list[str], program: dict,
-          device) -> dict:
-    """The comparison with the reference, run on ``device``.  ``program``
-    holds the program's fetched arrays: ``genomes`` (a list) and
-    ``answers`` (a list of (request, array)).  Returns
-    the numbers compared, each with its limit."""
+def reference_sets(paths: list[str], cfg: dict, device, taxa=None):
+    """The reference's backend over the genomes' FASTA files; with
+    ``taxa`` (gen/taxonomy.py), each genome's members carry its taxid."""
     ref_genomes = [genome_set(p, cfg["k"], cfg["canonical"], cfg["hashed"],
                               device) for p in paths]
-    ref = ReferenceSets(ref_genomes)
+    if taxa is None:
+        return ReferenceSets(ref_genomes)
+    return TaxaSets.one_taxid_a_genome(ref_genomes, taxa.genome_taxids,
+                                       taxa.nodes_dmp)
+
+
+def check(cfg: dict, mix: dict, paths: list[str], program: dict,
+          device, taxa=None) -> dict:
+    """The comparison with the reference, run on ``device``.  ``program``
+    holds the program's fetched arrays: ``genomes`` (a list) and
+    ``answers`` (a list of (request, array)); with ``taxa``, also
+    ``taxids``: ``{"genomes": [...], "answers": [...]}``, each set's
+    taxids in the same order.  Returns the numbers compared, each with
+    its limit."""
+    ref = reference_sets(paths, cfg, device, taxa)
     rev = Evaluator(ref, cfg)
     out = {"genome_sets_wrong": sum(
         members_wrong(got, ref.codes(i))
         for i, got in enumerate(program["genomes"]))}
-    out["answers_wrong"] = sum(
-        members_wrong(got, ref.codes(rev.request(req)))
-        for req, got in program["answers"])
+    if taxa is None:
+        out["answers_wrong"] = sum(
+            members_wrong(got, ref.codes(rev.request(req)))
+            for req, got in program["answers"])
+    else:
+        tags = program["taxids"]
+        out["answers_wrong"] = out["taxids_wrong"] = 0
+        for i, (got, got_t) in enumerate(zip(program["genomes"],
+                                             tags["genomes"])):
+            out["taxids_wrong"] += taxids_wrong(got, got_t, ref.codes(i),
+                                                ref.taxids(i))
+        for (req, got), got_t in zip(program["answers"], tags["answers"]):
+            want = rev.request(req)
+            out["answers_wrong"] += members_wrong(got, ref.codes(want))
+            out["taxids_wrong"] += taxids_wrong(got, got_t, ref.codes(want),
+                                                ref.taxids(want))
     kinds = {e["kind"] for e in mix["deck"]}
     out["kinds_unchecked"] = len(kinds - {req.kind for req, _ in
                                           program["answers"]})
@@ -260,6 +310,13 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
                 for p in paths]
         device.sync()
         setup["count_s"] = time.perf_counter() - t
+        taxa = None
+        if "taxonomy" in cfg:
+            t = time.perf_counter()
+            taxa = write_taxonomy(cfg, seed, os.path.join(tmp, "taxdump"))
+            tag_sets(KmerSet, sets, taxa, cfg, device.dev)
+            device.sync()
+            setup["tag_s"] = time.perf_counter() - t
         if any(on_host(s) for s in sets):
             raise SystemExit("set-up: a genome's set was kept on the host")
 
@@ -308,6 +365,12 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
             "answers": [(req, res.to_numpy())
                         for _, (req, res) in sorted(kept.items())],
         }
+        if taxa is not None:
+            program["taxids"] = {
+                "genomes": [s.taxids_to_numpy() for s in sets],
+                "answers": [res.taxids_to_numpy()
+                            for _, (_, res) in sorted(kept.items())],
+            }
         del sets, ev, kept
         if device.cuda:
             torch.cuda.empty_cache()
@@ -322,7 +385,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
             print("portbench: host calls in the window [name, s, count]: "
                   + json.dumps(host_calls(trace)), flush=True)
         t = time.perf_counter()
-        checks = check(cfg, mix, paths, program, device.dev)
+        checks = check(cfg, mix, paths, program, device.dev, taxa)
         print(f"portbench: fetch {t - t_after:.3f} s, reference and "
               f"comparison {time.perf_counter() - t:.3f} s", flush=True)
     checks["requests_failed"] = {"value": failed, "limit": 0}

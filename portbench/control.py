@@ -10,7 +10,9 @@ reach for, holds every 46-bit code exactly, so it could not fail the
 For each seed it makes the cell's genome sets with the control,
 answers the requests that a run of that seed compares (the sample drawn
 from the seed among the window's first requests), and prints the numbers that the run's comparison gives, one JSON line a
-seed.  The benchmark's own runs never run it.
+seed.  Where the configuration carries taxids, the control's sets carry
+each genome's taxid, merged by the reference's own LCA.  The benchmark's
+own runs never run it.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ if str(ROOT) not in sys.path:
 
 from portbench.cell import check, load_cell  # noqa: E402
 from portbench.gen.genomes import write_genomes  # noqa: E402
+from portbench.gen.taxonomy import write_taxonomy  # noqa: E402
 from portbench.gen.traffic import (  # noqa: E402
     Evaluator, RequestStream, sample_ordinals,
 )
 from portbench.reference.encode import SIGN, genome_set  # noqa: E402
 from portbench.reference.sets import ReferenceSets  # noqa: E402
+from portbench.reference.taxa import TaxaSets  # noqa: E402
 
 LOW32 = (1 << 32) - 1
 
@@ -53,21 +57,35 @@ def control_run(workload: str, seed: int, device, root: Path = ROOT,
         paths = write_genomes(cfg, seed, tmp)
         sets = [narrowed(genome_set(p, cfg["k"], cfg["canonical"],
                                     cfg["hashed"], device)) for p in paths]
-        ctl = ReferenceSets(sets)  # the reference over the 32-bit sets
+        # the reference over the 32-bit sets
+        taxa = None
+        if "taxonomy" in cfg:
+            taxa = write_taxonomy(cfg, seed, f"{tmp}/taxdump")
+            ctl = TaxaSets.one_taxid_a_genome(sets, taxa.genome_taxids,
+                                              taxa.nodes_dmp)
+        else:
+            ctl = ReferenceSets(sets)
         ev = Evaluator(ctl, cfg)
         keep = sample_ordinals(mix, cfg, seed)
         stream = RequestStream(mix, cfg, seed)
-        answers = []
+        answers, answer_taxids = [], []
         while keep:
             req = next(stream)
             if req.ordinal in keep:
                 keep.discard(req.ordinal)
-                answers.append((req, ctl.codes(ev.request(req))))
+                got = ev.request(req)
+                answers.append((req, ctl.codes(got)))
+                if taxa is not None:
+                    answer_taxids.append(ctl.taxids(got))
         program = {
             "genomes": [ctl.codes(i) for i in range(len(sets))],
             "answers": answers,
         }
-        return check(cfg, mix, paths, program, device)
+        if taxa is not None:
+            program["taxids"] = {
+                "genomes": [ctl.taxids(i) for i in range(len(sets))],
+                "answers": answer_taxids}
+        return check(cfg, mix, paths, program, device, taxa)
 
 
 def main(argv=None) -> int:

@@ -49,9 +49,14 @@ def _bit(g: int) -> int:
 
 class Universe:
     """The union of the genomes' sorted distinct code tensors (``codes``),
-    and for each code a bit a genome (``bits``, [codes, words] int64)."""
+    and for each code a bit a genome (``bits``, [codes, words] int64).
 
-    def __init__(self, sets: list[torch.Tensor]):
+    Given ``taxids`` (one int64 column a set, a taxid a member), it also
+    keeps each set's taxid column (``taxids``) beside its members' places
+    in the universe (``slots``), for reference/taxa.py."""
+
+    def __init__(self, sets: list[torch.Tensor],
+                 taxids: list[torch.Tensor] | None = None):
         device = sets[0].device
         self.words = -(-len(sets) // 64)
         codes = torch.cat(sets)
@@ -60,9 +65,16 @@ class Universe:
                            for g, s in enumerate(sets)])
         codes, order = torch.sort(codes)
         owner = owner[order]
-        del order
+        if taxids is None:
+            del order
         self.codes, slot = torch.unique_consecutive(codes, return_inverse=True)
         del codes
+        if taxids is not None:
+            at = torch.empty_like(slot)
+            at[order] = slot  # each member's place, in the sets' order
+            del order
+            self.slots = list(torch.split(at, [len(s) for s in sets]))
+            self.taxids = list(taxids)
         self.bits = torch.zeros(len(self.codes), self.words, dtype=torch.int64,
                                 device=device)
         for w in range(self.words):
